@@ -1,0 +1,137 @@
+"""Decoder stack for the attention + FFN/MoE families (``repro.models
+.transformer``).
+
+Parameters are ``{"embed": [V, d], "final_norm": {...}, "layers": [...]}``
+with one dict per layer; the reference's period-stacked ``lax.scan`` becomes
+a plain loop over layers.  Caches keep the reference's stacked layout
+(``kv_k``/``kv_v`` ``[L, B, S, nkv, hd]``, or ``[L, P, ps, nkv, hd]`` page
+pools plus ``block_tables``) and are updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import check_supported
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import Params, embed_init, init_rmsnorm, rmsnorm, softcap
+from repro_torch.models.ffn import ffn, init_ffn
+
+
+def _init_layer(kind: str, cfg, gen, dtype, device) -> Params:
+    d = cfg.d_model
+    lp = {
+        "ln1": init_rmsnorm(d, device),
+        "attn": attn_mod.init_attention(cfg, gen, dtype, device),
+        "ln2": init_rmsnorm(d, device),
+    }
+    if kind == "moe":
+        lp["moe"] = moe_mod.init_moe(cfg, gen, dtype, device)
+    else:
+        lp["ffn"] = init_ffn(d, cfg.d_ff, cfg.ffn_activation, gen, dtype, device)
+    return lp
+
+
+def init_params(cfg, gen: torch.Generator, device) -> Params:
+    """Random weights of the reference's distributions, drawn from ``gen``."""
+    check_supported(cfg)
+    dtype = cfg.torch_dtype
+    return {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
+        "layers": [_init_layer(kind, cfg, gen, dtype, device) for kind in cfg.layer_kinds()],
+        "final_norm": init_rmsnorm(cfg.d_model, device),
+    }
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+
+
+def lm_head(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Tied head: logits in the activation dtype, then cast to f32."""
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = (x @ params["embed"].T).float()
+    return softcap(logits, cfg.final_logit_softcap)
+
+
+def attention_stage(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg):
+    """ln1 -> one-token attention (in-place cache write) -> residual -> ln2.
+    Returns ``(x_resid, h_ffn)``."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    h, _, _ = attn_mod.attention_decode(
+        lp["attn"], h, kv["k"], kv["v"], cache_index, cfg, block_tables=kv.get("bt")
+    )
+    x = x + h
+    return x, rmsnorm(lp["ln2"], x, cfg.norm_eps)
+
+
+def attention_stage_chunk(lp, x, kv: Dict[str, torch.Tensor], start: int, cfg):
+    """Chunked-prefill analogue of :func:`attention_stage`."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    h, _, _ = attn_mod.attention_prefill_chunk(lp["attn"], h, kv["k"], kv["v"], start, cfg)
+    x = x + h
+    return x, rmsnorm(lp["ln2"], x, cfg.norm_eps)
+
+
+def moe_stage(lp, x, h, cfg, moe_ctx: Optional[Dict[str, Any]] = None):
+    """MoE (or dense) FFN on the normalised input ``h``, added to ``x``."""
+    if "moe" in lp:
+        return x + moe_mod.moe_layer(lp["moe"], h, cfg, **(moe_ctx or {}))
+    return x + ffn(lp["ffn"], h, cfg.ffn_activation)
+
+
+def decode_step(
+    params: Params,
+    tokens: torch.Tensor,  # [b, 1]
+    caches: Dict[str, torch.Tensor],
+    cache_index: torch.Tensor,  # [b] per-slot positions
+    cfg,
+    extra: Optional[Dict[str, Any]] = None,
+):
+    """One-token decode (``transformer.py:415``).  Returns ``(logits [b, V]
+    f32, caches)``; the caches are updated in place."""
+    moe_ctx = (extra or {}).get("moe_ctx")
+    x = embed_tokens(params, tokens, cfg)
+    bt = caches.get("block_tables")
+    for l, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
+        kv = {"k": caches["kv_k"][l], "v": caches["kv_v"][l]}
+        if bt is not None:
+            kv["bt"] = bt
+        x, h2 = attention_stage(lp, x, kv, cache_index, cfg)
+        x = moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None)
+    return lm_head(params, x[:, 0, :], cfg), caches
+
+
+def supports_chunked_prefill(cfg) -> bool:
+    """Chunked prefill covers attention + FFN/MoE stacks without windows or
+    quantised caches -- everything this slice of the port runs."""
+    try:
+        check_supported(cfg)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def prefill_chunk(
+    params: Params,
+    tokens: torch.Tensor,  # [b, c], one prompt chunk
+    caches: Dict[str, torch.Tensor],  # contiguous decode-format caches
+    start: int,
+    cfg,
+    extra: Optional[Dict[str, Any]] = None,
+):
+    """One prompt chunk against partially filled caches (``transformer.py:705``).
+    Returns ``(last-token logits [b, V], caches)``, caches updated in place."""
+    if not supports_chunked_prefill(cfg):
+        raise NotImplementedError(f"{cfg.name}: chunked prefill is not ported for this architecture")
+    moe_ctx = (extra or {}).get("moe_ctx")
+    x = embed_tokens(params, tokens, cfg)
+    for l, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
+        kv = {"k": caches["kv_k"][l], "v": caches["kv_v"][l]}
+        x, h2 = attention_stage_chunk(lp, x, kv, start, cfg)
+        x = moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None)
+    return lm_head(params, x[:, -1, :], cfg), caches

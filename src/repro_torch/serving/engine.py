@@ -1,0 +1,244 @@
+"""Continuous-batching decode engine with the Janus scheduled-MoE path
+(``repro.serving.engine.ServingEngine``): the monolithic executor with
+blocking admission and FIFO order.
+
+* admission: an arrived request takes the lowest free slot and its whole
+  prompt is prefilled through the chunked :class:`PrefillWorker` before the
+  next decode iteration (the decode clock is charged);
+* decode: one batched ``decode_step`` per iteration with per-slot positions;
+  MoE layers route -> AEBS (``scheduler="aebs"``; on the card that is the K2
+  kernel) -> grouped dispatch over the activated experts (K3 on the card);
+  paged KV (``kv_page_size``) serves attention through K1 on the card;
+* timing: wall clock around work that ends in a device sync.
+
+Options of the reference that later slices port raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.aebs import ReplicaLayout
+from repro_torch.kernels.aebs.ops import aebs_schedule
+from repro_torch.models import model as model_mod
+from repro_torch.models.common import resolve_device
+from repro_torch.serving.kv_cache import (
+    PagedKVCache,
+    SlotManager,
+    make_paged_caches,
+    scatter_prefill_chunk_caches,
+    scatter_prefill_chunk_paged,
+)
+from repro_torch.serving.prefill import PrefillEvent, PrefillWorker
+from repro_torch.serving.request import Request
+
+# "aebs" and "aebs_kernel" share one contract (kernels/aebs/ops.py:40-41 of
+# the reference); the wrapper runs the CUDA kernel on the card and the plain
+# aebs_assign on the CPU.
+SCHEDULERS = {"aebs": aebs_schedule, "aebs_kernel": aebs_schedule, "none": None}
+
+# reference options this slice does not run: name -> (values it accepts,
+# which later slice ports the rest)
+_LATER = {
+    "executor": (("mono",), "the disaggregated executor"),
+    "admission": ((None, "blocking"), "pipelined admission"),
+    "sched": (("fifo",), "priority preemption"),
+    "dispatch": (("grouped",), "the einsum/scatter oracles"),
+    "capacity_tokens": ((None,), "a later slice (capacity overrides)"),
+    "prefill_capacity_tokens": ((None,), "a later slice (capacity overrides)"),
+    "kv_num_pages": ((None,), "preemption (an undersized page pool)"),
+    "step_time_fn": ((None,), "modeled clocks (the simulator slice)"),
+    "prefill_time_fn": ((None,), "modeled clocks (the simulator slice)"),
+    "extra_builder": ((None,), "the other families"),
+    "n_attn": ((1,), "the disaggregated executor"),
+    "n_prefill": ((0,), "pipelined admission"),
+    "pools": ((None,), "the disaggregated executor"),
+    "node_size": ((1,), "the disaggregated executor"),
+    "ping_pong": ((False,), "the disaggregated executor"),
+    "fault_plan": ((None,), "fault recovery"),
+    "retry_policy": ((None,), "fault recovery"),
+    "watchdog": ((None,), "fault recovery"),
+    "max_prefill_queue": ((None,), "pipelined admission"),
+    "prefix_cache": ((False,), "the prefix cache"),
+    "prefix_cache_pages": ((None,), "the prefix cache"),
+    "prefill_batch": ((1,), "batched prefill"),
+    "draft_config": ((None,), "speculative decode"),
+    "draft_params": ((None,), "speculative decode"),
+    "spec_k": ((0,), "speculative decode"),
+}
+
+
+class ServingEngine:
+    def __init__(
+        self,
+        cfg,
+        params,
+        *,
+        max_batch: int = 8,
+        cache_len: int = 512,
+        layout: Optional[ReplicaLayout] = None,
+        scheduler: str = "aebs",
+        prefill_chunk: int = 64,
+        kv_page_size: Optional[int] = None,
+        device="cuda",
+        **later,
+    ):
+        for name, value in later.items():
+            if name not in _LATER:
+                raise TypeError(f"ServingEngine got an unexpected keyword argument {name!r}")
+            accepted, port = _LATER[name]
+            if not any(value is v or value == v for v in accepted):
+                raise NotImplementedError(f"{name}={value!r}: not ported yet (comes with {port})")
+        if scheduler not in SCHEDULERS:
+            raise NotImplementedError(
+                f"scheduler={scheduler!r}: ported schedulers are {sorted(SCHEDULERS)}; "
+                "random and token_hash come in a later slice"
+            )
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.cache_len = cache_len
+        self.layout = layout
+        self.slots = SlotManager(max_batch, cache_len)
+        # the last token fed per slot; parked slots keep their stale token,
+        # as the reference does
+        self.tokens = np.zeros((max_batch, 1), np.int64)
+        self.clock = 0.0
+        self.completed: List[Request] = []
+        self.decode_stall_time = 0.0
+        self.steps_done = 0
+
+        moe_ctx = None
+        if cfg.has_moe and layout is not None and scheduler != "none":
+            moe_ctx = dict(
+                layout_tables=layout.device_tables(self.device),
+                slot_to_expert=torch.as_tensor(
+                    layout.slot_to_expert.reshape(-1), dtype=torch.int32, device=self.device
+                ),
+                num_instances=layout.num_instances,
+                scheduler=SCHEDULERS[scheduler],
+            )
+        self._extra = {"moe_ctx": moe_ctx} if moe_ctx else None
+
+        self.caches = model_mod.init_decode_caches(cfg, max_batch, cache_len, self.device)
+        self.paged: Optional[PagedKVCache] = None
+        if kv_page_size is not None:
+            self.paged, self.caches = make_paged_caches(
+                self.caches, max_batch, cache_len, kv_page_size
+            )
+        self.prefill_worker = PrefillWorker(
+            cfg, params, self.device, cache_len=cache_len, chunk=prefill_chunk
+        )
+
+    # ------------------------------------------------------------------
+    def _prefill_request(self, req: Request) -> None:
+        """Blocking admission: drain the worker for this one request."""
+        stalled = self.slots.num_active > 0
+        slot = self.slots.reserve(req)
+        self.slots.start_prefill(slot)
+        now = max(self.clock, req.arrival)
+        self.prefill_worker.submit(req, slot, now=now)
+        events: List[PrefillEvent] = []
+        while not events:
+            events = self.prefill_worker.poll(self._chunk_sink)
+        ev = events[0]
+        dt = ev.finish_t - now
+        self.slots.activate(slot)
+        self.tokens[slot, 0] = ev.first_token
+        self.clock += dt
+        if stalled:
+            self.decode_stall_time += dt
+        req.prefill_done = self.clock
+        req.token_times.append(self.clock)
+        req.tokens_out = [ev.first_token]
+
+    def _chunk_sink(self, slot: int, start: int, length: int, one_caches: Dict) -> None:
+        """Land one streamed prefill chunk in the decode caches."""
+        if self.paged is not None:
+            self.caches = scatter_prefill_chunk_paged(
+                self.caches, one_caches, slot, start, length, self.paged
+            )
+        else:
+            self.caches = scatter_prefill_chunk_caches(self.caches, one_caches, slot, start, length)
+
+    def _ensure_pages(self) -> None:
+        """Back every active slot's next write position with a page."""
+        if self.paged is not None:
+            for s in self.slots.active_slots:
+                self.paged.ensure(s, int(self.slots.positions[s]))
+            self.caches["block_tables"] = self.paged.table_device(self.device)
+
+    def _release_pages(self, slot: int) -> None:
+        if self.paged is not None:
+            self.paged.release(slot)
+
+    def _decode_iteration(self) -> None:
+        self._ensure_pages()
+        positions = self.slots.positions_device(self.device)
+        tokens = torch.from_numpy(self.tokens).to(self.device)
+        t0 = time.perf_counter()
+        logits, self.caches = model_mod.decode_step(
+            self.params, tokens, self.caches, positions, self.cfg, extra=self._extra
+        )
+        next_tokens = model_mod.greedy_token(logits).cpu().numpy()  # waits for the device
+        self.clock += time.perf_counter() - t0
+        self.steps_done += 1
+        for s in self.slots.active_slots:
+            req = self.slots.slot_req[s]
+            req.generated += 1
+            req.token_times.append(self.clock)
+            self.slots.advance(s)
+            self.tokens[s, 0] = int(next_tokens[s])
+            if req.tokens_out is not None:
+                req.tokens_out.append(int(next_tokens[s]))
+            if req.generated >= req.output_len or self.slots.positions[s] >= self.cache_len - 2:
+                if req.generated < req.output_len:
+                    req.truncated = True  # context exhausted before the target length
+                req.finished = self.clock
+                self.completed.append(self.slots.release(s))
+                self._release_pages(s)
+
+    def run(self, requests: List[Request], max_steps: int = 100_000) -> Dict:
+        """Serve all requests (arrivals gated by the engine clock)."""
+        waiting = sorted(requests, key=lambda r: r.arrival)
+        steps = 0
+        while (waiting or self.slots.num_active) and steps < max_steps:
+            while waiting and waiting[0].arrival <= self.clock and self.slots.free_slots:
+                self._prefill_request(waiting.pop(0))
+            if self.slots.num_active == 0:
+                if waiting:  # idle: jump to the next arrival
+                    self.clock = max(self.clock, waiting[0].arrival)
+                    continue
+                break
+            self._decode_iteration()
+            steps += 1
+        return self.metrics()
+
+    def metrics(self) -> Dict:
+        done = self.completed
+        out: Dict = {"completed": len(done), "tokens": sum(r.generated for r in done)}
+        out["truncated"] = sum(1 for r in done if r.truncated)
+        out["decode_stall_time"] = self.decode_stall_time
+        out["prefill_chunks"] = self.prefill_worker.chunks_done
+        if self.paged is not None:
+            out["kv_pages"] = self.paged.stats()
+        if not done:
+            return out
+        ttfts = np.array([r.prefill_done - r.arrival for r in done if r.prefill_done >= 0])
+        if len(ttfts):
+            out["ttft_mean"] = float(ttfts.mean())
+            out["ttft_p99"] = float(np.percentile(ttfts, 99))
+        gaps = np.concatenate([r.decode_gaps() for r in done if len(r.token_times) > 1] or [np.zeros(0)])
+        span = max(r.finished for r in done) - min(r.arrival for r in done)
+        out.update(
+            throughput_tok_s=out["tokens"] / max(span, 1e-9),
+            tpot_mean=float(gaps.mean()) if len(gaps) else 0.0,
+            tpot_p99=float(np.percentile(gaps, 99)) if len(gaps) else 0.0,
+            clock=self.clock,
+        )
+        return out
