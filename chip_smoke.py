@@ -11,12 +11,17 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      PyTorch version on the same inputs (stated tolerance), timed with CUDA
      events beside its plain version, a PyTorch library yardstick where one
      exists, and the least time the card could take (bytes or FLOPs bound);
-  4. reduced parity: dsv2-lite-reduced through the plain versions on the CPU
-     and through the kernels on the card, same seeded weights and requests;
+     K4 and K5 also at the 32k-context shape K4 was written for;
+  4. reduced parity: dsv2-lite-reduced in float32 through the plain versions
+     on the CPU and through the kernels on the card, same seeded weights and
+     requests, for four KV layouts: paged (K1), contiguous (K4), int8
+     contiguous (K5) and int8 paged (gather path, no attention kernel);
   5. full-width serving: dsv2-lite (27 layers, d 2048, 64 experts top-6 + 2
-     shared, vocab 102400) with random bf16 weights drawn on the card from a
-     seed, AEBS over a 4 x 17-slot replica layout, paged KV, 12 requests;
-     launch counts are zeroed just before and read just after;
+     shared, vocab 102400) with random bf16 weights drawn once on the card
+     from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
+     three times: paged KV (K1), contiguous KV (K4), int8 contiguous KV (K5);
+     launch counts are zeroed just before each run and read just after it;
+     then a profiled short run of each layout (device time per step);
   6. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
@@ -26,6 +31,7 @@ printing any result.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -33,6 +39,7 @@ import time
 TOL = {"bf16": 3e-2, "f32_layer": 1e-4}  # tests/_torch_parity.py's table
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense tensor-core peak
+INT8_OPS = 1979e12  # dense tensor-core peak
 SCALAR_OPS = 67e12  # fp32 / int32 outside the tensor cores
 
 
@@ -77,12 +84,17 @@ def main():
     from repro_torch.kernels import cuda
     from repro_torch.kernels.aebs.ops import aebs_collect_greedy, aebs_rewrite
     from repro_torch.kernels.decode_attention.ops import (
+        decode_attention,
+        decode_attention_int8,
+        decode_attention_int8_ref,
+        decode_attention_ref,
         paged_decode_attention,
         paged_decode_attention_ref,
     )
     from repro_torch.kernels.expert_ffn.ops import expert_ffn_grouped, expert_ffn_grouped_ref
     from repro_torch.core.aebs import aebs_assign, rewrite_slots
     from repro_torch.models import model as model_mod
+    from repro_torch.models.attention import quantize_kv
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request, WorkloadSpec, sample_requests
 
@@ -97,10 +109,15 @@ def main():
 
     # ---- 2. build --------------------------------------------------------
     build_s = cuda.build_all()
-    for name in cuda.SOURCES:
-        for line in cuda.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"ptxas[{name}] {line.strip()}")
+    for name in cuda.SOURCES:  # ptxas' lines, summed up per source
+        lines = cuda.BUILD_LOG.get(name, "").splitlines()
+        regs = [int(w.split()[1]) for ln in lines for w in [ln[ln.find("Used "):]]
+                if "Used " in ln and "registers" in ln]
+        spills = [ln.strip() for ln in lines if re.search(r"\b[1-9]\d* bytes spill", ln)]
+        log({"phase": "ptxas", "source": name, "kernels": len(regs),
+             "max_registers": max(regs, default=None), "smem_lines": sorted(
+                 {ln.split("registers,")[-1].strip() for ln in lines if "smem" in ln})[:4],
+             "spills": spills})
     log({"phase": "build", "seconds": round(build_s, 3), "built": sorted(cuda.BUILD_LOG),
          "card": card})
 
@@ -118,16 +135,33 @@ def main():
 
     rows = {}
 
-    def record(name, source, replaces, err, tol, ms, plain_ms, bnd, library_ms):
-        ok = err <= tol
-        rows[name] = {
+    def record(name, source, replaces, err, tol, ms, plain_ms, bnd, library_ms, shape=None):
+        """Log one kernel measurement and raise if the kernel disagrees with
+        its plain version; the serving path's shape (no ``shape``) is the
+        kernel's row of the final line."""
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms,
         }
-        log({"phase": "kernel", "card": card, "tolerance": tol, "ok": ok, **rows[name]})
+        if shape is None:
+            rows[name] = row
+        ok = err <= tol
+        log({"phase": "kernel" if shape is None else "kernel_detail", "card": card,
+             "shape": shape or "serving", "tolerance": tol, "ok": ok, **row})
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version ({err} > {tol})")
+
+    def cycled(fn, n):
+        """A call of ``fn(i)`` that moves to the next of ``n`` inputs each time
+        (several layers' caches, so that one call does not find the last
+        call's rows in L2)."""
+        state = {"i": 0}
+
+        def call():
+            state["i"] += 1
+            fn(state["i"] % n)
+        return call
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -153,36 +187,68 @@ def main():
     got = paged_decode_attention(q, k_pool[0], v_pool[0], bt, lens)
     want = paged_decode_attention_ref(q, k_pool[0], v_pool[0], bt, lens)
     err = float((got.float() - want.float()).abs().max())
-    it = {"i": 0}
-
-    def k1():
-        it["i"] += 1
-        paged_decode_attention(q, k_pool[it["i"] % L], v_pool[it["i"] % L], bt, lens)
-
-    def k1_plain():
-        it["i"] += 1
-        paged_decode_attention_ref(q, k_pool[it["i"] % L], v_pool[it["i"] % L], bt, lens)
-
     S = nblk * ps
     kd = [k_pool[l][bt.long()].reshape(B, S, nkv, hd).transpose(1, 2).contiguous() for l in range(L)]
     vd = [v_pool[l][bt.long()].reshape(B, S, nkv, hd).transpose(1, 2).contiguous() for l in range(L)]
     mask = (torch.arange(S, device=dev)[None, :] < lens[:, None].long())[:, None, None, :]
     q4 = q[:, :, None, :]
-
-    def k1_library():
-        it["i"] += 1
-        F.scaled_dot_product_attention(q4, kd[it["i"] % L], vd[it["i"] % L], attn_mask=mask)
-
     live = int(lens_np.sum())
     k1_bytes = 2 * live * nkv * hd * 2 + 2 * B * nh * hd * 2 + B * nblk * 4 + B * 4
     k1_ops = 4 * nh * hd * live
-    record("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
+    record("paged_decode_attention", "src/repro_torch/csrc/decode_attention.cu",
            "src/repro/kernels/decode_attention/kernel.py:177", err, TOL["bf16"],
-           time_ms(k1, 200), time_ms(k1_plain, 50), bound(k1_bytes, k1_ops, BF16_FLOPS),
-           time_ms(k1_library, 200))
+           time_ms(cycled(lambda l: paged_decode_attention(q, k_pool[l], v_pool[l], bt, lens), L), 200),
+           time_ms(cycled(lambda l: paged_decode_attention_ref(q, k_pool[l], v_pool[l], bt, lens), L), 50),
+           bound(k1_bytes, k1_ops, BF16_FLOPS),
+           time_ms(cycled(lambda l: F.scaled_dot_product_attention(q4, kd[l], vd[l], attn_mask=mask), L), 200))
     del k_pool, v_pool, kd, vd
 
-    # ---- 3b. K2 AEBS ----------------------------------------------------
+    # ---- 3b. K4 / K5 decode attention over a contiguous (int8) cache ------
+    # the serving path's shape (the K1 case's lengths, six layers' caches
+    # rotated) and the shape K4 was written for: decode_32k's context
+    # (src/repro/configs/base.py:278) at batch 8, every row valid
+    def contiguous_case(S, lens_np, L, iters, plain_iters, shape):
+        lens = torch.from_numpy(lens_np).to(dev)
+        live = int(lens_np.sum())
+        io_bytes = 2 * B * nh * hd * 2 + B * 4  # q in, output out, lengths
+        ops = 4 * nh * hd * live  # q.k and p.v over the live rows
+        kc = torch.randn((L, B, S, nkv, hd), generator=gen, device=dev).to(bf)
+        vc = torch.randn((L, B, S, nkv, hd), generator=gen, device=dev).to(bf)
+        err = float((decode_attention(q, kc[0], vc[0], lens).float()
+                     - decode_attention_ref(q, kc[0], vc[0], lens).float()).abs().max())
+        kd = [kc[l].transpose(1, 2).contiguous() for l in range(L)]
+        vd = [vc[l].transpose(1, 2).contiguous() for l in range(L)]
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None].long())[:, None, None, :]
+        lib_ms = time_ms(cycled(lambda l: F.scaled_dot_product_attention(
+            q4, kd[l], vd[l], attn_mask=mask), L), iters)
+        del kd, vd
+        record("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:28", err, TOL["bf16"],
+               time_ms(cycled(lambda l: decode_attention(q, kc[l], vc[l], lens), L), iters),
+               time_ms(cycled(lambda l: decode_attention_ref(q, kc[l], vc[l], lens), L), plain_iters),
+               bound(2 * live * nkv * hd * 2 + io_bytes, ops, BF16_FLOPS), lib_ms, shape)
+        quant = [quantize_kv(kc[l]) + quantize_kv(vc[l]) for l in range(L)]  # (k, ks, v, vs)
+        del kc, vc
+        torch.cuda.empty_cache()
+        k8, ks, v8, vs = quant[0]
+        err = float((decode_attention_int8(q, k8, v8, ks, vs, lens).float()
+                     - decode_attention_int8_ref(q, k8, v8, ks, vs, lens).float()).abs().max())
+        # no single PyTorch call dequantises and attends: library_ms is null
+        record("decode_attention_int8", "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:75", err, TOL["bf16"],
+               time_ms(cycled(lambda l: decode_attention_int8(
+                   q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L), iters),
+               time_ms(cycled(lambda l: decode_attention_int8_ref(
+                   q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L), plain_iters),
+               bound(2 * live * nkv * (hd + 4) + io_bytes, ops + 2 * live * nkv * hd, INT8_OPS),
+               None, shape)
+        del quant, k8, ks, v8, vs
+        torch.cuda.empty_cache()
+
+    contiguous_case(nblk * ps, lens_np, 6, 200, 50, None)
+    contiguous_case(32768, np.full(B, 32768, np.int32), 1, 20, 3, "decode_32k: B 8, S 32768, all rows valid")
+
+    # ---- 3c. K2 AEBS ----------------------------------------------------
     cfg = get_config("dsv2-lite")
     E, K = cfg.num_experts, cfg.top_k
     layout = build_layout(make_routing_trace(2048, E, K, skew=0.8, seed=0), E, 4, 17)
@@ -211,7 +277,7 @@ def main():
            time_ms(lambda: rewrite_slots(eids, act_rep), 500),
            bound(4 * (2 * nit + E), nit, SCALAR_OPS), None)
 
-    # ---- 3c. K3 grouped expert FFN (decode: 8 tokens, CAP 4) -------------
+    # ---- 3d. K3 grouped expert FFN (decode: 8 tokens, CAP 4) -------------
     d, f = cfg.d_model, cfg.d_ff_expert
     CAP = 4  # default_capacity(8, 6, 68, 1.25)
     wg = (torch.randn((E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
@@ -252,6 +318,24 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 4. reduced parity: plain versions on the CPU vs kernels on the card
+    attn_kernels = ("paged_decode_attention", "decode_attention", "decode_attention_int8")
+    moe_kernels = ("aebs_collect_greedy", "aebs_rewrite", "expert_ffn")
+    # (KV layout, kv_quant, kv_page_size, the attention kernel it runs on the card)
+    layouts = (("paged", False, 16, "paged_decode_attention"),
+               ("contiguous", False, None, "decode_attention"),
+               ("int8_contiguous", True, None, "decode_attention_int8"),
+               ("int8_paged", True, 16, None))  # gather + dequantise, as the reference
+
+    def check_launches(what, launches, attn_kernel, at_least):
+        """The run launched each kernel of its path at least ``at_least``
+        times and no other attention kernel."""
+        path = moe_kernels + ((attn_kernel,) if attn_kernel else ())
+        short = {n: launches[n] for n in path if launches[n] < at_least}
+        stray = {n: launches[n] for n in attn_kernels if n not in path and launches[n]}
+        if short or stray:
+            raise AssertionError(f"{what}: kernels launched below {at_least} times {short} "
+                                 f"or off the path {stray}")
+
     rcfg = dataclasses.replace(get_config("dsv2-lite-reduced"), dtype="float32")
     p_cpu = model_mod.init_params(rcfg, seed=0, device="cpu")
 
@@ -267,15 +351,24 @@ def main():
                            rcfg.num_experts, 2, 3)
     spec = WorkloadSpec(mean_input=8, mean_output=10, vocab_size=rcfg.vocab_size, max_input=24,
                         max_output=16, seed=1)
-    streams = {}
-    for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
-        eng = ServingEngine(rcfg, params, max_batch=4, cache_len=64, kv_page_size=16,
-                            prefill_chunk=16, layout=rlayout, scheduler="aebs", device=where)
-        cuda.reset_launch_counts()
-        eng.run(sample_requests(spec, np.zeros(6), with_prompts=True), max_steps=500)
-        streams[where] = {r.rid: r.tokens_out for r in eng.completed}
-        if where == "cuda" and min(cuda.LAUNCHES.values()) == 0:
-            raise AssertionError(f"reduced run on the card skipped a kernel: {cuda.LAUNCHES}")
+    for name, kv_quant, page, attn_kernel in layouts:
+        lcfg = dataclasses.replace(rcfg, kv_quant=kv_quant)
+        streams = {}
+        for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+            eng = ServingEngine(lcfg, params, max_batch=4, cache_len=64, kv_page_size=page,
+                                prefill_chunk=16, layout=rlayout, scheduler="aebs", device=where)
+            cuda.reset_launch_counts()
+            eng.run(sample_requests(spec, np.zeros(6), with_prompts=True), max_steps=500)
+            launches = dict(cuda.LAUNCHES)
+            streams[where] = {r.rid: r.tokens_out for r in eng.completed}
+        check_launches(f"reduced {name} run on the card", launches, attn_kernel, 1)
+        same = streams["cpu"] == streams["cuda"] and len(streams["cpu"]) == 6
+        log({"phase": "reduced_parity", "layout": name, "dtype": "float32",
+             "kv_dtype": "int8" if kv_quant else "float32", "streams_equal": same,
+             "launches": launches, "streams_cpu": streams["cpu"], "streams_cuda": streams["cuda"],
+             "card": card})
+        if not same:
+            raise AssertionError(f"reduced parity ({name}): the card disagrees with the CPU plain versions")
     prompt = torch.from_numpy(np.arange(13, dtype=np.int64)[None] % rcfg.vocab_size)
     logits = {}
     for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
@@ -283,12 +376,10 @@ def main():
         ex = {"moe_ctx": {"capacity": 13}}
         logits[where], _ = model_mod.prefill_chunk(params, prompt.to(where), c, 0, rcfg, extra=ex)
     lerr = float((logits["cuda"].cpu() - logits["cpu"]).abs().max())
-    same = streams["cpu"] == streams["cuda"]
     log({"phase": "reduced_parity", "dtype": "float32", "prefill_logit_max_abs_err": lerr,
-         "tolerance": TOL["f32_layer"], "streams_equal": same, "streams_cpu": streams["cpu"],
-         "streams_cuda": streams["cuda"], "card": card})
-    if lerr > TOL["f32_layer"] or not same:
-        raise AssertionError("reduced parity: the card disagrees with the CPU plain versions")
+         "tolerance": TOL["f32_layer"], "card": card})
+    if lerr > TOL["f32_layer"]:
+        raise AssertionError("reduced parity: prefill logits on the card disagree with the CPU")
     del p_gpu
 
     # ---- 5. full-width serving ------------------------------------------
@@ -299,107 +390,125 @@ def main():
     log({"phase": "init", "params": n_params, "seconds": time.perf_counter() - t0,
          "weights_gb": torch.cuda.memory_allocated() / 1e9, "card": card})
 
-    rng = np.random.default_rng(2)
-    reqs = []
-    for i in range(12):
-        n_in = int(rng.integers(16, 49))
-        reqs.append(Request(rid=i, arrival=0.0, input_len=n_in, output_len=int(rng.integers(16, 33)),
-                            prompt=rng.integers(0, cfg.vocab_size, size=n_in, dtype=np.int32),
-                            token_times=[]))
-    kw = dict(max_batch=8, cache_len=512, kv_page_size=16, prefill_chunk=64, layout=layout,
-              scheduler="aebs", device=dev)
-    warm = ServingEngine(cfg, params, **kw)  # first-call costs (cuBLAS handles, allocator)
+    def make_requests(seed, n, lo, hi, out_lo, out_hi, rid0=0):
+        """Requests arriving at once; the same seed gives the same requests."""
+        r = np.random.default_rng(seed)
+        reqs = []
+        for i in range(n):
+            n_in = int(r.integers(lo, hi + 1))
+            reqs.append(Request(rid=rid0 + i, arrival=0.0, input_len=n_in,
+                                output_len=int(r.integers(out_lo, out_hi + 1)),
+                                prompt=r.integers(0, cfg.vocab_size, size=n_in, dtype=np.int32),
+                                token_times=[]))
+        return reqs
+
+    kw = dict(max_batch=8, cache_len=512, prefill_chunk=64, layout=layout, scheduler="aebs",
+              device=dev)
+    warm = ServingEngine(cfg, params, kv_page_size=16, **kw)  # first-call costs (cuBLAS, allocator)
     warm.run([Request(rid=99, arrival=0.0, input_len=8, output_len=3,
                       prompt=np.arange(8, dtype=np.int32), token_times=[])])
     del warm
 
-    step_ms = []
-    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
     decode_step = model_mod.decode_step
-
-    def checked_decode_step(*args, **kwargs):
-        t = time.perf_counter()
-        logits, caches = decode_step(*args, **kwargs)
-        nonfinite.add_((~torch.isfinite(logits)).sum())
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        return logits, caches
-
-    engine = ServingEngine(cfg, params, **kw)
-    model_mod.decode_step = checked_decode_step
-    torch.cuda.reset_peak_memory_stats()
-    cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    m = engine.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(cuda.LAUNCHES)
-    model_mod.decode_step = decode_step
-    steps = engine.steps_done
+    prefill_chunk = model_mod.prefill_chunk
     n_layers = cfg.num_layers
-    log({"phase": "serve", "card": card, "model": cfg.name, "requests": len(reqs),
-         "completed": m["completed"], "tokens": m["tokens"], "decode_steps": steps,
-         "wall_s": wall, "tokens_per_s": m["throughput_tok_s"],
-         "decode_step_ms_mean": float(np.mean(step_ms)),
-         "decode_step_ms_p50": float(np.median(step_ms)),
-         "tpot_ms_mean": m["tpot_mean"] * 1e3, "tpot_ms_p99": m["tpot_p99"] * 1e3,
-         "ttft_ms_mean": m["ttft_mean"] * 1e3, "ttft_ms_p99": m["ttft_p99"] * 1e3,
-         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kv_pages": m["kv_pages"],
-         "launches": launches})
-    if m["completed"] != len(reqs) or m["truncated"]:
-        raise AssertionError(f"serving: {m['completed']} of {len(reqs)} requests completed")
-    if any(r.generated != r.output_len for r in engine.completed):
-        raise AssertionError("serving: a request stopped short of its output length")
-    if int(nonfinite) != 0:
-        raise AssertionError(f"serving: {int(nonfinite)} non-finite logits")
-    for name, n in launches.items():
-        if n < n_layers * steps:
-            raise AssertionError(f"{name}: {n} launches < {n_layers} layers x {steps} decode steps")
-        rows[name]["launches"] = n
+    serve_layouts = [lay for lay in layouts if lay[3] is not None]  # the three with a kernel
+    served = {}
+    for name, kv_quant, page, attn_kernel in serve_layouts:
+        run_cfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+        reqs = make_requests(2, 12, 16, 48, 16, 32)
+        step_ms = []
+        nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def checked_decode_step(*args, **kwargs):
+            t = time.perf_counter()
+            logits, caches = decode_step(*args, **kwargs)
+            nonfinite.add_((~torch.isfinite(logits)).sum())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return logits, caches
+
+        engine = ServingEngine(run_cfg, params, kv_page_size=page, **kw)
+        model_mod.decode_step = checked_decode_step
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        model_mod.decode_step = decode_step
+        steps = engine.steps_done
+        log({"phase": "serve", "layout": name, "card": card, "model": cfg.name,
+             "kv_dtype": str(engine.caches["kv_k"].dtype), "requests": len(reqs),
+             "completed": m["completed"], "tokens": m["tokens"], "decode_steps": steps,
+             "wall_s": wall, "tokens_per_s": m["throughput_tok_s"],
+             "decode_step_ms_mean": float(np.mean(step_ms)),
+             "decode_step_ms_p50": float(np.median(step_ms)),
+             "tpot_ms_mean": m["tpot_mean"] * 1e3, "tpot_ms_p99": m["tpot_p99"] * 1e3,
+             "ttft_ms_mean": m["ttft_mean"] * 1e3, "ttft_ms_p99": m["ttft_p99"] * 1e3,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "kv_pages": m.get("kv_pages"), "launches": launches})
+        if m["completed"] != len(reqs) or m["truncated"]:
+            raise AssertionError(f"serving ({name}): {m['completed']} of {len(reqs)} requests completed")
+        if any(r.generated != r.output_len for r in engine.completed):
+            raise AssertionError(f"serving ({name}): a request stopped short of its output length")
+        if int(nonfinite) != 0:
+            raise AssertionError(f"serving ({name}): {int(nonfinite)} non-finite logits")
+        check_launches(f"serving ({name}): {n_layers} layers x {steps} decode steps", launches,
+                       attn_kernel, n_layers * steps)
+        # each kernel's row counts the launches of the first run whose path has it
+        for kname in (attn_kernel,) + moe_kernels:
+            if rows[kname]["launches"] is None:
+                rows[kname]["launches"] = launches[kname]
+        served[name] = {"step_ms": float(np.mean(step_ms)), "ttft_ms": m["ttft_mean"] * 1e3}
+        del engine
+        torch.cuda.empty_cache()
 
     # ---- 5b. where the time goes: device time of each decode step and
-    # prefill chunk of a short run (8 requests, 16 in, 16 out), profiled one
-    # call at a time with CUDA activity only (kernels, no double counting)
+    # prefill chunk of a short run (8 requests, 16 in, 16 out) per layout,
+    # profiled one call at a time with CUDA activity only (kernels, no double
+    # counting)
     from torch.profiler import ProfilerActivity, profile
 
-    prefill_chunk = model_mod.prefill_chunk
-    device_ms = {"decode": [], "prefill": []}
-    kernel_ms = {"decode": {}, "prefill": {}}
+    for name, kv_quant, page, _ in serve_layouts:
+        device_ms = {"decode": [], "prefill": []}
+        kernel_ms = {"decode": {}, "prefill": {}}
 
-    def profiled(fn, kind):
-        def call(*args, **kwargs):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-            total = 0.0
-            for e in prof.key_averages():
-                t = e.self_device_time_total / 1e3
-                kernel_ms[kind][e.key] = kernel_ms[kind].get(e.key, 0.0) + t
-                total += t
-            device_ms[kind].append(total)
-            return out
-        return call
+        def profiled(fn, kind):
+            def call(*args, **kwargs):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = fn(*args, **kwargs)
+                    torch.cuda.synchronize()
+                total = 0.0
+                for e in prof.key_averages():
+                    t = e.self_device_time_total / 1e3
+                    kernel_ms[kind][e.key] = kernel_ms[kind].get(e.key, 0.0) + t
+                    total += t
+                device_ms[kind].append(total)
+                return out
+            return call
 
-    short = [Request(rid=100 + i, arrival=0.0, input_len=16, output_len=16,
-                     prompt=rng.integers(0, cfg.vocab_size, size=16, dtype=np.int32),
-                     token_times=[]) for i in range(8)]
-    engine = ServingEngine(cfg, params, **kw)
-    model_mod.decode_step = profiled(decode_step, "decode")
-    model_mod.prefill_chunk = profiled(prefill_chunk, "prefill")
-    engine.run(short)
-    model_mod.decode_step, model_mod.prefill_chunk = decode_step, prefill_chunk
-    busy = float(np.mean(device_ms["decode"]))
-    log({"phase": "profile", "card": card, "decode_steps": len(device_ms["decode"]),
-         "device_ms_per_decode_step": busy,
-         "step_ms_unprofiled": float(np.mean(step_ms)),
-         "device_idle_share_decode": 1.0 - busy / float(np.mean(step_ms)),
-         "device_ms_per_prefill_chunk": float(np.mean(device_ms["prefill"])),
-         "ttft_ms_unprofiled": m["ttft_mean"] * 1e3})
-    for kind in ("decode", "prefill"):
-        n = len(device_ms[kind])
-        top = sorted(kernel_ms[kind].items(), key=lambda kv: -kv[1])[:10]
-        log({"phase": "profile_top", "kind": kind, "card": card,
-             "ms_per_call": [[k[:80], v / n] for k, v in top]})
+        engine = ServingEngine(dataclasses.replace(cfg, kv_quant=kv_quant), params,
+                               kv_page_size=page, **kw)
+        model_mod.decode_step = profiled(decode_step, "decode")
+        model_mod.prefill_chunk = profiled(prefill_chunk, "prefill")
+        engine.run(make_requests(3, 8, 16, 16, 16, 16, rid0=100))
+        model_mod.decode_step, model_mod.prefill_chunk = decode_step, prefill_chunk
+        del engine
+        busy = float(np.mean(device_ms["decode"]))
+        log({"phase": "profile", "layout": name, "card": card,
+             "decode_steps": len(device_ms["decode"]),
+             "device_ms_per_decode_step": busy,
+             "step_ms_unprofiled": served[name]["step_ms"],
+             "device_idle_share_decode": 1.0 - busy / served[name]["step_ms"],
+             "device_ms_per_prefill_chunk": float(np.mean(device_ms["prefill"])),
+             "ttft_ms_unprofiled": served[name]["ttft_ms"]})
+        for kind in ("decode", "prefill"):
+            n = len(device_ms[kind])
+            top = sorted(kernel_ms[kind].items(), key=lambda kv: -kv[1])[:10]
+            log({"phase": "profile_top", "layout": name, "kind": kind, "card": card,
+                 "ms_per_call": [[k[:96], v / n] for k, v in top]})
 
     # ---- 6. results ------------------------------------------------------
     log({"kernels": [rows[n] for n in cuda.LAUNCHES]})

@@ -149,14 +149,19 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: layer kinds {sorted(kinds)} are not ported yet "
             "(other families come in a later slice)"
         )
-    if cfg.kv_quant:
-        raise NotImplementedError(f"{cfg.name}: int8 KV caches are not ported yet")
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """Decode-state layout of ``repro.configs.base._cache_specs`` for the
-    full-attention caches: ``kv_k``/``kv_v`` stacked ``[L, B, S, nkv, hd]``."""
+    full-attention caches: ``kv_k``/``kv_v`` stacked ``[L, B, S, nkv, hd]``;
+    with ``kv_quant`` they are int8, beside f32 per-(row, head) scales
+    ``kv_k_scale``/``kv_v_scale`` ``[L, B, S, nkv]``."""
     check_supported(cfg)
     n_full = len(cfg.layer_kinds())
     shape = (n_full, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"kv_k": (shape, cfg.torch_dtype), "kv_v": (shape, cfg.torch_dtype)}
+    kv_dtype = torch.int8 if cfg.kv_quant else cfg.torch_dtype
+    specs = {"kv_k": (shape, kv_dtype), "kv_v": (shape, kv_dtype)}
+    if cfg.kv_quant:
+        specs["kv_k_scale"] = (shape[:-1], torch.float32)
+        specs["kv_v_scale"] = (shape[:-1], torch.float32)
+    return specs

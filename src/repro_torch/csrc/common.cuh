@@ -9,6 +9,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -23,6 +24,8 @@ template <>
 __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <>
+__device__ __forceinline__ float to_f<int8_t>(int8_t v) { return (float)v; }
 
 // round-to-nearest-even, as torch's .to(bfloat16) and XLA's convert
 template <typename T>
@@ -31,12 +34,6 @@ template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 }  // namespace repro
 

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_decode_attention", "aebs", "expert_ffn")
+SOURCES = ("decode_attention", "aebs", "expert_ffn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,6 +35,8 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {
     "paged_decode_attention": 0,
+    "decode_attention": 0,
+    "decode_attention_int8": 0,
     "aebs_collect_greedy": 0,
     "aebs_rewrite": 0,
     "expert_ffn": 0,

@@ -3,7 +3,8 @@
 
 Layouts follow the reference: q proj ``[d, nh, hd]``, k/v ``[d, nkv, hd]``,
 o proj ``[nh, hd, d]``; caches ``[B, S, nkv, hd]`` or page pools
-``[P, ps, nkv, hd]`` with ``[B, nblk]`` block tables.  Unlike the
+``[P, ps, nkv, hd]`` with ``[B, nblk]`` block tables; int8 caches carry f32
+scales ``[B, S, nkv]`` (``[P, ps, nkv]`` paged) beside them.  Unlike the
 reference's functional updates, the cache writes here are **in place**: a
 copy of every layer's cache per step has no place on the card.  The
 functions still return the (same) cache tensors so callers read like the
@@ -16,7 +17,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    decode_attention_int8,
+    paged_decode_attention,
+)
 from repro_torch.models.common import Params, apply_rope, dense_init
 
 NEG_INF = -2.0e38  # the reference's dense-path mask constant (attention.py:24)
@@ -64,6 +69,19 @@ def _attend(
     return out.reshape(b, sq, n_kv * g, hd)
 
 
+def quantize_kv(x: torch.Tensor):
+    """int8 absmax quantisation over head_dim (``attention.py:322``):
+    ``[..., hd] -> (int8 [..., hd], f32 scale [...])``.  A true division and
+    ``torch.round`` (half to even), as ``jnp.round`` does."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
 def attention_decode(
     params: Params,
     x: torch.Tensor,  # [b, 1, d]
@@ -71,14 +89,25 @@ def attention_decode(
     cache_v: torch.Tensor,
     cache_index: torch.Tensor,  # [b] per-slot positions
     cfg,
+    k_scale: Optional[torch.Tensor] = None,  # [b, S, nkv] or [P, ps, nkv] (int8 caches only)
+    v_scale: Optional[torch.Tensor] = None,
     block_tables: Optional[torch.Tensor] = None,  # [b, nblk] int32 (paged)
 ):
     """One-token decode (``attention.py:334``, per-slot vector index).  The
     new K/V row is written in place at each slot's position (into page
-    ``bt[b, pos // ps]`` when paged), then the slot attends rows ``<= pos``.
-    Returns ``(out [b, 1, d], cache_k, cache_v)``."""
+    ``bt[b, pos // ps]`` when paged; quantised with its scale when the cache
+    is int8), then the slot attends rows ``<= pos``.
+
+    On the card the read is a flash-decode kernel over ``lengths = pos + 1``
+    (the dense mask ``idx <= pos``): K1 for paged pools, K4 for a contiguous
+    cache, K5 for a contiguous int8 cache.  Paged int8 pools, and every
+    layout on the CPU, gather (paged), dequantise (int8) and attend densely
+    as the reference does (``attention.py:425-441``); the JAX package has no
+    page-indirect int8 kernel.  Returns ``(out [b, 1, d], cache_k, cache_v)``,
+    plus ``(k_scale, v_scale)`` when the cache is int8."""
     b = x.shape[0]
     paged = block_tables is not None
+    quant = cache_k.dtype == torch.int8
     if paged:
         ps = cache_k.shape[1]
         S = block_tables.shape[1] * ps
@@ -92,36 +121,45 @@ def attention_decode(
     if cfg.use_rope:
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    bidx = torch.arange(b, device=x.device)
+    if quant:
+        k, ks_w = quantize_kv(k)
+        v, vs_w = quantize_kv(v)
     if paged:
-        pg = block_tables[bidx, pos[:, 0] // ps].long()
-        off = pos[:, 0] % ps
-        cache_k[pg, off] = k[:, 0].to(cache_k.dtype)
-        cache_v[pg, off] = v[:, 0].to(cache_v.dtype)
+        rows = (block_tables[torch.arange(b, device=x.device), pos[:, 0] // ps].long(), pos[:, 0] % ps)
     else:
-        cache_k[bidx, pos[:, 0]] = k[:, 0].to(cache_k.dtype)
-        cache_v[bidx, pos[:, 0]] = v[:, 0].to(cache_v.dtype)
-    if paged and x.device.type == "cuda":
-        # page-indirect flash decode on the card (the reference's
-        # paged_decode_backend picks its kernel on the accelerator and the
-        # gather below elsewhere): the kernel reads the block tables and
-        # streams each slot's live pages, never building the gathered view
+        rows = (torch.arange(b, device=x.device), pos[:, 0])
+    cache_k[rows] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows] = v[:, 0].to(cache_v.dtype)
+    if quant:
+        k_scale[rows] = ks_w[:, 0]
+        v_scale[rows] = vs_w[:, 0]
+    if x.device.type == "cuda" and not (paged and quant):
         lengths = (pos[:, 0] + 1).to(torch.int32)
-        out = paged_decode_attention(
-            q[:, 0].contiguous(), cache_k, cache_v, block_tables, lengths,
-            logit_cap=float(cfg.attn_logit_softcap or 0.0),
-        )[:, None]
+        cap = float(cfg.attn_logit_softcap or 0.0)
+        q1 = q[:, 0].contiguous()
+        if paged:
+            out = paged_decode_attention(q1, cache_k, cache_v, block_tables, lengths, logit_cap=cap)
+        elif quant:
+            out = decode_attention_int8(q1, cache_k, cache_v, k_scale, v_scale, lengths, logit_cap=cap)
+        else:
+            out = decode_attention(q1, cache_k, cache_v, lengths, logit_cap=cap)
+        out = out[:, None]
     else:
+        k_r, v_r, ks_r, vs_r = cache_k, cache_v, k_scale, v_scale
         if paged:
             bt = block_tables.long()
-            k_r = cache_k[bt].reshape(b, S, *cache_k.shape[2:])
-            v_r = cache_v[bt].reshape(b, S, *cache_v.shape[2:])
-        else:
-            k_r, v_r = cache_k, cache_v
+            k_r, v_r = (t[bt].reshape(b, S, *t.shape[2:]) for t in (k_r, v_r))
+            if quant:
+                ks_r, vs_r = (t[bt].reshape(b, S, *t.shape[2:]) for t in (ks_r, vs_r))
+        if quant:
+            k_r = dequantize_kv(k_r, ks_r, x.dtype)
+            v_r = dequantize_kv(v_r, vs_r, x.dtype)
         mask = torch.arange(S, device=x.device)[None, :] <= pos  # [b, S]
         qg = q.reshape(b, 1, nkv, q.shape[2] // nkv, q.shape[3])
         out = _attend(qg, k_r, v_r, mask[:, None, None, None, :], cfg.attn_logit_softcap)
     y = _out_proj(out, params["wo"])
+    if quant:
+        return y, cache_k, cache_v, k_scale, v_scale
     return y, cache_k, cache_v
 
 
@@ -132,15 +170,21 @@ def attention_prefill_chunk(
     cache_v: torch.Tensor,
     start: int,  # absolute position of the chunk's first token
     cfg,
+    k_scale: Optional[torch.Tensor] = None,  # [b, S, nkv] (int8 caches only)
+    v_scale: Optional[torch.Tensor] = None,
 ):
     """Chunked prefill, scalar-start full-context branch
     (``attention.py:302-315``): the chunk's K/V land in place at rows
     ``[start, start + c)`` -- clamped to ``S - c`` as
     ``dynamic_update_slice`` does -- and the chunk's queries attend causally
-    over the cache.  Returns ``(out [b, c, d], cache_k, cache_v)``."""
+    over the cache.  An int8 cache takes the chunk quantised once, with its
+    scales, and is attended dequantised, so the chunk's own keys go through
+    the same round trip later reads see.  Returns ``(out [b, c, d], cache_k,
+    cache_v)``, plus ``(k_scale, v_scale)`` when the cache is int8."""
     b, c, _ = x.shape
     S = cache_k.shape[1]
     nkv = cfg.num_kv_heads
+    quant = cache_k.dtype == torch.int8
     pos = start + torch.arange(c, device=x.device)
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
@@ -149,9 +193,22 @@ def attention_prefill_chunk(
         q = apply_rope(q, pos.expand(b, c), cfg.rope_theta)
         k = apply_rope(k, pos.expand(b, c), cfg.rope_theta)
     s0 = min(max(int(start), 0), S - c)
+    if quant:
+        k, ks_q = quantize_kv(k)
+        v, vs_q = quantize_kv(v)
+        k_scale[:, s0 : s0 + c] = ks_q
+        v_scale[:, s0 : s0 + c] = vs_q
     cache_k[:, s0 : s0 + c] = k.to(cache_k.dtype)
     cache_v[:, s0 : s0 + c] = v.to(cache_v.dtype)
+    if quant:
+        k_att = dequantize_kv(cache_k, k_scale, x.dtype)
+        v_att = dequantize_kv(cache_v, v_scale, x.dtype)
+    else:
+        k_att, v_att = cache_k, cache_v
     mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]  # [c, S]
     qg = q.reshape(b, c, nkv, q.shape[2] // nkv, q.shape[3])
-    out = _attend(qg, cache_k, cache_v, mask[None, None, None], cfg.attn_logit_softcap)
-    return _out_proj(out, params["wo"]), cache_k, cache_v
+    out = _attend(qg, k_att, v_att, mask[None, None, None], cfg.attn_logit_softcap)
+    y = _out_proj(out, params["wo"])
+    if quant:
+        return y, cache_k, cache_v, k_scale, v_scale
+    return y, cache_k, cache_v

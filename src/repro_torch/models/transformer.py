@@ -5,7 +5,8 @@ Parameters are ``{"embed": [V, d], "final_norm": {...}, "layers": [...]}``
 with one dict per layer; the reference's period-stacked ``lax.scan`` becomes
 a plain loop over layers.  Caches keep the reference's stacked layout
 (``kv_k``/``kv_v`` ``[L, B, S, nkv, hd]``, or ``[L, P, ps, nkv, hd]`` page
-pools plus ``block_tables``) and are updated in place.
+pools plus ``block_tables``; int8 caches beside ``kv_k_scale``/``kv_v_scale``
+``[L, B, S, nkv]`` or ``[L, P, ps, nkv]``) and are updated in place.
 """
 
 from __future__ import annotations
@@ -60,11 +61,14 @@ def lm_head(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 def attention_stage(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg):
     """ln1 -> one-token attention (in-place cache write) -> residual -> ln2.
+    ``kv`` holds the layer's ``k``/``v`` caches, ``k_scale``/``v_scale``
+    when they are int8, and ``bt`` block tables when they are paged.
     Returns ``(x_resid, h_ffn)``."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    h, _, _ = attn_mod.attention_decode(
-        lp["attn"], h, kv["k"], kv["v"], cache_index, cfg, block_tables=kv.get("bt")
-    )
+    h = attn_mod.attention_decode(
+        lp["attn"], h, kv["k"], kv["v"], cache_index, cfg,
+        k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"), block_tables=kv.get("bt"),
+    )[0]
     x = x + h
     return x, rmsnorm(lp["ln2"], x, cfg.norm_eps)
 
@@ -72,9 +76,21 @@ def attention_stage(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg):
 def attention_stage_chunk(lp, x, kv: Dict[str, torch.Tensor], start: int, cfg):
     """Chunked-prefill analogue of :func:`attention_stage`."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    h, _, _ = attn_mod.attention_prefill_chunk(lp["attn"], h, kv["k"], kv["v"], start, cfg)
+    h = attn_mod.attention_prefill_chunk(
+        lp["attn"], h, kv["k"], kv["v"], start, cfg,
+        k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"),
+    )[0]
     x = x + h
     return x, rmsnorm(lp["ln2"], x, cfg.norm_eps)
+
+
+def _layer_kv(caches: Dict[str, torch.Tensor], l: int, cfg) -> Dict[str, torch.Tensor]:
+    """Layer ``l``'s views of the stacked caches (``transformer.py:458``)."""
+    kv = {"k": caches["kv_k"][l], "v": caches["kv_v"][l]}
+    if cfg.kv_quant:
+        kv["k_scale"] = caches["kv_k_scale"][l]
+        kv["v_scale"] = caches["kv_v_scale"][l]
+    return kv
 
 
 def moe_stage(lp, x, h, cfg, moe_ctx: Optional[Dict[str, Any]] = None):
@@ -98,7 +114,7 @@ def decode_step(
     x = embed_tokens(params, tokens, cfg)
     bt = caches.get("block_tables")
     for l, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
-        kv = {"k": caches["kv_k"][l], "v": caches["kv_v"][l]}
+        kv = _layer_kv(caches, l, cfg)
         if bt is not None:
             kv["bt"] = bt
         x, h2 = attention_stage(lp, x, kv, cache_index, cfg)
@@ -107,8 +123,8 @@ def decode_step(
 
 
 def supports_chunked_prefill(cfg) -> bool:
-    """Chunked prefill covers attention + FFN/MoE stacks without windows or
-    quantised caches -- everything this slice of the port runs."""
+    """Chunked prefill covers attention + FFN/MoE stacks without windows,
+    with bf16/f32 or int8 KV -- everything the port runs so far."""
     try:
         check_supported(cfg)
     except NotImplementedError:
@@ -131,7 +147,7 @@ def prefill_chunk(
     moe_ctx = (extra or {}).get("moe_ctx")
     x = embed_tokens(params, tokens, cfg)
     for l, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
-        kv = {"k": caches["kv_k"][l], "v": caches["kv_v"][l]}
+        kv = _layer_kv(caches, l, cfg)
         x, h2 = attention_stage_chunk(lp, x, kv, start, cfg)
         x = moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None)
     return lm_head(params, x[:, -1, :], cfg), caches

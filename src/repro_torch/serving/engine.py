@@ -8,7 +8,10 @@ blocking admission and FIFO order.
 * decode: one batched ``decode_step`` per iteration with per-slot positions;
   MoE layers route -> AEBS (``scheduler="aebs"``; on the card that is the K2
   kernel) -> grouped dispatch over the activated experts (K3 on the card);
-  paged KV (``kv_page_size``) serves attention through K1 on the card;
+  on the card, attention reads contiguous KV (the default) through K4, int8
+  contiguous KV (``cfg.kv_quant``) through K5 and paged KV
+  (``kv_page_size``) through K1; paged int8 KV gathers and dequantises, as
+  the reference does;
 * timing: wall clock around work that ends in a device sync.
 
 Options of the reference that later slices port raise ``NotImplementedError``.

@@ -28,7 +28,9 @@ RESERVED = "reserved"
 PREFILLING = "prefilling"
 ACTIVE = "active"
 
-PAGED_KEYS = ("kv_k", "kv_v")
+# the caches stored page-indirectly: full-attention K/V and, for int8 KV,
+# their scales (``kv_cache.py:294``); a config has the keys it needs
+PAGED_KEYS = ("kv_k", "kv_v", "kv_k_scale", "kv_v_scale")
 NULL_PAGE = 0
 
 
@@ -230,6 +232,8 @@ def make_paged_caches(caches: Dict[str, torch.Tensor], max_batch: int, cache_len
     pager = PagedKVCache(max_batch, cache_len, page_size, num_pages)
     out = dict(caches)
     for k in PAGED_KEYS:
+        if k not in caches:
+            continue
         v = caches[k]
         out[k] = torch.zeros((v.shape[0], pager.num_pages, page_size, *v.shape[3:]),
                              dtype=v.dtype, device=v.device)
@@ -254,6 +258,8 @@ def scatter_prefill_chunk_paged(
     offs_t = torch.from_numpy(offs.astype(np.int64)).to(dev)
     rows = slice(start, start + length)
     for k in PAGED_KEYS:
+        if k not in one_caches:
+            continue
         batch_caches[k][:, pages_t, offs_t] = one_caches[k][:, 0, rows].to(batch_caches[k].dtype)
     batch_caches["block_tables"] = pager.table_device(dev)
     return batch_caches

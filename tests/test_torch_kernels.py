@@ -19,6 +19,10 @@ from repro_torch.core.placement import build_layout
 from repro_torch.kernels import cuda
 from repro_torch.kernels.aebs.ops import aebs_schedule
 from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    decode_attention_int8,
+    decode_attention_int8_ref,
+    decode_attention_ref,
     paged_decode_attention,
     paged_decode_attention_ref,
 )
@@ -91,6 +95,95 @@ def test_paged_decode_plain_ignores_unbacked_tail():
     np.testing.assert_array_equal(base.numpy(), got.numpy())
     want = ref_op(*[_j(a) for a in (q, k2, v2, bt, lens)])
     assert_close(got, want, TOL["f32_op"])
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5 decode attention over a contiguous (int8) cache
+# ---------------------------------------------------------------------------
+
+
+def _contiguous_inputs(rng, B, nh, nkv, hd, S):
+    q = rng.standard_normal((B, nh, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, nkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, nkv, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _quantised(a):
+    """numpy int8 values and f32 scales of ``a`` through the port's
+    ``quantize_kv`` (equal to the reference's, ``test_torch_kv_quant.py``)."""
+    from repro_torch.models.attention import quantize_kv
+
+    vals, scale = quantize_kv(torch.from_numpy(a))
+    return vals.numpy(), scale.numpy()
+
+
+KV_SWEEP = [(1, 128), (2, 64), (4, 64)]  # (query heads per KV head, head_dim)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("logit_cap", [0.0, 30.0])
+@pytest.mark.parametrize("G,hd", KV_SWEEP)
+def test_decode_plain_matches_reference(G, hd, logit_cap, dtype):
+    """K4's plain version against the reference's Pallas op (interpret
+    mode) with a partial valid_len."""
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention.ops import decode_attention as ref_op
+
+    rng = np.random.default_rng(G * hd)
+    B, nkv, S = 2, 2, 48
+    q, k, v = _contiguous_inputs(rng, B, G * nkv, nkv, hd, S)
+    got = decode_attention(*[_t(a, dtype) for a in (q, k, v)], 29, logit_cap=logit_cap)
+    want = ref_op(*[_j(a, dtype) for a in (q, k, v)], jnp.int32(29), logit_cap=logit_cap)
+    assert got.dtype == DTYPES[dtype]
+    assert_close(got, want, tol_for(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("logit_cap", [0.0, 30.0])
+@pytest.mark.parametrize("G,hd", KV_SWEEP)
+def test_decode_int8_plain_matches_reference(G, hd, logit_cap, dtype):
+    """K5's plain version against the reference's Pallas op (interpret
+    mode).  The plain version rounds the dequantised rows to q's dtype, as
+    the reference's oracle does; the TPU kernel keeps them in f32."""
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention.ops import decode_attention_int8 as ref_op
+
+    rng = np.random.default_rng(G * hd + 1)
+    B, nkv, S = 2, 2, 48
+    q, k, v = _contiguous_inputs(rng, B, G * nkv, nkv, hd, S)
+    (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
+    got = decode_attention_int8(_t(q, dtype), *[_t(a) for a in (kq, vq, ks, vs)], 17,
+                                logit_cap=logit_cap)
+    want = ref_op(_j(q, dtype), *[_j(a) for a in (kq, vq, ks, vs)], jnp.int32(17),
+                  logit_cap=logit_cap)
+    assert got.dtype == DTYPES[dtype]
+    assert_close(got, want, tol_for(dtype))
+
+
+def test_decode_plain_per_slot_lengths_match_reference_rows():
+    """Per-slot ``[B]`` lengths (what the engine passes) give, row by row,
+    the reference oracle's output at that slot's scalar valid_len; a scalar
+    valid_len is broadcast."""
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention.ref import decode_attention_int8_ref as ref_int8
+    from repro.kernels.decode_attention.ref import decode_attention_ref as ref_fp
+
+    rng = np.random.default_rng(4)
+    B, nh, nkv, hd, S = 3, 4, 2, 64, 40
+    q, k, v = _contiguous_inputs(rng, B, nh, nkv, hd, S)
+    (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
+    lens = np.array([1, 23, S], np.int32)
+    got = decode_attention(_t(q), _t(k), _t(v), _t(lens))
+    got8 = decode_attention_int8(*[_t(a) for a in (q, kq, vq, ks, vs, lens)])
+    for b, n in enumerate(lens):
+        row = slice(b, b + 1)
+        want = ref_fp(*[_j(a[row]) for a in (q, k, v)], jnp.int32(n))
+        assert_close(got[row], want, TOL["f32_op"])
+        want8 = ref_int8(*[_j(a[row]) for a in (q, kq, vq, ks, vs)], jnp.int32(n))
+        assert_close(got8[row], want8, TOL["f32_op"])
+    full = decode_attention(_t(q), _t(k), _t(v), S)
+    np.testing.assert_array_equal(full[2].numpy(), got[2].numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +322,26 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
             got = paged_decode_attention(*args, logit_cap=cap)
             want = paged_decode_attention_ref(*args, logit_cap=cap)
             assert_close(got, want, tol_for(dtype))
+
+    # K4 and K5: every G and head_dim the kernels are built for, softcap on
+    # and off, random per-slot lengths and a scalar valid_len; the second
+    # case is the serving path's shape
+    for (B, nh, nkv, hd, S), cap in (((3, 8, 2, 64, 40), 0.0),
+                                     ((8, 16, 16, 128, 512), 30.0),
+                                     ((4, 4, 2, 128, 100), 0.0),
+                                     ((2, 16, 2, 256, 70), 30.0)):
+        q, k, v = _contiguous_inputs(rng, B, nh, nkv, hd, S)
+        (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
+        lens = rng.integers(1, S + 1, size=B).astype(np.int32)
+        for dtype in ("float32", "bfloat16"):
+            for valid in (_t(lens, device=dev), S // 2):
+                args = [_t(a, dtype, dev) for a in (q, k, v)] + [valid]
+                got = decode_attention(*args, logit_cap=cap)
+                assert_close(got, decode_attention_ref(*args, logit_cap=cap), tol_for(dtype))
+                args = [_t(q, dtype, dev)] + [_t(a, device=dev) for a in (kq, vq, ks, vs)] + [valid]
+                got = decode_attention_int8(*args, logit_cap=cap)
+                want = decode_attention_int8_ref(*args, logit_cap=cap)
+                assert_close(got, want, tol_for(dtype))
 
     # K2: the reference's sweep, padding included; integers exact
     for E, n_e, C, T, k in ((16, 4, 5, 64, 2), (64, 8, 12, 300, 6), (64, 4, 17, 8, 6),
