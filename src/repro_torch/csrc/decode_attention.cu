@@ -20,55 +20,82 @@
 // the reference's oracle rounds them to q's dtype first.
 //
 // Bound on the H100: bytes.  Each live K and V row of a head is read once
-// against ~4 FLOPs per cached element, far below the ~295 FLOP/B where the
-// tensor cores would bind.  Per row and head, K1 and K4 read 2 * hd bytes of
-// K and again of V in bf16; K5 reads hd + 4 (int8 values plus the f32
-// scale), so its bound is about half of K4's.
+// against ~4 FLOPs per cached element (G = 1 at dsv2-lite: 16 query heads
+// over 16 KV heads), far below the ~295 FLOP/B where the tensor cores would
+// bind, so no tensor cores: the work is to keep enough bytes in flight.
+// Per row and head, K1 and K4 read 2 * hd bytes of K and again of V in
+// bf16; K5 reads hd + 4 (int8 values plus the f32 scale).
 //
 // Design: one body (`attend`) for all three, parametrised by a row policy
 // (where row p of slot b lives: a page of the block table, or the slot's
-// contiguous rows) and a load policy (a row in q's dtype, or int8 times its
-// scale).  The three kernels share it, so a fix or a speed-up of the loop
-// reaches all of them; each keeps its own C launcher, Python wrapper and
-// launch count.  One block per (slot, KV head) owns the G query heads that
-// share its K/V rows and reads each row once.  Its warps split the live rows
-// in chunks (a page for K1, 16 rows for K4/K5) round-robin and keep their
-// own online-softmax state in registers: lanes split head_dim (hd / 32
-// columns each, one vector load per row), a row's G scores are
-// warp-shuffle sums.  Each warp loads a group of kUnroll rows at once,
-// computes the group's scores with interleaved shuffles and folds the group
-// in with one online-softmax update (max over the group, one rescale), as
-// the TPU kernel does for each block of rows.  No barrier sits inside the
-// loop; the warps' (max, sum, accumulator) are merged once at the end
-// through shared memory.  G and hd / 32 are template parameters (G in
-// {1, 2, 4, 8}, hd in {64, 128, 256}) so the per-lane state stays in
-// registers.
+// contiguous rows) and a load policy (a row in the cache's dtype, or int8
+// times its scale).  A block of 8 warps owns a (slot, KV head) -- and for
+// K4 one range of its rows -- and the G query heads that share them, and
+// reads each row once.  A lane loads D columns of a row as one vector, 16
+// bytes (8 bf16 columns, 4 f32, 16 int8) where G is small (fewer for
+// G >= 4, so that G * D values of q and the accumulator stay in registers;
+// at least hd / 32), so a row takes hd / D lanes and one warp load covers
+// 32 * D / hd rows (two bf16 rows of 128).  Each lane group of a row keeps
+// its own online-softmax state in registers; a row's G scores are shuffle
+// sums within the group.  Warps take the rows in chunks (a page for K1, 16
+// rows for K4/K5) round-robin, group by group: a group is kUnroll rows a
+// lane, loaded raw one group ahead of the one being folded in (one softmax
+// update a group, as the TPU kernel does for each block of rows), so a
+// warp always has a group in flight.  No barrier sits inside the loop; the
+// lane groups' (max, sum, accumulator) are merged once at the end through
+// shared memory.
 //
-// What the H100 showed (8 slots, 16 KV heads of 128, bf16): a warp's walk
-// over its rows is a latency-bound chain, and with one block per SM the
-// time goes with the rows per warp.  Updating row by row with 4 warps took
-// 4.8 ms at 32768 rows a slot (bound 0.64 ms); group updates 4.3 ms;
-// 16 rows in flight instead of 8, 4.0 ms; 8 warps a block instead of 4,
-// 2.2 ms, and half the time at the serving shape too.  So blocks have 8
-// warps.  No tensor cores and no split-KV across blocks yet: at batch 8 and
-// 16 KV heads there are 128 blocks, fewer than the 132 SMs, and each walks
-// its slot's whole context alone, so long contexts stay well below the
-// memory rate.
+// K4 is split-KV (flash-decoding): a (B, nkv, n_split) grid, launched as
+// (nkv, B, n_split) so that a slot's heads, which read the same rows of the
+// cache, run side by side; block z walks chunks [z * cps, (z + 1) * cps) of
+// the slot.  With n_split > 1 each block writes its unnormalised partial
+// (m, l, acc[G, hd]) in f32 to a scratch the wrapper allocates, and a second
+// small kernel merges a head's partials in split order (fixed, so results
+// do not change from run to run) with the same math as the in-block merge.  A block whose range lies past the
+// slot's length reads no row and writes the empty partial (m = -1e30,
+// l = 0, acc = 0).  The wrapper picks n_split from B * nkv, S and the SM
+// count, without reading the lengths: no split for S <= 512 (the serving
+// cache, where the second launch costs more than the split saves), and at
+// most ceil(S / 512) ranges beyond.  K1 and K5 keep one block per (slot,
+// KV head).
+//
+// What the H100 showed: with one block per (slot, head) and rows loaded
+// only after the last group was folded in, each warp's walk was a
+// latency-bound chain (8 warps, 4,096 rows each at 32k: 2.2 ms against a
+// 0.64 ms bound).  Keeping a group in flight removed the chain: at batch 8
+// (128 blocks, about one per SM) K4 takes ~0.72 ms with or without the
+// split.  The split serves the batches that leave SMs idle: at batch 1
+// (16 blocks) 0.12 ms against 0.40 ms unsplit, with a 0.08 ms bound.  No
+// configuration the port serves yet decodes so few (slot, head) pairs at
+// long S.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-// Warps per block: 8, or 4 where G * hd is so large that the merge's
-// shared arrays (warps * G * hd floats) would pass the 48 KB of static
-// shared memory (G = 8, hd = 256).
-template <int G, int D>
-__host__ __device__ constexpr int warps_for() {
-  return G * D <= 32 ? 8 : 4;
-}
 constexpr int kChunk = 16;            // contiguous rows a warp takes at a time (K4, K5)
 constexpr float kNegInf = -1.0e30f;   // the TPU kernel's mask constant
 
 enum { kPaged = 0, kContiguous = 1, kInt8 = 2 };
+
+// Columns a lane owns: 16 bytes of the cache's dtype, at least hd / 32 (a
+// row fits one warp) and at most what keeps G * D per-lane values of q and
+// the accumulator in registers.
+template <int G, int HD, int KvBytes>
+__host__ __device__ constexpr int cols_per_lane() {
+  constexpr int vec = 16 / KvBytes;
+  constexpr int regs = 16 / G;
+  constexpr int d = vec < regs ? vec : regs;
+  return d > HD / 32 ? d : HD / 32;
+}
+
+// Warps per block: 8, or 4 where G * D is so large that the merge's shared
+// arrays (warps * G * 32 * D floats) would pass 48 KB (G = 8, hd = 256).
+template <int G, int D>
+__host__ __device__ constexpr int warps_for() {
+  return G * D <= 32 ? 8 : 4;
+}
 
 // Every launcher's arguments; a kernel reads the fields of its kind.
 struct Args {
@@ -80,25 +107,20 @@ struct Args {
   const int* block_tables;  // K1: [B, nblk]
   const int* lengths;   // [B]
   void* out;            // [B, nh, hd]
+  float* part;          // K4 with n_split > 1: partials, laid out as ml_offset says
   int nh, nkv;
   int rows;             // K1: nblk (table entries per slot); K4/K5: S
   int ps;               // K1: page size
+  int chunks_per_split;  // K4: 16-row chunks a block walks
   float scale, logit_cap;
 };
 
-// D consecutive values at p (one lane's columns of a row), as f32, in one
-// vector load: the wrapper checks that the cache is aligned to 32 bytes.
+// D consecutive values of one lane's columns of a row, loaded as one
+// vector: the wrapper checks that the cache is aligned to 32 bytes.
 template <typename T, int D>
 struct alignas(sizeof(T) * D) Vec {
   T v[D];
 };
-
-template <typename T, int D>
-__device__ __forceinline__ void load_f32(const T* p, float (&out)[D]) {
-  const Vec<T, D> x = *reinterpret_cast<const Vec<T, D>*>(p);
-#pragma unroll
-  for (int i = 0; i < D; ++i) out[i] = repro::to_f(x.v[i]);
-}
 
 // ---- row policies: the global row index (into [rows, nkv, hd]) of the
 // first row of chunk j of this block's slot; a chunk's rows are consecutive.
@@ -115,58 +137,90 @@ struct ContiguousRows {  // K4, K5: row p of slot b is row b * S + p
   __device__ __forceinline__ size_t first_row(int j) const { return base + (size_t)j * kChunk; }
 };
 
-// ---- load policies: this lane's D columns of K and V of one row, in f32.
+// ---- load policies: this lane's D columns of K and V of one row, loaded
+// raw (`Raw`, in the cache's dtype, so a row in flight holds few registers)
+// and read as f32 by kf / vf where the loop uses them.
 template <typename T, int D>
 struct PlainLoad {  // K1, K4: K and V in q's dtype
+  struct Raw {
+    Vec<T, D> k, v;
+  };
+  static constexpr int kRawRegs = 2 * D * (int)sizeof(T) / 4;
   const T* k;       // offset to this head and lane's columns
   const T* v;
   size_t row_stride;  // nkv * hd
-  __device__ __forceinline__ void operator()(size_t row, float (&kr)[D], float (&vr)[D]) const {
-    load_f32<T, D>(k + row * row_stride, kr);
-    load_f32<T, D>(v + row * row_stride, vr);
+  __device__ __forceinline__ void operator()(size_t row, Raw& x) const {
+    x.k = *reinterpret_cast<const Vec<T, D>*>(k + row * row_stride);
+    x.v = *reinterpret_cast<const Vec<T, D>*>(v + row * row_stride);
   }
+  __device__ __forceinline__ static float kf(const Raw& x, int i) { return repro::to_f(x.k.v[i]); }
+  __device__ __forceinline__ static float vf(const Raw& x, int i) { return repro::to_f(x.v.v[i]); }
 };
 
 template <int D>
 struct Int8Load {  // K5: int8 values times the f32 scale of (row, head)
+  struct Raw {
+    Vec<int8_t, D> k, v;
+    float ks, vs;
+  };
+  static constexpr int kRawRegs = 2 * D / 4 + 2;
   const int8_t* k;  // offset to this head and lane's columns
   const int8_t* v;
   const float* ks;  // offset to this head
   const float* vs;
   size_t row_stride;  // nkv * hd
   int nkv;
-  __device__ __forceinline__ void operator()(size_t row, float (&kr)[D], float (&vr)[D]) const {
-    load_f32<int8_t, D>(k + row * row_stride, kr);
-    load_f32<int8_t, D>(v + row * row_stride, vr);
-    const float a = ks[row * nkv], c = vs[row * nkv];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      kr[i] *= a;
-      vr[i] *= c;
-    }
+  __device__ __forceinline__ void operator()(size_t row, Raw& x) const {
+    x.k = *reinterpret_cast<const Vec<int8_t, D>*>(k + row * row_stride);
+    x.v = *reinterpret_cast<const Vec<int8_t, D>*>(v + row * row_stride);
+    x.ks = ks[row * nkv];
+    x.vs = vs[row * nkv];
+  }
+  __device__ __forceinline__ static float kf(const Raw& x, int i) {
+    return repro::to_f(x.k.v[i]) * x.ks;
+  }
+  __device__ __forceinline__ static float vf(const Raw& x, int i) {
+    return repro::to_f(x.v.v[i]) * x.vs;
   }
 };
 
-// The shared body: slot b, KV head h, rows [0, len) found by `rows` and read
-// by `load`.  T is q's (and the output's) dtype.
-template <typename T, int G, int D, typename Rows, typename Load>
-__device__ __forceinline__ void attend(const Args& a, int b, int h, int len, const Rows& rows,
-                                       const Load& load) {
-  constexpr int hd = 32 * D;
+// K4's partials for B * nh heads and n_split ranges: acc [B * nh, n_split,
+// hd], then (m, l) [B * nh, n_split, 2], all f32.
+__host__ __device__ __forceinline__ size_t ml_offset(size_t heads, int n_split, int hd) {
+  return heads * n_split * hd;
+}
+
+// The shared body: slot b, KV head h, chunks [j0, j1) of rows [0, len)
+// found by `rows` and read by `load`.  T is q's (and the output's) dtype.
+// Writes the normalised output, or (a.part set) block z's partial.
+template <typename T, int G, int HD, int D, typename Rows, typename Load>
+__device__ __forceinline__ void attend(const Args& a, int b, int h, int len, int j0, int j1,
+                                       int z, const Rows& rows, const Load& load) {
   constexpr int kWarps = warps_for<G, D>();
-  // rows a warp loads, then folds in with one softmax update; fewer where
-  // G * D per-lane values of q and the accumulator already hold registers
-  constexpr int kUnroll = G * D <= 8 ? 8 : (G * D <= 16 ? 4 : 2);
+  constexpr int kLanesPerRow = HD / D;
+  constexpr int kRowsPerLoad = 32 / kLanesPerRow;  // rows one warp load covers
+  constexpr int kGroups = kWarps * kRowsPerLoad;   // lane groups with their own state
+  // rows a lane loads, then folds in with one softmax update: as many as
+  // fit a register budget for the raw rows (two groups are in flight),
+  // smaller where G * D values of q and the accumulator already hold many
+  constexpr int kBudget = G * D >= 32 ? 16 : 32;
+  constexpr int kFit = kBudget / Load::kRawRegs;
+  constexpr int kUnroll = kFit >= 8 ? 8 : (kFit >= 4 ? 4 : (kFit >= 2 ? 2 : 1));
+  constexpr int kStep = kUnroll * kRowsPerLoad;  // rows of a group
+  using Raw = typename Load::Raw;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int sub = lane / kLanesPerRow;  // this lane's row within a warp load
+  const int col = (lane % kLanesPerRow) * D;
+  const int grp = warp * kRowsPerLoad + sub;
 
   // this lane's columns of the G query heads
   float qv[G][D];
-  const T* q_b = (const T*)a.q + ((size_t)b * a.nh + (size_t)h * G) * hd + lane * D;
+  const T* q_b = (const T*)a.q + ((size_t)b * a.nh + (size_t)h * G) * HD + col;
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < D; ++i) qv[g][i] = repro::to_f(q_b[g * hd + i]);
+    for (int i = 0; i < D; ++i) qv[g][i] = repro::to_f(q_b[g * HD + i]);
 
   float m[G], l[G], acc[G][D];
 #pragma unroll
@@ -178,126 +232,190 @@ __device__ __forceinline__ void attend(const Args& a, int b, int h, int len, con
   }
 
   const int C = rows.chunk();
-  const int n_chunks = (len + C - 1) / C;
-  for (int j = warp; j < n_chunks; j += kWarps) {
+  const int j_end = min(j1, (len + C - 1) / C);
+  // group (j, r): rows [r, r + kStep) of chunk j; each lane loads its rows
+  auto fetch = [&](int j, int r, Raw (&x)[kUnroll], bool (&ok)[kUnroll]) {
     const size_t r0 = rows.first_row(j);
     const int live = min(C, len - j * C);  // live rows of this chunk
-    for (int r = 0; r < live; r += kUnroll) {
-      const int n = min(kUnroll, live - r);  // rows of this group
-      float kr[kUnroll][D], vr[kUnroll][D];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (u < n) load(r0 + r + u, kr[u], vr[u]);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        // the group's scores: independent dot products and warp sums,
-        // interleaved so that their shuffles overlap
-        float s[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          s[u] = 0.f;
-#pragma unroll
-          for (int i = 0; i < D; ++i) s[u] += qv[g][i] * kr[u][i];
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
-        // one online-softmax update for the group, as the TPU kernel does
-        // for each of its blocks
-        float m_new = m[g];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          s[u] *= a.scale;
-          if (a.logit_cap > 0.f) s[u] = a.logit_cap * tanhf(s[u] / a.logit_cap);
-          if (u < n) m_new = fmaxf(m_new, s[u]);
-        }
-        const float corr = expf(m[g] - m_new);
-        float p_sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < D; ++i) acc[g][i] *= corr;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (u < n) {  // rows past the chunk were not loaded
-            const float p = expf(s[u] - m_new);
-            p_sum += p;
-#pragma unroll
-            for (int i = 0; i < D; ++i) acc[g][i] += p * vr[u][i];
-          }
-        }
-        l[g] = l[g] * corr + p_sum;
-        m[g] = m_new;
-      }
+    for (int u = 0; u < kUnroll; ++u) {
+      const int row = r + u * kRowsPerLoad + sub;
+      ok[u] = row < live;  // the same for every lane of the row's group
+      if (ok[u]) load(r0 + row, x[u]);
     }
+  };
+  // The warp walks chunks j0 + warp, + kWarps, ... group by group, and
+  // loads the next group before it folds in the current one.
+  Raw cur[kUnroll], nxt[kUnroll];
+  bool ok_cur[kUnroll], ok_nxt[kUnroll];
+  int j = j0 + warp, r = 0;
+  if (j < j_end) fetch(j, r, cur, ok_cur);
+  while (j < j_end) {
+    int jn = j, rn = r + kStep;
+    if (rn >= min(C, len - j * C)) {
+      jn += kWarps;
+      rn = 0;
+    }
+    if (jn < j_end) fetch(jn, rn, nxt, ok_nxt);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      // the rows' scores: independent dot products and group sums,
+      // interleaved so that their shuffles overlap
+      float s[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        s[u] = 0.f;
+#pragma unroll
+        for (int i = 0; i < D; ++i) s[u] += qv[g][i] * Load::kf(cur[u], i);
+      }
+#pragma unroll
+      for (int o = kLanesPerRow / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+      // one online-softmax update for the rows, as the TPU kernel does for
+      // each of its blocks
+      float m_new = m[g];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        s[u] *= a.scale;
+        if (a.logit_cap > 0.f) s[u] = a.logit_cap * tanhf(s[u] / a.logit_cap);
+        if (ok_cur[u]) m_new = fmaxf(m_new, s[u]);
+      }
+      const float corr = expf(m[g] - m_new);
+      float p_sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < D; ++i) acc[g][i] *= corr;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (ok_cur[u]) {  // rows past the chunk were not loaded
+          const float p = expf(s[u] - m_new);
+          p_sum += p;
+#pragma unroll
+          for (int i = 0; i < D; ++i) acc[g][i] += p * Load::vf(cur[u], i);
+        }
+      }
+      l[g] = l[g] * corr + p_sum;
+      m[g] = m_new;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      cur[u] = nxt[u];
+      ok_cur[u] = ok_nxt[u];
+    }
+    j = jn;
+    r = rn;
   }
 
-  // merge the warps' partial softmax states
-  __shared__ float m_s[kWarps][G], l_s[kWarps][G], a_s[kWarps][G][hd];
+  // merge the lane groups' softmax states
+  __shared__ float m_s[kGroups][G], l_s[kGroups][G], a_s[kGroups][G][HD];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      m_s[warp][g] = m[g];
-      l_s[warp][g] = l[g];
+    if (col == 0) {
+      m_s[grp][g] = m[g];
+      l_s[grp][g] = l[g];
     }
 #pragma unroll
-    for (int i = 0; i < D; ++i) a_s[warp][g][lane * D + i] = acc[g][i];
+    for (int i = 0; i < D; ++i) a_s[grp][g][col + i] = acc[g][i];
   }
   __syncthreads();
-  T* o_b = (T*)a.out + ((size_t)b * a.nh + (size_t)h * G) * hd;
-  for (int idx = threadIdx.x; idx < G * hd; idx += 32 * kWarps) {
-    const int g = idx / hd, d = idx % hd;
+  const size_t head0 = (size_t)b * a.nh + (size_t)h * G;  // first of the G heads
+  for (int idx = threadIdx.x; idx < G * HD; idx += 32 * kWarps) {
+    const int g = idx / HD, d = idx % HD;
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w][g]);
+    for (int w = 0; w < kGroups; ++w) mx = fmaxf(mx, m_s[w][g]);
     float num = 0.f, den = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(m_s[w][g] - mx);  // 0 for a warp that saw no row
+    for (int w = 0; w < kGroups; ++w) {
+      const float c = expf(m_s[w][g] - mx);  // 0 for a group that saw no row
       num += a_s[w][g][d] * c;
       den += l_s[w][g] * c;
     }
-    o_b[idx] = repro::from_f<T>(num / fmaxf(den, 1e-30f));
+    if (a.part == nullptr) {
+      ((T*)a.out)[head0 * HD + idx] = repro::from_f<T>(num / fmaxf(den, 1e-30f));
+    } else {  // K4 split z: the unnormalised partial
+      const int n_split = gridDim.z;
+      const size_t hz = (head0 + g) * n_split + z;
+      a.part[hz * HD + d] = num;
+      if (d == 0) {
+        float* ml = a.part + ml_offset((size_t)gridDim.y * a.nh, n_split, HD) + hz * 2;
+        ml[0] = mx;
+        ml[1] = den;
+      }
+    }
   }
 }
 
-// grid (B, nkv), 32 * warps_for<G, D>() threads; T is q's dtype
-template <int Kind, typename T, int G, int D>
-__global__ void __launch_bounds__(32 * warps_for<G, D>()) decode_attention_kernel(const Args a) {
-  constexpr int hd = 32 * D;
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const size_t col = (size_t)h * hd + (threadIdx.x & 31) * D;  // this lane's columns
-  const size_t row_stride = (size_t)a.nkv * hd;
+template <int Kind, typename T>
+using kv_t = typename std::conditional<Kind == kInt8, int8_t, T>::type;
+
+template <int Kind, typename T, int G, int HD>
+__host__ __device__ constexpr int threads_for() {
+  return 32 * warps_for<G, cols_per_lane<G, HD, sizeof(kv_t<Kind, T>)>()>();
+}
+
+// grid (nkv, B, n_split), threads_for<...>() threads; T is q's dtype
+template <int Kind, typename T, int G, int HD>
+__global__ void __launch_bounds__(threads_for<Kind, T, G, HD>()) decode_attention_kernel(
+    const Args a) {
+  constexpr int D = cols_per_lane<G, HD, sizeof(kv_t<Kind, T>)>();
+  constexpr int kLanesPerRow = HD / D;
+  const int h = blockIdx.x;  // a slot's heads launch side by side and read
+  const int b = blockIdx.y;  // the same rows of the cache together
+  const size_t col = (size_t)h * HD + (threadIdx.x & 31) % kLanesPerRow * D;  // lane's columns
+  const size_t row_stride = (size_t)a.nkv * HD;
   if constexpr (Kind == kPaged) {
     const int len = min(a.lengths[b], a.rows * a.ps);
     const PagedRows rows{a.block_tables + (size_t)b * a.rows, a.ps};
     const PlainLoad<T, D> load{(const T*)a.k + col, (const T*)a.v + col, row_stride};
-    attend<T, G, D>(a, b, h, len, rows, load);
+    attend<T, G, HD, D>(a, b, h, len, 0, a.rows, 0, rows, load);
   } else if constexpr (Kind == kContiguous) {
     const int len = min(a.lengths[b], a.rows);
+    const int z = blockIdx.z;
     const ContiguousRows rows{(size_t)b * a.rows};
     const PlainLoad<T, D> load{(const T*)a.k + col, (const T*)a.v + col, row_stride};
-    attend<T, G, D>(a, b, h, len, rows, load);
+    attend<T, G, HD, D>(a, b, h, len, z * a.chunks_per_split, (z + 1) * a.chunks_per_split, z,
+                        rows, load);
   } else {
     const int len = min(a.lengths[b], a.rows);
     const ContiguousRows rows{(size_t)b * a.rows};
     const Int8Load<D> load{(const int8_t*)a.k + col, (const int8_t*)a.v + col, a.k_scale + h,
                            a.v_scale + h, row_stride, a.nkv};
-    attend<T, G, D>(a, b, h, len, rows, load);
+    attend<T, G, HD, D>(a, b, h, len, 0, (a.rows + kChunk - 1) / kChunk, 0, rows, load);
   }
 }
 
-template <int Kind, typename T, int G, int D>
+// K4's second pass: grid (B * nh), hd threads; out = the partials of one
+// head merged in split order and normalised, as the in-block merge does.
+template <typename T>
+__global__ void merge_splits_kernel(const float* __restrict__ part, T* __restrict__ out,
+                                    int n_split, int hd) {
+  const size_t head = blockIdx.x;
+  const int d = threadIdx.x;
+  const float* acc = part + head * n_split * hd + d;
+  const float* ml = part + ml_offset(gridDim.x, n_split, hd) + head * n_split * 2;
+  float mx = kNegInf;
+  for (int z = 0; z < n_split; ++z) mx = fmaxf(mx, ml[2 * z]);
+  float num = 0.f, den = 0.f;
+  for (int z = 0; z < n_split; ++z) {
+    const float c = expf(ml[2 * z] - mx);  // 0 for a range past the length
+    num += acc[(size_t)z * hd] * c;
+    den += ml[2 * z + 1] * c;
+  }
+  out[head * hd + d] = repro::from_f<T>(num / fmaxf(den, 1e-30f));
+}
+
+template <int Kind, typename T, int G, int HD>
 void launch_one(const dim3& grid, cudaStream_t st, const Args& a) {
-  decode_attention_kernel<Kind, T, G, D><<<grid, 32 * warps_for<G, D>(), 0, st>>>(a);
+  decode_attention_kernel<Kind, T, G, HD><<<grid, threads_for<Kind, T, G, HD>(), 0, st>>>(a);
 }
 
 template <int Kind, typename T, int G>
 int launch_d(int hd, const dim3& grid, cudaStream_t st, const Args& a) {
   switch (hd) {
-    case 64: launch_one<Kind, T, G, 2>(grid, st, a); break;
-    case 128: launch_one<Kind, T, G, 4>(grid, st, a); break;
-    case 256: launch_one<Kind, T, G, 8>(grid, st, a); break;
+    case 64: launch_one<Kind, T, G, 64>(grid, st, a); break;
+    case 128: launch_one<Kind, T, G, 128>(grid, st, a); break;
+    case 256: launch_one<Kind, T, G, 256>(grid, st, a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -314,13 +432,21 @@ int launch_g(int hd, const dim3& grid, cudaStream_t st, const Args& a) {
   }
 }
 
+template <int Kind, typename T>
+int launch_t(int B, int hd, int n_split, cudaStream_t st, const Args& a) {
+  const int err = launch_g<Kind, T>(hd, dim3(a.nkv, B, n_split), st, a);
+  if (err || n_split == 1) return err;
+  merge_splits_kernel<T><<<B * a.nh, hd, 0, st>>>(a.part, (T*)a.out, n_split, hd);
+  return (int)cudaGetLastError();
+}
+
 template <int Kind>
-int launch(int dtype, int B, int hd, int device, void* stream, const Args& a) {
+int launch(int dtype, int B, int hd, int n_split, int device, void* stream, const Args& a) {
   REPRO_SET_DEVICE(device);
-  const dim3 grid(B, a.nkv);
+  if (n_split < 1 || (n_split > 1 && a.part == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == REPRO_BF16) return launch_g<Kind, __nv_bfloat16>(hd, grid, st, a);
-  if (dtype == REPRO_F32) return launch_g<Kind, float>(hd, grid, st, a);
+  if (dtype == REPRO_BF16) return launch_t<Kind, __nv_bfloat16>(B, hd, n_split, st, a);
+  if (dtype == REPRO_F32) return launch_t<Kind, float>(B, hd, n_split, st, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -333,19 +459,22 @@ REPRO_EXPORT int paged_decode_attention(const void* q, const void* k_pages, cons
                                         int B, int nh, int nkv, int hd, int ps, int nblk,
                                         float scale, float logit_cap, int dtype, int device,
                                         void* stream) {
-  const Args a{q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths, out,
-               nh, nkv, nblk, ps, scale, logit_cap};
-  return launch<kPaged>(dtype, B, hd, device, stream, a);
+  const Args a{q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths, out, nullptr,
+               nh, nkv, nblk, ps, 0, scale, logit_cap};
+  return launch<kPaged>(dtype, B, hd, 1, device, stream, a);
 }
 
-// K4: q [B, nh, hd], caches [B, S, nkv, hd] in q's dtype, lengths [B] int32.
+// K4: q [B, nh, hd], caches [B, S, nkv, hd] in q's dtype, lengths [B] int32;
+// n_split ranges of chunks_per_split 16-row chunks each, and with
+// n_split > 1 an f32 scratch `part` of B * nh * n_split * (hd + 2) floats.
 REPRO_EXPORT int decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                  const int* lengths, void* out, int B, int nh, int nkv, int hd,
-                                  int S, float scale, float logit_cap, int dtype, int device,
+                                  const int* lengths, void* out, float* part, int B, int nh,
+                                  int nkv, int hd, int S, int n_split, int chunks_per_split,
+                                  float scale, float logit_cap, int dtype, int device,
                                   void* stream) {
   const Args a{q, k_cache, v_cache, nullptr, nullptr, nullptr, lengths, out,
-               nh, nkv, S, 0, scale, logit_cap};
-  return launch<kContiguous>(dtype, B, hd, device, stream, a);
+               n_split > 1 ? part : nullptr, nh, nkv, S, 0, chunks_per_split, scale, logit_cap};
+  return launch<kContiguous>(dtype, B, hd, n_split, device, stream, a);
 }
 
 // K5: q [B, nh, hd], int8 caches [B, S, nkv, hd], f32 scales [B, S, nkv],
@@ -355,7 +484,7 @@ REPRO_EXPORT int decode_attention_int8(const void* q, const void* k_cache, const
                                        const int* lengths, void* out, int B, int nh, int nkv,
                                        int hd, int S, float scale, float logit_cap, int dtype,
                                        int device, void* stream) {
-  const Args a{q, k_cache, v_cache, k_scale, v_scale, nullptr, lengths, out,
-               nh, nkv, S, 0, scale, logit_cap};
-  return launch<kInt8>(dtype, B, hd, device, stream, a);
+  const Args a{q, k_cache, v_cache, k_scale, v_scale, nullptr, lengths, out, nullptr,
+               nh, nkv, S, 0, 0, scale, logit_cap};
+  return launch<kInt8>(dtype, B, hd, 1, device, stream, a);
 }

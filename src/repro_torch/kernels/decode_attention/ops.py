@@ -13,7 +13,7 @@ tensors; any other device raises.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -24,10 +24,19 @@ KERNEL_GROUPS = (1, 2, 4, 8)  # template instances of csrc/decode_attention.cu
 KERNEL_HEAD_DIMS = (64, 128, 256)
 _ALIGN = 32  # bytes: a lane loads its head_dim columns of a row as one vector
 _K1_ARGS = [cuda.PTR] * 6 + [cuda.INT] * 6 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
-_K4_ARGS = [cuda.PTR] * 5 + [cuda.INT] * 5 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
+_K4_ARGS = [cuda.PTR] * 6 + [cuda.INT] * 7 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
 _K5_ARGS = [cuda.PTR] * 7 + [cuda.INT] * 5 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
 
 ValidLen = Union[int, torch.Tensor]
+
+# K4's split-KV plan: enough blocks for SPLIT_BLOCKS_PER_SM on every SM (two
+# blocks of 8 warps fit an SM), but at most ceil(S / SPLIT_MIN_ROWS) ranges
+# of whole 16-row chunks: a cache of up to 512 rows (the serving engine's)
+# is not split, since its second launch and scratch would cost more than the
+# split saves (S = 513 gives two ranges, of 272 and 241 rows).
+SPLIT_CHUNK = 16
+SPLIT_MIN_ROWS = 512
+SPLIT_BLOCKS_PER_SM = 2
 
 
 def _lengths(valid_len: ValidLen, B: int, device) -> torch.Tensor:
@@ -64,6 +73,64 @@ def decode_attention_ref(
     return o.reshape(B, nh, hd).to(q.dtype)
 
 
+def split_rows(S: int, n_split: int) -> int:
+    """Rows per range when ``S`` rows are cut into ``n_split`` ranges of
+    whole 16-row chunks (the last ranges may lie past ``S``)."""
+    return SPLIT_CHUNK * -(-S // (SPLIT_CHUNK * n_split))
+
+
+def split_plan(B: int, nkv: int, S: int, num_sms: int) -> Tuple[int, int]:
+    """K4's ``(n_split, rows per range)`` from what the host knows without a
+    device sync: the (slot, KV head) count, the cache's S and the SM count."""
+    want = -(-SPLIT_BLOCKS_PER_SM * num_sms // (B * nkv))
+    n = max(1, min(want, -(-S // SPLIT_MIN_ROWS)))
+    rows = split_rows(S, n)
+    return -(-S // rows), rows
+
+
+def decode_attention_split_ref(
+    q: torch.Tensor,  # [B, nh, hd]
+    k_cache: torch.Tensor,  # [B, S, nkv, hd]
+    v_cache: torch.Tensor,
+    valid_len: ValidLen,
+    n_split: int,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """K4's split-KV decomposition in plain PyTorch: f32 partials
+    ``(m, l, acc)`` over ``n_split`` ranges of :func:`split_rows` rows, merged
+    in range order.  Equal to :func:`decode_attention_ref` up to f32
+    rounding; nothing on the serving path calls it."""
+    B, nh, hd = q.shape
+    S, nkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, nkv, nh // nkv, hd).float()
+    s = torch.einsum("bngh,bsnh->bngs", qg, k_cache.float()) * (hd**-0.5)
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    lengths = _lengths(valid_len, B, q.device).long()
+    live = (torch.arange(S, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
+    s = torch.where(live, s, NEG_INF)
+    rows = split_rows(S, n_split)
+    m, l, acc = [], [], []
+    for z in range(n_split):
+        lo, hi = min(z * rows, S), min((z + 1) * rows, S)
+        sz, lz = s[..., lo:hi], live[..., lo:hi]
+        # -1e30 for a range wholly past the length (or past S)
+        mz = sz.amax(dim=-1) if hi > lo else torch.full(s.shape[:-1], NEG_INF, device=q.device)
+        p = torch.where(lz, torch.exp(sz - mz[..., None]), 0.0)
+        m.append(mz)
+        l.append(p.sum(-1))
+        acc.append(torch.einsum("bngs,bsnh->bngh", p, v_cache[:, lo:hi].float()))
+    mx = torch.stack(m).amax(dim=0)
+    num = torch.zeros_like(acc[0])
+    den = torch.zeros_like(l[0])
+    for mz, lz, az in zip(m, l, acc):
+        c = torch.exp(mz - mx)
+        num = num + az * c[..., None]
+        den = den + lz * c
+    o = num / den.clamp(min=1e-30)[..., None]
+    return o.reshape(B, nh, hd).to(q.dtype)
+
+
 def decode_attention_int8_ref(q, k_cache, v_cache, k_scale, v_scale, valid_len, logit_cap: float = 0.0):
     """Dequantise the int8 cache, round it to q's dtype, then
     :func:`decode_attention_ref` (``decode_attention/ref.py:29``)."""
@@ -89,6 +156,17 @@ def paged_decode_attention_ref(
     k = k_pages[bt].reshape(B, S, nkv, hd)
     v = v_pages[bt].reshape(B, S, nkv, hd)
     return decode_attention_ref(q, k, v, lengths, logit_cap)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _num_sms(device: torch.device) -> int:
+    """The card's SM count (a host query, cached per device)."""
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
 
 
 def _check_launch(what: str, q: torch.Tensor, nkv: int, tensors) -> int:
@@ -167,9 +245,12 @@ def decode_attention(
     valid_len: ValidLen,  # scalar, or [B] int32 per-slot lengths
     logit_cap: float = 0.0,
 ) -> torch.Tensor:
-    """K4, flash decode over a contiguous cache: ``[B, nh, hd]`` in q's dtype.
+    """K4, split-KV flash decode over a contiguous cache: ``[B, nh, hd]`` in
+    q's dtype.
 
     Rows ``p < valid_len`` (per slot when ``valid_len`` is ``[B]``) attend.
+    The slot's rows are cut into :func:`split_plan`'s ranges, one block each,
+    and the ranges' partials are merged by a second kernel.
     The reference op's ``block_kv`` is a TPU tiling choice with no effect on
     the result, so it is left out; lengths must be >= 1 (the kernel reads no
     row of an empty slot)."""
@@ -183,12 +264,15 @@ def decode_attention(
     lengths = _lengths(valid_len, B, q.device)
     code = _check_launch("decode_attention", q, nkv,
                          {"q": q, "k_cache": k_cache, "v_cache": v_cache, "lengths": lengths})
+    n_split, rows = split_plan(B, nkv, S, _num_sms(q.device))
     out = torch.empty_like(q)
+    part = torch.empty(B * nh * n_split * (hd + 2) if n_split > 1 else 0,
+                       dtype=torch.float32, device=q.device)
     fn = cuda.function("decode_attention", "decode_attention", _K4_ARGS)
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, nh, nkv, hd, S, hd**-0.5, float(logit_cap), code,
-        q.device.index, cuda.stream_of(q),
+        out.data_ptr(), part.data_ptr(), B, nh, nkv, hd, S, n_split, rows // SPLIT_CHUNK,
+        hd**-0.5, float(logit_cap), code, q.device.index, cuda.stream_of(q),
     )
     cuda.check("decode_attention", err, "decode_attention")
     cuda.count("decode_attention")

@@ -74,12 +74,18 @@ def expert_ffn_grouped(
         if w.dtype != x.dtype:
             raise TypeError(f"expert_ffn_grouped: {name} is {w.dtype}, x is {x.dtype}")
     active = active.to(torch.int32)
-    cuda.check_tensors(
-        {"x": x, "w_gate": w_gate, "w_up": w_up, "w_down": w_down,
-         "slot_to_expert": slot_to_expert, "active": active},
-        x.device,
-    )
+    floats = {"x": x, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+    cuda.check_tensors({**floats, "slot_to_expert": slot_to_expert, "active": active}, x.device)
     code = cuda.dtype_code(x, "expert_ffn_grouped")
+    if x.dtype == torch.bfloat16:  # the tensor-core path copies 16 bytes at a time
+        if d % 8 or f % 8:
+            raise ValueError(
+                f"expert_ffn_grouped: the bf16 kernel takes d and f multiples of 8, "
+                f"got d={d}, f={f}"
+            )
+        for name, t in floats.items():
+            if t.data_ptr() % 16:
+                raise ValueError(f"expert_ffn_grouped: {name} must be 16-byte aligned")
     h = torch.empty((S, CAP, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     fn = cuda.function("expert_ffn", "expert_ffn", _ARGS)

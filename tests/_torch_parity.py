@@ -36,6 +36,27 @@ def assert_close(got, want, tol: float) -> None:
     np.testing.assert_allclose(as_f32(got), as_f32(want), atol=tol, rtol=tol)
 
 
+# One bf16 rounding of an f32 result: an ulp is at most 2^-7 of the value, and
+# f32 summation-order noise is kept under 2^-12 of the largest output.
+ROUNDING_REL, ROUNDING_FLOOR = 2.0**-7, 2.0**-12
+
+
+def rounding_excess(got, want) -> float:
+    """Largest ``|got - want|`` over what one bf16 rounding of the same f32
+    result allows (``ROUNDING_REL |want| + ROUNDING_FLOOR max|want|``): at most
+    1 when both sides compute in f32 and round once.  Unlike ``TOL["bf16"]``
+    it scales with the output, so it holds outputs of ~0.01 (attention over
+    tens of thousands of rows) to a few of their ulps."""
+    g, w = as_f32(got), as_f32(want)
+    allow = ROUNDING_REL * np.abs(w) + ROUNDING_FLOOR * np.abs(w).max()
+    return float((np.abs(g - w) / np.maximum(allow, 1e-30)).max())
+
+
+def assert_one_rounding(got, want) -> None:
+    excess = rounding_excess(got, want)
+    assert excess <= 1.0, f"differs by {excess:.3g}x what one bf16 rounding allows"
+
+
 def assert_equal_int(got, want) -> None:
     np.testing.assert_array_equal(as_int(got), as_int(want))
 

@@ -12,19 +12,26 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import TOL, assert_close, assert_equal_int, tol_for
+from _torch_parity import (
+    TOL, assert_close, assert_equal_int, assert_one_rounding, rounding_excess, tol_for,
+)
 from repro_torch.core.aebs import aebs_numpy
 from repro_torch.core.amax import make_routing_trace
 from repro_torch.core.placement import build_layout
 from repro_torch.kernels import cuda
 from repro_torch.kernels.aebs.ops import aebs_schedule
 from repro_torch.kernels.decode_attention.ops import (
+    KERNEL_GROUPS,
+    KERNEL_HEAD_DIMS,
     decode_attention,
     decode_attention_int8,
     decode_attention_int8_ref,
     decode_attention_ref,
+    decode_attention_split_ref,
     paged_decode_attention,
     paged_decode_attention_ref,
+    split_plan,
+    split_rows,
 )
 from repro_torch.kernels.expert_ffn.ops import expert_ffn_grouped, expert_ffn_grouped_ref
 
@@ -186,6 +193,42 @@ def test_decode_plain_per_slot_lengths_match_reference_rows():
     np.testing.assert_array_equal(full[2].numpy(), got[2].numpy())
 
 
+@pytest.mark.parametrize("logit_cap", [0.0, 30.0])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("n_split", [1, 2, 7, 64])
+def test_decode_split_ref_matches_plain(n_split, G, logit_cap):
+    """K4's split-KV decomposition (per-range partials merged in order)
+    equals the one-pass plain version, with lengths on and beside the 16-row
+    chunk edges and ranges wholly past a slot's length (or past S)."""
+    rng = np.random.default_rng(n_split * 10 + G)
+    B, nkv, hd, S = 5, 2, 32, 80
+    q, k, v = _contiguous_inputs(rng, B, G * nkv, nkv, hd, S)
+    lens = _t(np.array([1, 15, 16, 17, S], np.int32))
+    got = decode_attention_split_ref(_t(q), _t(k), _t(v), lens, n_split, logit_cap=logit_cap)
+    want = decode_attention_ref(_t(q), _t(k), _t(v), lens, logit_cap=logit_cap)
+    assert_close(got, want, TOL["f32_op"])
+
+
+@pytest.mark.parametrize("logit_cap", [0.0, 30.0])
+@pytest.mark.parametrize("G", [1, 4])
+def test_one_rounding_limit_holds_split_and_catches_dropped_chunk(G, logit_cap):
+    """The limit K4 is held to on the card at long S: the split-KV
+    decomposition, rounded once to bf16, is within one rounding of the
+    one-pass plain version; the same attention with the 16-row chunk after a
+    range edge left out is not (outputs are ~0.03 here, so an absolute 3e-2
+    would not see it)."""
+    rng = np.random.default_rng(G)
+    B, nkv, hd, S, n_split = 2, 2, 128, 4096, 4
+    q, k, v = (_t(a, "bfloat16") for a in _contiguous_inputs(rng, B, G * nkv, nkv, hd, S))
+    lens = _t(np.array([S, S - 100], np.int32))
+    want = decode_attention_ref(q, k, v, lens, logit_cap=logit_cap)
+    assert_one_rounding(decode_attention_split_ref(q, k, v, lens, n_split, logit_cap=logit_cap), want)
+    edge = split_rows(S, n_split)
+    keep = torch.cat([torch.arange(edge), torch.arange(edge + 16, S)])
+    dropped = decode_attention_ref(q, k[:, keep], v[:, keep], lens - 16, logit_cap=logit_cap)
+    assert rounding_excess(dropped, want) > 1.0
+
+
 # ---------------------------------------------------------------------------
 # K2 AEBS
 # ---------------------------------------------------------------------------
@@ -255,6 +298,8 @@ def _ffn_inputs(rng, S, E, CAP, d, f):
     (8, 64, 256, 1024),
     (16, 8, 512, 1408),  # dsv2-lite's d_ff_expert (not a power of two)
     (3, 32, 256, 512),
+    (5, 1, 128, 256),  # one row per slot
+    (4, 17, 128, 192),  # CAP no multiple of the kernel's 8-row MMA side
 ])
 def test_expert_ffn_plain_matches_reference(S, CAP, d, f, dtype):
     from repro.kernels.expert_ffn.ops import expert_ffn as ref_op
@@ -355,16 +400,45 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
         for a, b in zip(got, want):
             assert_equal_int(a, b)
 
-    # K3: stacked and slot-indirect maps, with empty and inactive slots
-    for S, E, CAP, d, f in ((6, 4, 16, 128, 256), (64, 64, 4, 2048, 1408), (10, 3, 64, 256, 160)):
-        for dtype in ("float32", "bfloat16"):
+    # K4 at decode_32k's S, lengths on and beside the split boundaries the
+    # wrapper chooses, every G and head_dim the kernel is built for
+    S = 32768
+    for G in KERNEL_GROUPS:
+        for hd in KERNEL_HEAD_DIMS:
+            B, nkv = 4, 2
+            _, rows = split_plan(B, nkv, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+            lens = np.array([rows, rows + 1, S, 17], np.int32)
+            q = torch.from_numpy(rng.standard_normal((B, G * nkv, hd)).astype(np.float32))
+            k = torch.randn((B, S, nkv, hd), device=dev).to(torch.bfloat16)
+            v = torch.randn((B, S, nkv, hd), device=dev).to(torch.bfloat16)
+            args = [q.to(dev).to(torch.bfloat16), k, v, _t(lens, device=dev)]
+            # outputs are ~0.01 here: TOL["bf16"] would pass a dropped chunk
+            assert_one_rounding(decode_attention(*args), decode_attention_ref(*args))
+            del k, v
+
+    # K3: stacked and slot-indirect maps, with empty and inactive slots; CAP
+    # from one row to a prefill chunk, to the most the bf16 kernel holds in
+    # a block (256) and past it (blocks of rows), at the serving widths and
+    # at widths that are no multiple of the kernel's 64- and 128-wide tiles
+    cases = [(6, 4, 16, 128, 256), (64, 64, 4, 2048, 1408), (10, 3, 64, 256, 160)]
+    cases += [(6, 4, cap, 2048, 1408) for cap in (1, 4, 8, 17, 64)]
+    cases += [(7, 3, cap, 200, 328) for cap in (1, 4, 8, 17, 64, 100, 256, 300)]
+    rows3 = (4, 4, 520, 2048, 1408)  # three of the bf16 kernel's blocks of rows
+    for S, E, CAP, d, f in cases + [rows3]:
+        # blocks of rows are the bf16 path's; the f32 kernel has none
+        for dtype in ("bfloat16",) if (S, E, CAP, d, f) == rows3 else ("float32", "bfloat16"):
             x, wg, wu, wd = _ffn_inputs(rng, S, E, CAP, d, f)
             m = np.arange(S) % (E + 1)
             s2e = np.where(m == E, -1, m).astype(np.int32)
+            s2e[1] = s2e[0]  # two slots share one expert
             act = (rng.random(S) < 0.7).astype(np.int32)
-            args = [_t(a, dtype, dev) for a in (x, wg, wu, wd, s2e, act)]
-            got = expert_ffn_grouped(*args)
-            want = expert_ffn_grouped_ref(*args)
-            assert_close(got, want, tol_for(dtype))
+            act[:2] = 1
+            for a in (act, np.zeros_like(act)):  # and every slot inactive
+                args = [_t(z, dtype, dev) for z in (x, wg, wu, wd, s2e, a)]
+                got = expert_ffn_grouped(*args)
+                want = expert_ffn_grouped_ref(*args)
+                assert_close(got, want, tol_for(dtype))
+                dead = torch.from_numpy((a == 0) | (s2e < 0)).to(dev)
+                assert (got.float()[dead] == 0).all()
     torch.cuda.synchronize()
     assert all(cuda.LAUNCHES[n] > before[n] for n in before)
