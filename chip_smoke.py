@@ -11,10 +11,11 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      PyTorch version on the same inputs (stated tolerance), timed with CUDA
      events beside its plain version, a PyTorch library yardstick where one
      exists, and the least time the card could take (bytes or FLOPs bound);
-     K4 (with the split-KV plan its wrapper chose) and K5 also at the
-     32k-context shape K4 was written for, at batch 8 and 1, held within one
-     bf16 rounding of their f32 oracles; K3 also at a 64-token prefill
-     chunk's shape, and checked at a 320-token one (two launches of rows);
+     K1 also at a 32k context at batch 4, K4 and K5 at batch 8 and 1 (each
+     with the split-KV plan its wrapper chose), every attention case held
+     within one bf16 rounding of its f32 oracle; K3 also at a 64-token
+     prefill chunk's shape, and checked at a 320-token one (two launches of
+     rows);
   4. reduced parity: dsv2-lite-reduced in float32 through the plain versions
      on the CPU and through the kernels on the card, same seeded weights and
      requests, for four KV layouts: paged (K1), contiguous (K4), int8
@@ -191,46 +192,65 @@ def main():
     rng = np.random.default_rng(0)
 
     # ---- 3a. K1 paged decode attention ----------------------------------
+    # the serving path's shape (four layers' pools rotated, which exceed L2)
+    # and decode_32k's context (src/repro/configs/base.py:278) at the 4
+    # slots one card holds of it in bf16 beside dsv2-lite's weights, every
+    # row valid; the block table is a random permutation of the pool's pages
     B, nh, nkv, hd, ps, nblk = 8, 16, 16, 128, 16, 32
-    P, L = B * nblk + 1, 4  # full backing + null page; 4 layers' pools exceed L2
     bf = torch.bfloat16
-    k_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
-    v_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
-    q = torch.randn((B, nh, hd), generator=gen, device=dev).to(bf)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def paged_case(nblk, lens_np, L, iters, plain_iters, shape):
+        Bc = len(lens_np)
+        P = Bc * nblk + 1  # full backing + null page
+        k_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
+        v_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
+        q = q_all[:Bc]
+        bt_np = np.zeros((Bc, nblk), np.int32)
+        perm = rng.permutation(P - 1) + 1
+        used = 0
+        for b in range(Bc):
+            nb = -(-int(lens_np[b]) // ps)
+            bt_np[b, :nb] = perm[used: used + nb]
+            used += nb
+        bt = torch.from_numpy(bt_np).to(dev)
+        lens = torch.from_numpy(lens_np).to(dev)
+        got = paged_decode_attention(q, k_pool[0], v_pool[0], bt, lens)
+        want = paged_decode_attention_ref(q, k_pool[0], v_pool[0], bt, lens)  # f32, rounded once
+        err, excess = float((got.float() - want.float()).abs().max()), rounding_excess(got, want)
+        del got, want
+        S = nblk * ps
+        kd = [k_pool[l][bt.long()].reshape(Bc, S, nkv, hd).transpose(1, 2).contiguous() for l in range(L)]
+        vd = [v_pool[l][bt.long()].reshape(Bc, S, nkv, hd).transpose(1, 2).contiguous() for l in range(L)]
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None].long())[:, None, None, :]
+        q4 = q[:, :, None, :]
+        lib_ms = time_ms(cycled(lambda l: F.scaled_dot_product_attention(
+            q4, kd[l], vd[l], attn_mask=mask), L), iters)
+        del kd, vd
+        live = int(lens_np.sum())
+        k1_bytes = 2 * live * nkv * hd * 2 + 2 * Bc * nh * hd * 2 + Bc * nblk * 4 + Bc * 4
+        n_split, split_rows = split_plan(Bc, nkv, S, n_sms, ps)
+        record("paged_decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:177", err, TOL["bf16"],
+               time_ms(cycled(lambda l: paged_decode_attention(q, k_pool[l], v_pool[l], bt, lens), L), iters),
+               time_ms(cycled(lambda l: paged_decode_attention_ref(q, k_pool[l], v_pool[l], bt, lens), L),
+                       plain_iters),
+               bound(k1_bytes, 4 * nh * hd * live, BF16_FLOPS), lib_ms, shape, excess,
+               n_split=n_split, pages_per_split=split_rows // ps)
+        del k_pool, v_pool
+        torch.cuda.empty_cache()
+
+    q_all = torch.randn((B, nh, hd), generator=gen, device=dev).to(bf)
     lens_np = rng.integers(1, nblk * ps + 1, size=B).astype(np.int32)
-    bt_np = np.zeros((B, nblk), np.int32)
-    perm = rng.permutation(P - 1) + 1
-    used = 0
-    for b in range(B):
-        nb = -(-int(lens_np[b]) // ps)
-        bt_np[b, :nb] = perm[used: used + nb]
-        used += nb
-    bt = torch.from_numpy(bt_np).to(dev)
-    lens = torch.from_numpy(lens_np).to(dev)
-    got = paged_decode_attention(q, k_pool[0], v_pool[0], bt, lens)
-    want = paged_decode_attention_ref(q, k_pool[0], v_pool[0], bt, lens)
-    err = float((got.float() - want.float()).abs().max())
-    S = nblk * ps
-    kd = [k_pool[l][bt.long()].reshape(B, S, nkv, hd).transpose(1, 2).contiguous() for l in range(L)]
-    vd = [v_pool[l][bt.long()].reshape(B, S, nkv, hd).transpose(1, 2).contiguous() for l in range(L)]
-    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None].long())[:, None, None, :]
-    q4 = q[:, :, None, :]
-    live = int(lens_np.sum())
-    k1_bytes = 2 * live * nkv * hd * 2 + 2 * B * nh * hd * 2 + B * nblk * 4 + B * 4
-    k1_ops = 4 * nh * hd * live
-    record("paged_decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-           "src/repro/kernels/decode_attention/kernel.py:177", err, TOL["bf16"],
-           time_ms(cycled(lambda l: paged_decode_attention(q, k_pool[l], v_pool[l], bt, lens), L), 200),
-           time_ms(cycled(lambda l: paged_decode_attention_ref(q, k_pool[l], v_pool[l], bt, lens), L), 50),
-           bound(k1_bytes, k1_ops, BF16_FLOPS),
-           time_ms(cycled(lambda l: F.scaled_dot_product_attention(q4, kd[l], vd[l], attn_mask=mask), L), 200))
-    del k_pool, v_pool, kd, vd
+    paged_case(nblk, lens_np, 4, 200, 50, None)
+    paged_case(2048, np.full(4, 32768, np.int32), 1, 20, 3,
+               "decode_32k: B 4, S 32768, pages of 16, all rows valid")
 
     # ---- 3b. K4 / K5 decode attention over a contiguous (int8) cache ------
     # the serving path's shape (the K1 case's lengths, six layers' caches
-    # rotated) and the shape K4 was written for: decode_32k's context
-    # (src/repro/configs/base.py:278) at batch 8, every row valid, and at
-    # batch 1, where 16 (slot, head) pairs leave most SMs to the split
+    # rotated) and decode_32k's context at batch 8 (the int8 slots of 32k
+    # one card holds beside the weights), every row valid, and at batch 1,
+    # where 16 (slot, head) pairs leave most SMs to the split
     def contiguous_case(S, lens_np, L, iters, plain_iters, shape):
         lens = torch.from_numpy(lens_np).to(dev)
         Bc = len(lens_np)
@@ -275,12 +295,10 @@ def main():
                time_ms(cycled(lambda l: decode_attention_int8_ref(
                    q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L), plain_iters),
                bound(2 * live * nkv * (hd + 4) + io_bytes, ops + 2 * live * nkv * hd, INT8_OPS),
-               None, shape, excess)
+               None, shape, excess, n_split=n_split, rows_per_split=split_rows)
         del quant, k8, ks, v8, vs
         torch.cuda.empty_cache()
 
-    q_all = q
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     contiguous_case(nblk * ps, lens_np, 6, 200, 50, None)
     contiguous_case(32768, np.full(B, 32768, np.int32), 1, 20, 3, "decode_32k: B 8, S 32768, all rows valid")
     contiguous_case(32768, np.full(1, 32768, np.int32), 1, 50, 5, "decode_32k: B 1, S 32768, all rows valid")

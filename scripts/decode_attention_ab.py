@@ -13,12 +13,16 @@ events; where the wrapper's host time is longer than the kernel, as at the
 serving shape, it is what this measures) and ``device_ms`` over a CUDA
 graph of the same calls (the device alone).  Kernels:
 K1 ``paged_decode_attention`` at the serving shape (8 slots, 16 heads of
-128, pages of 16, random lengths 1-512, four layers' pools rotated); K4
-``decode_attention`` and K5 ``decode_attention_int8``, where the checkout
-has them, at that shape (six layers' caches rotated) and at 8 and 1 x 32768
-rows, all valid; K3 ``expert_ffn_grouped`` at the decode shape (64 slots x CAP 4
-x 2048 x 1408, the experts that 8 tokens' top-6 activate) and at a 64-token
-prefill chunk's (CAP 64, all 64 experts).  The inputs are those of
+128, pages of 16, random lengths 1-512, four layers' pools rotated) and at
+4 x 32768 rows, all valid, the block table a random permutation of the
+pool's pages; K4 ``decode_attention`` and K5 ``decode_attention_int8``,
+where the checkout has them, at the serving shape (six layers' caches
+rotated) and at 8 and 1 x 32768 rows, all valid; K2a
+``aebs_collect_greedy`` and K2b ``aebs_rewrite`` at the serving shape (8
+tokens' top-6 of 64 experts over a 4 x 17-slot replica layout); K3
+``expert_ffn_grouped`` at the decode shape (64 slots x CAP 4 x 2048 x 1408,
+the experts that 8 tokens' top-6 activate) and at a 64-token prefill
+chunk's (CAP 64, all 64 experts).  The inputs are those of
 ``chip_smoke.py``'s phase 3.  Needs one CUDA card; exits non-zero without
 one.
 """
@@ -114,30 +118,36 @@ def child(src):
 
     out = {}
     B, nh, nkv, hd, ps, nblk = 8, 16, 16, 128, 16, 32
-    P, L = B * nblk + 1, 4
-    k_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
-    v_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
-    q = torch.randn((B, nh, hd), generator=gen, device=dev).to(bf)
+    q_all = torch.randn((B, nh, hd), generator=gen, device=dev).to(bf)
     lens_np = rng.integers(1, nblk * ps + 1, size=B).astype(np.int32)
-    bt_np = np.zeros((B, nblk), np.int32)
-    perm = rng.permutation(P - 1) + 1
-    used = 0
-    for b in range(B):
-        nb = -(-int(lens_np[b]) // ps)
-        bt_np[b, :nb] = perm[used: used + nb]
-        used += nb
-    bt = torch.from_numpy(bt_np).to(dev)
-    lens = torch.from_numpy(lens_np).to(dev)
-    check("paged_decode_attention", ops.paged_decode_attention(q, k_pool[0], v_pool[0], bt, lens),
-          ops.paged_decode_attention_ref(q, k_pool[0], v_pool[0], bt, lens))
-    measure("paged_decode_attention/serving",
-            lambda l: ops.paged_decode_attention(q, k_pool[l], v_pool[l], bt, lens), L, 200)
-    del k_pool, v_pool
+    for shape, nblk_c, lens_case, L, iters in (
+        ("serving", nblk, lens_np, 4, 200),
+        ("32k_b4", 32768 // ps, np.full(4, 32768, np.int32), 1, 20),
+    ):
+        Bc = len(lens_case)
+        q = q_all[:Bc]
+        P = Bc * nblk_c + 1
+        k_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
+        v_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
+        bt_np = np.zeros((Bc, nblk_c), np.int32)
+        perm = rng.permutation(P - 1) + 1
+        used = 0
+        for b in range(Bc):
+            nb = -(-int(lens_case[b]) // ps)
+            bt_np[b, :nb] = perm[used: used + nb]
+            used += nb
+        bt = torch.from_numpy(bt_np).to(dev)
+        ln = torch.from_numpy(lens_case).to(dev)
+        check("paged_decode_attention", ops.paged_decode_attention(q, k_pool[0], v_pool[0], bt, ln),
+              ops.paged_decode_attention_ref(q, k_pool[0], v_pool[0], bt, ln))
+        measure(f"paged_decode_attention/{shape}",
+                lambda l: ops.paged_decode_attention(q, k_pool[l], v_pool[l], bt, ln), L, iters)
+        del k_pool, v_pool
+        torch.cuda.empty_cache()
 
     if hasattr(ops, "decode_attention"):
         from repro_torch.models.attention import quantize_kv
 
-        q_all = q
         for shape, S, lens_case, L, iters in (
             ("serving", nblk * ps, lens_np, 6, 200),
             ("32k", 32768, np.full(B, 32768, np.int32), 1, 20),
@@ -163,10 +173,25 @@ def child(src):
             del quant, k8, ks, v8, vs
             torch.cuda.empty_cache()
 
+    from repro_torch.core.aebs import aebs_assign
     from repro_torch.core.amax import make_routing_trace
+    from repro_torch.core.placement import build_layout
+    from repro_torch.kernels.aebs import ops as aebs
     from repro_torch.kernels.expert_ffn import ops as ffn
 
     E, top_k, d, f = 64, 6, 2048, 1408
+    layout = build_layout(make_routing_trace(2048, E, top_k, skew=0.8, seed=0), E, 4, 17)
+    tables, n_e = layout.device_tables(dev), layout.num_instances
+    eids = torch.from_numpy(make_routing_trace(8, E, top_k, skew=0.8, seed=1)).to(dev)
+    load, act_rep = aebs.aebs_collect_greedy(eids, tables, n_e)
+    want = aebs_assign(eids, tables, n_e)
+    for name, got, w in (("aebs_collect_greedy", load, want[1]), ("aebs_collect_greedy", act_rep, want[2]),
+                         ("aebs_rewrite", aebs.aebs_rewrite(eids, act_rep), want[0])):
+        if not torch.equal(got, w):
+            raise AssertionError(f"{src}: {name} differs from the plain aebs_assign")
+    measure("aebs_collect_greedy/serving", lambda _: aebs.aebs_collect_greedy(eids, tables, n_e), 1, 500)
+    measure("aebs_rewrite/serving", lambda _: aebs.aebs_rewrite(eids, act_rep), 1, 500)
+
     wg = (torch.randn((E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
     wu = (torch.randn((E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
     wd = (torch.randn((E, f, d), generator=gen, device=dev) * f**-0.5).to(bf)

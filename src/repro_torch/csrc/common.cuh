@@ -24,8 +24,6 @@ template <>
 __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <>
-__device__ __forceinline__ float to_f<int8_t>(int8_t v) { return (float)v; }
 
 // round-to-nearest-even, as torch's .to(bfloat16) and XLA's convert
 template <typename T>

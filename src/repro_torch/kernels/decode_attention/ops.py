@@ -6,9 +6,13 @@ Three kernels of ``csrc/decode_attention.cu`` share one body:
 * K4 ``decode_attention``: a contiguous ``[B, S, nkv, hd]`` cache;
 * K5 ``decode_attention_int8``: K4 over an int8 cache with f32 scales.
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain version
-(``*_ref``, a copy of ``repro.kernels.decode_attention.ref``) for CPU
-tensors; any other device raises.
+All three are split-KV on the card: :func:`split_plan` cuts a slot's rows
+into ranges of whole chunks (16 rows, or a page for K1), one block each, and
+a second kernel merges the ranges' partials; :func:`decode_attention_split_ref`
+is that decomposition in plain PyTorch.  Each wrapper launches its kernel for
+CUDA tensors and runs its plain version (``*_ref``, a copy of
+``repro.kernels.decode_attention.ref``) for CPU tensors; any other device
+raises.
 """
 
 from __future__ import annotations
@@ -23,20 +27,22 @@ NEG_INF = -1.0e30  # the reference kernel's mask constant (kernel.py:25)
 KERNEL_GROUPS = (1, 2, 4, 8)  # template instances of csrc/decode_attention.cu
 KERNEL_HEAD_DIMS = (64, 128, 256)
 _ALIGN = 32  # bytes: a lane loads its head_dim columns of a row as one vector
-_K1_ARGS = [cuda.PTR] * 6 + [cuda.INT] * 6 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
+_K1_ARGS = [cuda.PTR] * 7 + [cuda.INT] * 8 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
 _K4_ARGS = [cuda.PTR] * 6 + [cuda.INT] * 7 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
-_K5_ARGS = [cuda.PTR] * 7 + [cuda.INT] * 5 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
+_K5_ARGS = [cuda.PTR] * 8 + [cuda.INT] * 7 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
 
 ValidLen = Union[int, torch.Tensor]
 
-# K4's split-KV plan: enough blocks for SPLIT_BLOCKS_PER_SM on every SM (two
-# blocks of 8 warps fit an SM), but at most ceil(S / SPLIT_MIN_ROWS) ranges
-# of whole 16-row chunks: a cache of up to 512 rows (the serving engine's)
-# is not split, since its second launch and scratch would cost more than the
-# split saves (S = 513 gives two ranges, of 272 and 241 rows).
+# The split-KV plan of K1, K4 and K5: SPLIT_BLOCKS_PER_SM blocks for every
+# SM (one block is resident at a time; four short ranges an SM even out the
+# waves, and measured faster than two for all three kernels), but at most
+# ceil(S / SPLIT_MIN_ROWS) ranges of whole chunks (16 rows for K4 and K5, a
+# page for K1): a cache of up to 512 rows (the serving engine's) is not
+# split, since its second launch and scratch would cost more than the split
+# saves (S = 513 gives two ranges, of 272 and 241 rows).
 SPLIT_CHUNK = 16
 SPLIT_MIN_ROWS = 512
-SPLIT_BLOCKS_PER_SM = 2
+SPLIT_BLOCKS_PER_SM = 4
 
 
 def _lengths(valid_len: ValidLen, B: int, device) -> torch.Tensor:
@@ -73,18 +79,20 @@ def decode_attention_ref(
     return o.reshape(B, nh, hd).to(q.dtype)
 
 
-def split_rows(S: int, n_split: int) -> int:
+def split_rows(S: int, n_split: int, chunk: int = SPLIT_CHUNK) -> int:
     """Rows per range when ``S`` rows are cut into ``n_split`` ranges of
-    whole 16-row chunks (the last ranges may lie past ``S``)."""
-    return SPLIT_CHUNK * -(-S // (SPLIT_CHUNK * n_split))
+    whole ``chunk``-row chunks (the last ranges may lie past ``S``)."""
+    return chunk * -(-S // (chunk * n_split))
 
 
-def split_plan(B: int, nkv: int, S: int, num_sms: int) -> Tuple[int, int]:
-    """K4's ``(n_split, rows per range)`` from what the host knows without a
-    device sync: the (slot, KV head) count, the cache's S and the SM count."""
+def split_plan(B: int, nkv: int, S: int, num_sms: int, chunk: int = SPLIT_CHUNK) -> Tuple[int, int]:
+    """``(n_split, rows per range)`` of a launch from what the host knows
+    without a device sync: the (slot, KV head) count, the cache's rows ``S``
+    (K1: the block table's width times the page size, never the lengths),
+    the chunk (K1: the page size) and the SM count."""
     want = -(-SPLIT_BLOCKS_PER_SM * num_sms // (B * nkv))
     n = max(1, min(want, -(-S // SPLIT_MIN_ROWS)))
-    rows = split_rows(S, n)
+    rows = split_rows(S, n, chunk)
     return -(-S // rows), rows
 
 
@@ -95,11 +103,14 @@ def decode_attention_split_ref(
     valid_len: ValidLen,
     n_split: int,
     logit_cap: float = 0.0,
+    chunk: int = SPLIT_CHUNK,
 ) -> torch.Tensor:
-    """K4's split-KV decomposition in plain PyTorch: f32 partials
-    ``(m, l, acc)`` over ``n_split`` ranges of :func:`split_rows` rows, merged
-    in range order.  Equal to :func:`decode_attention_ref` up to f32
-    rounding; nothing on the serving path calls it."""
+    """The split-KV decomposition of K1, K4 and K5 in plain PyTorch: f32
+    partials ``(m, l, acc)`` over ``n_split`` ranges of :func:`split_rows`
+    rows (whole chunks of ``chunk`` rows), merged in range order.  It takes
+    the dense view: K1's pages gathered (``chunk`` = the page size), K5's
+    int8 rows dequantised in f32.  Equal to :func:`decode_attention_ref` up
+    to f32 rounding; nothing on the serving path calls it."""
     B, nh, hd = q.shape
     S, nkv = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, nkv, nh // nkv, hd).float()
@@ -109,7 +120,7 @@ def decode_attention_split_ref(
     lengths = _lengths(valid_len, B, q.device).long()
     live = (torch.arange(S, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
     s = torch.where(live, s, NEG_INF)
-    rows = split_rows(S, n_split)
+    rows = split_rows(S, n_split, chunk)
     m, l, acc = [], [], []
     for z in range(n_split):
         lo, hi = min(z * rows, S), min((z + 1) * rows, S)
@@ -184,6 +195,16 @@ def _check_launch(what: str, q: torch.Tensor, nkv: int, tensors) -> int:
     return cuda.dtype_code(q, what)
 
 
+def _split_launch(q: torch.Tensor, nkv: int, S: int, chunk: int) -> Tuple[int, int, torch.Tensor]:
+    """``(n_split, chunks per range, f32 scratch for the partials)`` of a
+    launch over ``S`` rows of ``chunk``-row chunks (no scratch unsplit)."""
+    B, nh, hd = q.shape
+    n_split, rows = split_plan(B, nkv, S, _num_sms(q.device), chunk)
+    part = torch.empty(B * nh * n_split * (hd + 2) if n_split > 1 else 0,
+                       dtype=torch.float32, device=q.device)
+    return n_split, rows // chunk, part
+
+
 def _check_cache(what: str, q, k, v, kv_dtype) -> None:
     B, nh, hd = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != hd or v.shape != k.shape:
@@ -202,7 +223,9 @@ def paged_decode_attention(
     lengths: torch.Tensor,
     logit_cap: float = 0.0,
 ) -> torch.Tensor:
-    """K1, paged flash decode: ``[B, nh, hd]`` attention output in q's dtype."""
+    """K1, split-KV paged flash decode: ``[B, nh, hd]`` attention output in
+    q's dtype.  The ranges are runs of whole pages of each slot's block
+    table, planned from the table's width (``nblk * ps`` rows)."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths, logit_cap)
     if q.device.type != "cuda":
@@ -226,12 +249,13 @@ def paged_decode_attention(
         {"q": q, "k_pages": k_pages, "v_pages": v_pages, "block_tables": block_tables,
          "lengths": lengths},
     )
+    n_split, cps, part = _split_launch(q, nkv, nblk * ps, ps)
     out = torch.empty_like(q)
     fn = cuda.function("decode_attention", "paged_decode_attention", _K1_ARGS)
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, nh, nkv, hd, ps, nblk,
-        hd**-0.5, float(logit_cap), code, q.device.index, cuda.stream_of(q),
+        lengths.data_ptr(), out.data_ptr(), part.data_ptr(), B, nh, nkv, hd, ps, nblk,
+        n_split, cps, hd**-0.5, float(logit_cap), code, q.device.index, cuda.stream_of(q),
     )
     cuda.check("decode_attention", err, "paged_decode_attention")
     cuda.count("paged_decode_attention")
@@ -264,14 +288,12 @@ def decode_attention(
     lengths = _lengths(valid_len, B, q.device)
     code = _check_launch("decode_attention", q, nkv,
                          {"q": q, "k_cache": k_cache, "v_cache": v_cache, "lengths": lengths})
-    n_split, rows = split_plan(B, nkv, S, _num_sms(q.device))
+    n_split, cps, part = _split_launch(q, nkv, S, SPLIT_CHUNK)
     out = torch.empty_like(q)
-    part = torch.empty(B * nh * n_split * (hd + 2) if n_split > 1 else 0,
-                       dtype=torch.float32, device=q.device)
     fn = cuda.function("decode_attention", "decode_attention", _K4_ARGS)
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part.data_ptr(), B, nh, nkv, hd, S, n_split, rows // SPLIT_CHUNK,
+        out.data_ptr(), part.data_ptr(), B, nh, nkv, hd, S, n_split, cps,
         hd**-0.5, float(logit_cap), code, q.device.index, cuda.stream_of(q),
     )
     cuda.check("decode_attention", err, "decode_attention")
@@ -288,10 +310,11 @@ def decode_attention_int8(
     valid_len: ValidLen,
     logit_cap: float = 0.0,
 ) -> torch.Tensor:
-    """K5, :func:`decode_attention` over an int8 cache dequantised by its
-    per-(row, head) scales inside the kernel (in f32, as the TPU kernel does;
-    the plain version rounds the dequantised rows to q's dtype first, as the
-    reference's oracle does).  ``block_kv`` is left out as in K4."""
+    """K5, split-KV :func:`decode_attention` over an int8 cache dequantised
+    by its per-(row, head) scales inside the kernel (in f32, as the TPU
+    kernel does; the plain version rounds the dequantised rows to q's dtype
+    first, as the reference's oracle does).  ``block_kv`` is left out as in
+    K4."""
     if q.device.type == "cpu":
         return decode_attention_int8_ref(q, k_cache, v_cache, k_scale, v_scale, valid_len, logit_cap)
     if q.device.type != "cuda":
@@ -307,12 +330,14 @@ def decode_attention_int8(
     code = _check_launch("decode_attention_int8", q, nkv,
                          {"q": q, "k_cache": k_cache, "v_cache": v_cache, "k_scale": k_scale,
                           "v_scale": v_scale, "lengths": lengths})
+    n_split, cps, part = _split_launch(q, nkv, S, SPLIT_CHUNK)
     out = torch.empty_like(q)
     fn = cuda.function("decode_attention", "decode_attention_int8", _K5_ARGS)
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, nh, nkv, hd, S,
-        hd**-0.5, float(logit_cap), code, q.device.index, cuda.stream_of(q),
+        v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), part.data_ptr(), B, nh, nkv,
+        hd, S, n_split, cps, hd**-0.5, float(logit_cap), code, q.device.index,
+        cuda.stream_of(q),
     )
     cuda.check("decode_attention", err, "decode_attention_int8")
     cuda.count("decode_attention_int8")

@@ -8,6 +8,9 @@ card.  This file imports the reference inside the tests, so the card's
 machine, which has no JAX, can collect and run the ``gpu`` test alone.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +38,7 @@ from repro_torch.kernels.decode_attention.ops import (
 )
 from repro_torch.kernels.expert_ffn.ops import expert_ffn_grouped, expert_ffn_grouped_ref
 
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -209,24 +213,113 @@ def test_decode_split_ref_matches_plain(n_split, G, logit_cap):
     assert_close(got, want, TOL["f32_op"])
 
 
+def _paged_view(k, v, rng, ps):
+    """Dense ``[B, S, nkv, hd]`` rows laid out as pages of a pool (page 0
+    unused) in a random order: ``(k_pages, v_pages, block_tables)``."""
+    B, S, nkv, hd = k.shape
+    nblk = S // ps
+    ids = torch.from_numpy(rng.permutation(B * nblk).astype(np.int64) + 1).to(k.device)
+    kp = torch.zeros((B * nblk + 1, ps, nkv, hd), dtype=k.dtype, device=k.device)
+    vp = torch.zeros_like(kp)
+    kp[ids], vp[ids] = k.reshape(-1, ps, nkv, hd), v.reshape(-1, ps, nkv, hd)
+    return kp, vp, ids.reshape(B, nblk).to(torch.int32)
+
+
+@pytest.mark.parametrize("ps", [4, 16])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("n_split", [1, 2, 7])
+def test_paged_split_ref_matches_plain(n_split, G, ps):
+    """K1's split (ranges of whole pages of the block table) in plain
+    PyTorch over the gathered pages equals the paged plain version, with
+    lengths on and beside page and range edges."""
+    rng = np.random.default_rng(100 + n_split * 10 + G + ps)
+    B, nkv, hd, nblk = 5, 2, 32, 12
+    S = nblk * ps
+    q, k, v = (_t(a) for a in _contiguous_inputs(rng, B, G * nkv, nkv, hd, S))
+    kp, vp, bt = _paged_view(k, v, rng, ps)
+    edge = split_rows(S, n_split, ps)
+    lens = _t(np.array([1, ps, ps + 1, min(edge + 1, S), S], np.int32))
+    got = decode_attention_split_ref(q, k, v, lens, n_split, chunk=ps)
+    assert_close(got, paged_decode_attention_ref(q, kp, vp, bt, lens), TOL["f32_op"])
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("n_split", [1, 3])
+def test_int8_split_ref_matches_f32_oracle(n_split, G):
+    """K5's split over the int8 rows dequantised in f32 (as K5 keeps them)
+    equals the one-pass f32 oracle on the same rows."""
+    rng = np.random.default_rng(200 + n_split * 10 + G)
+    B, nkv, hd, S = 4, 2, 64, 80
+    q, k, v = _contiguous_inputs(rng, B, G * nkv, nkv, hd, S)
+    (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
+    kd = _t(kq).float() * _t(ks)[..., None]
+    vd = _t(vq).float() * _t(vs)[..., None]
+    lens = _t(np.array([1, 16, 17, S], np.int32))
+    got = decode_attention_split_ref(_t(q), kd, vd, lens, n_split)
+    assert_close(got, decode_attention_ref(_t(q), kd, vd, lens), TOL["f32_op"])
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
 @pytest.mark.parametrize("logit_cap", [0.0, 30.0])
 @pytest.mark.parametrize("G", [1, 4])
-def test_one_rounding_limit_holds_split_and_catches_dropped_chunk(G, logit_cap):
-    """The limit K4 is held to on the card at long S: the split-KV
-    decomposition, rounded once to bf16, is within one rounding of the
-    one-pass plain version; the same attention with the 16-row chunk after a
-    range edge left out is not (outputs are ~0.03 here, so an absolute 3e-2
-    would not see it)."""
+def test_one_rounding_limit_holds_split_and_catches_dropped_chunk(G, logit_cap, layout):
+    """The limit K1, K4 and K5 are held to on the card at long S: the
+    split-KV decomposition, rounded once to bf16, is within one rounding of
+    the one-pass plain version; the same attention with the chunk after a
+    range edge left out (16 rows, or for K1 that page of the block table)
+    is not (outputs are ~0.03 here, so an absolute 3e-2 would not see it)."""
     rng = np.random.default_rng(G)
-    B, nkv, hd, S, n_split = 2, 2, 128, 4096, 4
+    B, nkv, hd, S, n_split, ps = 2, 2, 128, 4096, 4, 16
     q, k, v = (_t(a, "bfloat16") for a in _contiguous_inputs(rng, B, G * nkv, nkv, hd, S))
     lens = _t(np.array([S, S - 100], np.int32))
-    want = decode_attention_ref(q, k, v, lens, logit_cap=logit_cap)
-    assert_one_rounding(decode_attention_split_ref(q, k, v, lens, n_split, logit_cap=logit_cap), want)
-    edge = split_rows(S, n_split)
-    keep = torch.cat([torch.arange(edge), torch.arange(edge + 16, S)])
-    dropped = decode_attention_ref(q, k[:, keep], v[:, keep], lens - 16, logit_cap=logit_cap)
+    edge = split_rows(S, n_split, ps)
+    split = decode_attention_split_ref(q, k, v, lens, n_split, logit_cap=logit_cap, chunk=ps)
+    if layout == "contiguous":
+        want = decode_attention_ref(q, k, v, lens, logit_cap=logit_cap)
+        keep = torch.cat([torch.arange(edge), torch.arange(edge + 16, S)])
+        dropped = decode_attention_ref(q, k[:, keep], v[:, keep], lens - 16, logit_cap=logit_cap)
+    else:
+        kp, vp, bt = _paged_view(k, v, rng, ps)
+        want = paged_decode_attention_ref(q, kp, vp, bt, lens, logit_cap=logit_cap)
+        page = edge // ps
+        bt_dropped = torch.cat([bt[:, :page], bt[:, page + 1:]], dim=1)
+        dropped = paged_decode_attention_ref(q, kp, vp, bt_dropped, lens - ps, logit_cap=logit_cap)
+    assert_one_rounding(split, want)
     assert rounding_excess(dropped, want) > 1.0
+
+
+def _byte_perm(x, y, s):
+    """CUDA's ``__byte_perm`` on uint32 arrays: byte n of the result is byte
+    ``(s >> 4n) & 7`` of the eight bytes of ``y:x`` (x's bytes are 0-3)."""
+    pool = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros(x.shape, np.uint32)
+    for n in range(4):
+        sel = np.uint64((s >> (4 * n)) & 7)
+        out |= ((pool >> (np.uint64(8) * sel)) & np.uint64(0xFF)).astype(np.uint32) << np.uint32(8 * n)
+    return out
+
+
+def test_int8_conversion_is_exact_for_every_byte():
+    """K5's int8 -> f32 conversion (a PRMT into the mantissa of 2^23, then
+    one FADD), with the constants read from ``csrc/decode_attention.cu``,
+    gives ``(float)v`` for all 256 byte values at each of a word's four
+    byte positions."""
+    src = (CSRC / "decode_attention.cu").read_text()
+
+    def const(name):
+        return re.search(rf"\b{name} = (0x[0-9A-Fa-f]+|[0-9.]+)[uf]?;", src).group(1)
+
+    flip, magic, sel = (np.uint32(int(const(n), 16)) for n in ("kI8Flip", "kI8Magic", "kI8Sel"))
+    bias = np.float32(const("kI8Bias"))
+    vals = np.arange(-128, 128, dtype=np.int8)
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        words = rng.integers(0, 2**32, size=256, dtype=np.uint64).astype(np.uint32)
+        words &= ~np.uint32(0xFF << (8 * i))
+        words |= vals.view(np.uint8).astype(np.uint32) << np.uint32(8 * i)
+        bits = _byte_perm(words ^ flip, np.full(256, magic, np.uint32), int(sel) + i)
+        got = bits.view(np.float32) - bias
+        np.testing.assert_array_equal(got, vals.astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -400,21 +493,35 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
         for a, b in zip(got, want):
             assert_equal_int(a, b)
 
-    # K4 at decode_32k's S, lengths on and beside the split boundaries the
-    # wrapper chooses, every G and head_dim the kernel is built for
-    S = 32768
+    # K1, K4 and K5 at decode_32k's S, lengths on and beside the split
+    # boundaries each wrapper chooses, every G and head_dim the kernels are
+    # built for; outputs are ~0.01 here, so TOL["bf16"] would pass a dropped
+    # chunk: each is held within one bf16 rounding of its f32 oracle
+    from repro_torch.models.attention import quantize_kv
+
+    S, ps, B, nkv = 32768, 16, 4, 2
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for G in KERNEL_GROUPS:
         for hd in KERNEL_HEAD_DIMS:
-            B, nkv = 4, 2
-            _, rows = split_plan(B, nkv, S, torch.cuda.get_device_properties(dev).multi_processor_count)
-            lens = np.array([rows, rows + 1, S, 17], np.int32)
             q = torch.from_numpy(rng.standard_normal((B, G * nkv, hd)).astype(np.float32))
+            q = q.to(dev).to(torch.bfloat16)
             k = torch.randn((B, S, nkv, hd), device=dev).to(torch.bfloat16)
             v = torch.randn((B, S, nkv, hd), device=dev).to(torch.bfloat16)
-            args = [q.to(dev).to(torch.bfloat16), k, v, _t(lens, device=dev)]
-            # outputs are ~0.01 here: TOL["bf16"] would pass a dropped chunk
-            assert_one_rounding(decode_attention(*args), decode_attention_ref(*args))
+            _, rows = split_plan(B, nkv, S, n_sms)
+            lens = _t(np.array([rows, rows + 1, S, 17], np.int32), device=dev)
+            assert_one_rounding(decode_attention(q, k, v, lens), decode_attention_ref(q, k, v, lens))
+            (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            want = decode_attention_ref(q, k8.float() * ks[..., None], v8.float() * vs[..., None], lens)
+            assert_one_rounding(decode_attention_int8(q, k8, v8, ks, vs, lens), want)
+            del k8, ks, v8, vs, want
+            # K1: the same rows as pages of a pool, in a random order
+            kp, vp, bt = _paged_view(k, v, rng, ps)
             del k, v
+            _, rows = split_plan(B, nkv, S, n_sms, ps)
+            lens = _t(np.array([rows, rows + 1, S, 17], np.int32), device=dev)
+            assert_one_rounding(paged_decode_attention(q, kp, vp, bt, lens),
+                                paged_decode_attention_ref(q, kp, vp, bt, lens))
+            del kp, vp
 
     # K3: stacked and slot-indirect maps, with empty and inactive slots; CAP
     # from one row to a prefill chunk, to the most the bf16 kernel holds in
