@@ -15,7 +15,9 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      with the split-KV plan its wrapper chose), every attention case held
      within one bf16 rounding of its f32 oracle; K3 also at a 64-token
      prefill chunk's shape, and checked at a 320-token one (two launches of
-     rows);
+     rows); K2 (one launch: bitmap, both greedy passes and the rewrite) at
+     the serving shape and the paper's Fig. 15 grid, integers exact, each
+     also timed on the device alone from a CUDA graph;
   4. reduced parity: dsv2-lite-reduced in float32 through the plain versions
      on the CPU and through the kernels on the card, same seeded weights and
      requests, for four KV layouts: paged (K1), contiguous (K4), int8
@@ -24,7 +26,8 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      shared, vocab 102400) with random bf16 weights drawn once on the card
      from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
      three times: paged KV (K1), contiguous KV (K4), int8 contiguous KV (K5);
-     launch counts are zeroed just before each run and read just after it;
+     launch counts are zeroed just before each run and read just after it,
+     and K2 must have launched once per scheduled MoE layer call;
      then a profiled short run of each layout (device time per step);
   6. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
@@ -99,7 +102,7 @@ def main():
     from repro_torch.core.amax import make_routing_trace
     from repro_torch.core.placement import build_layout
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.aebs.ops import aebs_collect_greedy, aebs_rewrite
+    from repro_torch.kernels.aebs.ops import CLUSTER_ITEMS, aebs_schedule, cluster_blocks
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention,
         decode_attention_int8,
@@ -110,8 +113,9 @@ def main():
         split_plan,
     )
     from repro_torch.kernels.expert_ffn.ops import expert_ffn_grouped, expert_ffn_grouped_ref
-    from repro_torch.core.aebs import aebs_assign, rewrite_slots
+    from repro_torch.core.aebs import aebs_assign
     from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.attention import quantize_kv
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request, WorkloadSpec, sample_requests
@@ -303,34 +307,61 @@ def main():
     contiguous_case(32768, np.full(B, 32768, np.int32), 1, 20, 3, "decode_32k: B 8, S 32768, all rows valid")
     contiguous_case(32768, np.full(1, 32768, np.int32), 1, 50, 5, "decode_32k: B 1, S 32768, all rows valid")
 
-    # ---- 3c. K2 AEBS ----------------------------------------------------
+    # ---- 3c. K2 AEBS: bitmap, both greedy passes and the rewrite in one
+    # launch; the serving shape (8 tokens' top-6 over 4 x 17 slots), then the
+    # paper's Fig. 15 grid (benchmarks/fig15_overhead.py:20-36: 64 experts,
+    # top-6, 12 slots an instance, n_e 8 and 16, B 64 to 4096) and n_e 16
+    # at B 2048, 2049 and 3072, around the cluster threshold (one block up to
+    # CLUSTER_ITEMS = 12288 ids), each held exactly against aebs_assign and
+    # timed host-inclusive and, from a CUDA graph, on the device alone
+    def graph_ms(fn, reps=20):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(5):
+            graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / (5 * reps)
+
+    def aebs_case(eids, lay, iters, plain_iters, shape):
+        tables, n_e = lay.device_tables(dev), lay.num_instances
+        R = lay.expert_hosts.shape[1]
+        got, want = aebs_schedule(eids, tables, n_e), aebs_assign(eids, tables, n_e)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        nit = eids.numel()
+        call = lambda: aebs_schedule(eids, tables, n_e)  # noqa: E731
+        record("aebs_schedule", "src/repro_torch/csrc/aebs.cu",
+               "src/repro/kernels/aebs/kernel.py:30, src/repro/kernels/aebs/kernel.py:87", err, 0.0,
+               time_ms(call, iters), time_ms(lambda: aebs_assign(eids, tables, n_e), plain_iters),
+               bound(4 * (2 * nit + E * R + E + E * n_e + E + n_e), 2 * nit + 2 * E * R, SCALAR_OPS),
+               None, shape, device_ms=graph_ms(call), blocks=cluster_blocks(nit),
+               replicated_experts=int((lay.replica_counts > 1).sum()), max_replicas=R)
+
     cfg = get_config("dsv2-lite")
     E, K = cfg.num_experts, cfg.top_k
     layout = build_layout(make_routing_trace(2048, E, K, skew=0.8, seed=0), E, 4, 17)
-    tables = layout.device_tables(dev)
-    n_e, R = layout.num_instances, layout.expert_hosts.shape[1]
-    log({"phase": "layout", "slots": layout.total_slots,
-         "replicated_experts": int((layout.replica_counts > 1).sum()), "max_replicas": R})
     eids = torch.from_numpy(make_routing_trace(8, E, K, skew=0.8, seed=1)).to(dev)
-    load, act_rep = aebs_collect_greedy(eids, tables, n_e)
-    slot_ids = aebs_rewrite(eids, act_rep)
-    want_slots, want_load, want_rep = aebs_assign(eids, tables, n_e)
-    err_a = float(max((load - want_load).abs().max(), (act_rep - want_rep).abs().max()))
-    err_b = float((slot_ids - rewrite_slots(eids, act_rep)).abs().max())
-    if not torch.equal(slot_ids, want_slots):
-        raise AssertionError("aebs: slot ids differ from the plain aebs_assign")
-    nit = eids.numel()
-    a_bytes = 4 * (nit + E * R + E + E * n_e + E + n_e)
-    record("aebs_collect_greedy", "src/repro_torch/csrc/aebs.cu",
-           "src/repro/kernels/aebs/kernel.py:30", err_a, 0.0,
-           time_ms(lambda: aebs_collect_greedy(eids, tables, n_e), 500),
-           time_ms(lambda: aebs_assign(eids, tables, n_e), 20),
-           bound(a_bytes, nit + 2 * E * R, SCALAR_OPS), None)
-    record("aebs_rewrite", "src/repro_torch/csrc/aebs.cu",
-           "src/repro/kernels/aebs/kernel.py:87", err_b, 0.0,
-           time_ms(lambda: aebs_rewrite(eids, act_rep), 500),
-           time_ms(lambda: rewrite_slots(eids, act_rep), 500),
-           bound(4 * (2 * nit + E), nit, SCALAR_OPS), None)
+    aebs_case(eids, layout, 500, 20, None)
+    trace15 = make_routing_trace(8192, E, K, skew=1.0, seed=0)
+    for n15 in (8, 16):
+        lay15 = build_layout(trace15, E, n15, 12)
+        for b15 in (64, 256, 1024, 4096):
+            aebs_case(torch.from_numpy(trace15[:b15]).to(dev), lay15, 200, 5,
+                      f"fig15: n_e {n15}, B {b15} (paper: < 90 us at B 4096)")
+    for b15 in (2048, 2049, 3072):
+        aebs_case(torch.from_numpy(trace15[:b15]).to(dev), lay15, 200, 5,
+                  f"n_e 16, B {b15}: {6 * b15} ids, by the cluster threshold ({CLUSTER_ITEMS})")
 
     # ---- 3d. K3 grouped expert FFN (decode: 8 tokens, CAP 4) -------------
     d, f = cfg.d_model, cfg.d_ff_expert
@@ -398,22 +429,34 @@ def main():
 
     # ---- 4. reduced parity: plain versions on the CPU vs kernels on the card
     attn_kernels = ("paged_decode_attention", "decode_attention", "decode_attention_int8")
-    moe_kernels = ("aebs_collect_greedy", "aebs_rewrite", "expert_ffn")
+    moe_kernels = ("aebs_schedule", "expert_ffn")
     # (KV layout, kv_quant, kv_page_size, the attention kernel it runs on the card)
     layouts = (("paged", False, 16, "paged_decode_attention"),
                ("contiguous", False, None, "decode_attention"),
                ("int8_contiguous", True, None, "decode_attention_int8"),
                ("int8_paged", True, 16, None))  # gather + dequantise, as the reference
 
+    scheduled = {"calls": 0}  # MoE layer calls that schedule with AEBS
+    moe_layer = moe_mod.moe_layer
+
+    def counted_moe_layer(*args, **kwargs):
+        if kwargs.get("scheduler") is not None and kwargs.get("layout_tables") is not None:
+            scheduled["calls"] += 1
+        return moe_layer(*args, **kwargs)
+
+    moe_mod.moe_layer = counted_moe_layer
+
     def check_launches(what, launches, attn_kernel, at_least):
         """The run launched each kernel of its path at least ``at_least``
-        times and no other attention kernel."""
+        times, K2 exactly once per scheduled MoE layer call, and no other
+        attention kernel."""
         path = moe_kernels + ((attn_kernel,) if attn_kernel else ())
         short = {n: launches[n] for n in path if launches[n] < at_least}
         stray = {n: launches[n] for n in attn_kernels if n not in path and launches[n]}
-        if short or stray:
-            raise AssertionError(f"{what}: kernels launched below {at_least} times {short} "
-                                 f"or off the path {stray}")
+        if short or stray or launches["aebs_schedule"] != scheduled["calls"]:
+            raise AssertionError(f"{what}: kernels launched below {at_least} times {short}, "
+                                 f"off the path {stray}, or K2 {launches['aebs_schedule']} times "
+                                 f"in {scheduled['calls']} scheduled MoE layer calls")
 
     rcfg = dataclasses.replace(get_config("dsv2-lite-reduced"), dtype="float32")
     p_cpu = model_mod.init_params(rcfg, seed=0, device="cpu")
@@ -437,6 +480,7 @@ def main():
             eng = ServingEngine(lcfg, params, max_batch=4, cache_len=64, kv_page_size=page,
                                 prefill_chunk=16, layout=rlayout, scheduler="aebs", device=where)
             cuda.reset_launch_counts()
+            scheduled["calls"] = 0
             eng.run(sample_requests(spec, np.zeros(6), with_prompts=True), max_steps=500)
             launches = dict(cuda.LAUNCHES)
             streams[where] = {r.rid: r.tokens_out for r in eng.completed}
@@ -511,6 +555,7 @@ def main():
         model_mod.decode_step = checked_decode_step
         torch.cuda.reset_peak_memory_stats()
         cuda.reset_launch_counts()
+        scheduled["calls"] = 0
         t0 = time.perf_counter()
         m = engine.run(reqs)
         torch.cuda.synchronize()
@@ -527,7 +572,8 @@ def main():
              "tpot_ms_mean": m["tpot_mean"] * 1e3, "tpot_ms_p99": m["tpot_p99"] * 1e3,
              "ttft_ms_mean": m["ttft_mean"] * 1e3, "ttft_ms_p99": m["ttft_p99"] * 1e3,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-             "kv_pages": m.get("kv_pages"), "launches": launches})
+             "kv_pages": m.get("kv_pages"), "launches": launches,
+             "scheduled_moe_calls": scheduled["calls"]})
         if m["completed"] != len(reqs) or m["truncated"]:
             raise AssertionError(f"serving ({name}): {m['completed']} of {len(reqs)} requests completed")
         if any(r.generated != r.output_len for r in engine.completed):

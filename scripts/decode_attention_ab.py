@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's decode-attention and expert-FFN kernels of several
+"""Time the port's decode-attention, AEBS and expert-FFN kernels of several
 checkouts on one card, in turns, on the same inputs.
 
     python3 scripts/decode_attention_ab.py --src OLD/src --src src --src src --src OLD/src
+    python3 scripts/decode_attention_ab.py --only aebs --src OLD/src --src src
 
 Each ``--src`` (a checkout's ``src`` directory) runs in a process of its own,
 in the order given, because two checkouts share module names.  A process
@@ -17,21 +18,31 @@ K1 ``paged_decode_attention`` at the serving shape (8 slots, 16 heads of
 4 x 32768 rows, all valid, the block table a random permutation of the
 pool's pages; K4 ``decode_attention`` and K5 ``decode_attention_int8``,
 where the checkout has them, at the serving shape (six layers' caches
-rotated) and at 8 and 1 x 32768 rows, all valid; K2a
-``aebs_collect_greedy`` and K2b ``aebs_rewrite`` at the serving shape (8
-tokens' top-6 of 64 experts over a 4 x 17-slot replica layout); K3
+rotated) and at 8 and 1 x 32768 rows, all valid; K2 ``aebs_schedule``
+(the whole schedule, however many launches the checkout makes of it) at the
+serving shape (8 tokens' top-6 of 64 experts over a 4 x 17-slot replica
+layout), at the paper's Fig. 15 grid (``benchmarks/fig15_overhead.py``:
+64 experts, top-6, 12 slots an instance, n_e 8 and 16, B 64 to 4096), and
+at n_e 16 with B 1365, 1366, 2048, 2049 and 3072, around one block's 8192
+ids in registers and the port's cluster threshold (12288 ids = 2048 x 6);
+beside
+them the launch floor, an empty kernel (``scripts/launch_floor.cu``, built
+into ``build/`` with the checkout's nvcc flags) in the same harness; K3
 ``expert_ffn_grouped`` at the decode shape (64 slots x CAP 4 x 2048 x 1408,
 the experts that 8 tokens' top-6 activate) and at a 64-token prefill
 chunk's (CAP 64, all 64 experts).  The inputs are those of
-``chip_smoke.py``'s phase 3.  Needs one CUDA card; exits non-zero without
-one.
+``chip_smoke.py``'s phase 3.  ``--only`` keeps one group of kernels.  Needs
+one CUDA card; exits non-zero without one.
 """
 
 import argparse
+import ctypes
+import hashlib
 import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 TOL = 3e-2  # bf16, tests/_torch_parity.py
 
@@ -43,7 +54,22 @@ def card_line():
     ).stdout.strip().splitlines()[0].strip()
 
 
-def child(src):
+def launch_floor(cuda):
+    """The empty kernel's launcher, built with the checkout's nvcc flags."""
+    source = Path(__file__).resolve().with_name("launch_floor.cu")
+    key = hashlib.sha256(source.read_bytes() + " ".join(cuda.NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = Path(__file__).resolve().parents[1] / "build" / f"liblaunch_floor-{key}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
+        subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(tmp), str(source)], check=True)
+        os.replace(tmp, out)
+    fn = ctypes.CDLL(str(out)).launch_floor
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    return fn
+
+
+def child(src, only):
     import numpy as np
     import torch
 
@@ -117,13 +143,21 @@ def child(src):
             raise AssertionError(f"{src}: {name} disagrees with its plain version ({err})")
 
     out = {}
+    floor = launch_floor(cuda)
+
+    def floor_call(_):
+        if floor(torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("launch_floor: the empty kernel did not launch")
+
+    measure("launch_floor", floor_call, 1, 500)
+
     B, nh, nkv, hd, ps, nblk = 8, 16, 16, 128, 16, 32
     q_all = torch.randn((B, nh, hd), generator=gen, device=dev).to(bf)
     lens_np = rng.integers(1, nblk * ps + 1, size=B).astype(np.int32)
     for shape, nblk_c, lens_case, L, iters in (
         ("serving", nblk, lens_np, 4, 200),
         ("32k_b4", 32768 // ps, np.full(4, 32768, np.int32), 1, 20),
-    ):
+    ) if only in (None, "attention") else ():
         Bc = len(lens_case)
         q = q_all[:Bc]
         P = Bc * nblk_c + 1
@@ -145,7 +179,7 @@ def child(src):
         del k_pool, v_pool
         torch.cuda.empty_cache()
 
-    if hasattr(ops, "decode_attention"):
+    if hasattr(ops, "decode_attention") and only in (None, "attention"):
         from repro_torch.models.attention import quantize_kv
 
         for shape, S, lens_case, L, iters in (
@@ -180,31 +214,39 @@ def child(src):
     from repro_torch.kernels.expert_ffn import ops as ffn
 
     E, top_k, d, f = 64, 6, 2048, 1408
-    layout = build_layout(make_routing_trace(2048, E, top_k, skew=0.8, seed=0), E, 4, 17)
-    tables, n_e = layout.device_tables(dev), layout.num_instances
-    eids = torch.from_numpy(make_routing_trace(8, E, top_k, skew=0.8, seed=1)).to(dev)
-    load, act_rep = aebs.aebs_collect_greedy(eids, tables, n_e)
-    want = aebs_assign(eids, tables, n_e)
-    for name, got, w in (("aebs_collect_greedy", load, want[1]), ("aebs_collect_greedy", act_rep, want[2]),
-                         ("aebs_rewrite", aebs.aebs_rewrite(eids, act_rep), want[0])):
-        if not torch.equal(got, w):
-            raise AssertionError(f"{src}: {name} differs from the plain aebs_assign")
-    measure("aebs_collect_greedy/serving", lambda _: aebs.aebs_collect_greedy(eids, tables, n_e), 1, 500)
-    measure("aebs_rewrite/serving", lambda _: aebs.aebs_rewrite(eids, act_rep), 1, 500)
 
-    wg = (torch.randn((E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
-    wu = (torch.randn((E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
-    wd = (torch.randn((E, f, d), generator=gen, device=dev) * f**-0.5).to(bf)
-    s2e = torch.arange(E, dtype=torch.int32, device=dev)
-    eids = torch.from_numpy(make_routing_trace(8, E, top_k, skew=0.8, seed=1)).to(dev)
-    counts = torch.bincount(eids.reshape(-1).long(), minlength=E)
-    for shape, CAP, active, iters in (("decode", 4, counts > 0, 50),
-                                      ("prefill", 64, torch.ones(E, dtype=torch.bool, device=dev), 20)):
-        x = torch.randn((E, CAP, d), generator=gen, device=dev).to(bf)
-        check("expert_ffn", ffn.expert_ffn_grouped(x, wg, wu, wd, s2e, active),
-              ffn.expert_ffn_grouped_ref(x, wg, wu, wd, s2e, active))
-        measure(f"expert_ffn/{shape}",
-                lambda _: ffn.expert_ffn_grouped(x, wg, wu, wd, s2e, active), 1, iters)
+    def aebs_shape(key, eids, layout, iters):
+        tables, n_e = layout.device_tables(dev), layout.num_instances
+        want = aebs_assign(eids, tables, n_e)
+        for got, w in zip(aebs.aebs_schedule(eids, tables, n_e), want):
+            if not torch.equal(got, w):
+                raise AssertionError(f"{src}: aebs_schedule {key} differs from the plain aebs_assign")
+        measure(f"aebs_schedule/{key}", lambda _: aebs.aebs_schedule(eids, tables, n_e), 1, iters)
+
+    if only in (None, "aebs"):
+        layout = build_layout(make_routing_trace(2048, E, top_k, skew=0.8, seed=0), E, 4, 17)
+        aebs_shape("serving", torch.from_numpy(make_routing_trace(8, E, top_k, skew=0.8, seed=1)).to(dev),
+                   layout, 500)
+        trace = make_routing_trace(8192, E, top_k, skew=1.0, seed=0)
+        for n_e, bs in ((8, (64, 256, 1024, 4096)), (16, (64, 256, 1024, 1365, 1366, 2048, 2049, 3072, 4096))):
+            layout = build_layout(trace, E, n_e, 12)
+            for b in bs:
+                aebs_shape(f"fig15_ne{n_e}_B{b}", torch.from_numpy(trace[:b]).to(dev), layout, 200)
+
+    if only in (None, "ffn"):
+        wg = (torch.randn((E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
+        wu = (torch.randn((E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
+        wd = (torch.randn((E, f, d), generator=gen, device=dev) * f**-0.5).to(bf)
+        s2e = torch.arange(E, dtype=torch.int32, device=dev)
+        eids = torch.from_numpy(make_routing_trace(8, E, top_k, skew=0.8, seed=1)).to(dev)
+        counts = torch.bincount(eids.reshape(-1).long(), minlength=E)
+        for shape, CAP, active, iters in (("decode", 4, counts > 0, 50),
+                                          ("prefill", 64, torch.ones(E, dtype=torch.bool, device=dev), 20)):
+            x = torch.randn((E, CAP, d), generator=gen, device=dev).to(bf)
+            check("expert_ffn", ffn.expert_ffn_grouped(x, wg, wu, wd, s2e, active),
+                  ffn.expert_ffn_grouped_ref(x, wg, wu, wd, s2e, active))
+            measure(f"expert_ffn/{shape}",
+                    lambda _: ffn.expert_ffn_grouped(x, wg, wu, wd, s2e, active), 1, iters)
     print(json.dumps({"card": card_line(), "src": src, "build_s": build_s, "ms": out,
                       "device_ms": dev_out}), flush=True)
 
@@ -212,15 +254,17 @@ def child(src):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", help="a checkout's src directory (repeat, in turn order)")
+    ap.add_argument("--only", choices=("attention", "aebs", "ffn"), help="one group of kernels")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child)
+        child(args.child, args.only)
         return 0
     if not args.src:
         ap.error("give at least one --src")
+    only = ["--only", args.only] if args.only else []
     for src in args.src:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--child", src], check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--child", src, *only], check=True)
     return 0
 
 

@@ -1,9 +1,8 @@
-"""K2 AEBS scheduling: CUDA kernel wrappers with the ``aebs_assign`` contract.
+"""K2 AEBS scheduling: the CUDA kernel's wrapper with the ``aebs_assign`` contract.
 
-``aebs_schedule`` runs the two kernels of ``csrc/aebs.cu`` for CUDA tensors
--- :func:`aebs_collect_greedy` (bitmap + greedy passes) then
-:func:`aebs_rewrite` -- and the plain :func:`repro_torch.core.aebs
-.aebs_assign` for CPU tensors.
+``aebs_schedule`` runs the one kernel of ``csrc/aebs.cu`` (bitmap, both
+greedy passes and the rewrite, one launch) for CUDA tensors and the plain
+:func:`repro_torch.core.aebs.aebs_assign` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -12,91 +11,73 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core.aebs import aebs_assign, rewrite_slots
+from repro_torch.core.aebs import aebs_assign
 from repro_torch.kernels import cuda
 
 MAX_EXPERTS = 512
-MAX_SMEM = 48 * 1024
-_GREEDY_ARGS = [cuda.PTR, cuda.INT, cuda.PTR, cuda.PTR, cuda.PTR] + [cuda.INT] * 3 + [
-    cuda.PTR, cuda.PTR, cuda.INT, cuda.PTR,
+MAX_SMEM = 232448  # an H100 block's opt-in shared memory
+MAX_BLOCKS = 8  # a portable thread block cluster
+# items one block takes: 8192 in registers and the rest read again for the
+# rewrite; above, a cluster of MAX_BLOCKS blocks, whose fixed cost on the
+# H100 (~1.5 us) is then below what one block takes for the rest (the
+# measured crossover, PERF.md §6)
+CLUSTER_ITEMS = 12288
+_ARGS = [cuda.PTR, cuda.INT, cuda.PTR, cuda.PTR, cuda.PTR] + [cuda.INT] * 4 + [
+    cuda.PTR, cuda.PTR, cuda.PTR, cuda.INT, cuda.PTR,
 ]
-_REWRITE_ARGS = [cuda.PTR, cuda.INT, cuda.PTR, cuda.INT, cuda.PTR, cuda.INT, cuda.PTR]
 
 
-def _check_eids(eids: torch.Tensor, what: str) -> None:
-    if eids.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {eids.device}")
-    if eids.dtype != torch.int32:
-        raise TypeError(f"{what}: eids must be int32, got {eids.dtype}")
-
-
-def aebs_collect_greedy(
-    eids: torch.Tensor,  # [T, k] int32 logical expert ids (-1 = padding)
-    tables: Dict[str, torch.Tensor],  # ReplicaLayout.device_tables()
-    num_instances: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2a: activation bitmap + both greedy passes -> ``(load [n_e], act_rep [E])``."""
-    if eids.device.type == "cpu":
-        _, load, act_rep = aebs_assign(eids, tables, num_instances)
-        return load, act_rep
-    _check_eids(eids, "aebs_collect_greedy")
-    hosts = tables["expert_hosts"]
-    counts = tables["replica_counts"]
-    slot_of = tables["slot_of"]
-    E, R = hosts.shape
-    if E > MAX_EXPERTS:
-        raise ValueError(f"aebs_collect_greedy: {E} experts exceed the kernel's limit of {MAX_EXPERTS}")
-    if counts.shape != (E,) or slot_of.shape != (E, num_instances):
-        raise ValueError("aebs_collect_greedy: replica tables disagree on E or n_e")
-    for name, t in (("expert_hosts", hosts), ("replica_counts", counts), ("slot_of", slot_of)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"aebs_collect_greedy: {name} must be int32, got {t.dtype}")
-    cuda.check_tensors(
-        {"eids": eids, "expert_hosts": hosts, "replica_counts": counts, "slot_of": slot_of},
-        eids.device,
-    )
-    if (2 * E + E * R + num_instances) * 4 > MAX_SMEM:
-        raise ValueError(f"aebs_collect_greedy: tables E={E}, R={R} exceed shared memory")
-    act_rep = torch.empty(E, dtype=torch.int32, device=eids.device)
-    load = torch.empty(num_instances, dtype=torch.int32, device=eids.device)
-    fn = cuda.function("aebs", "aebs_collect_greedy", _GREEDY_ARGS)
-    err = fn(
-        eids.data_ptr(), eids.numel(), hosts.data_ptr(), counts.data_ptr(), slot_of.data_ptr(),
-        E, R, num_instances, act_rep.data_ptr(), load.data_ptr(), eids.device.index,
-        cuda.stream_of(eids),
-    )
-    cuda.check("aebs", err, "aebs_collect_greedy")
-    cuda.count("aebs_collect_greedy")
-    return load, act_rep
-
-
-def aebs_rewrite(eids: torch.Tensor, act_rep: torch.Tensor) -> torch.Tensor:
-    """K2b: ``slot_ids = act_rep[eids]``, keeping -1 for padding."""
-    if eids.device.type == "cpu":
-        return rewrite_slots(eids, act_rep)
-    _check_eids(eids, "aebs_rewrite")
-    if act_rep.dtype != torch.int32 or act_rep.dim() != 1:
-        raise TypeError("aebs_rewrite: act_rep must be a 1-d int32 tensor")
-    cuda.check_tensors({"eids": eids, "act_rep": act_rep}, eids.device)
-    slot_ids = torch.empty_like(eids)
-    fn = cuda.function("aebs", "aebs_rewrite", _REWRITE_ARGS)
-    err = fn(eids.data_ptr(), eids.numel(), act_rep.data_ptr(), act_rep.shape[0],
-             slot_ids.data_ptr(), eids.device.index, cuda.stream_of(eids))
-    cuda.check("aebs", err, "aebs_rewrite")
-    cuda.count("aebs_rewrite")
-    return slot_ids
+def cluster_blocks(n_items: int) -> int:
+    """The launch's cluster size: one block up to ``CLUSTER_ITEMS`` items."""
+    return 1 if n_items <= CLUSTER_ITEMS else MAX_BLOCKS
 
 
 def aebs_schedule(
-    eids: torch.Tensor,
-    tables: Dict[str, torch.Tensor],
+    eids: torch.Tensor,  # [T, k] int32 logical expert ids (-1 = padding)
+    tables: Dict[str, torch.Tensor],  # ReplicaLayout.device_tables()
     num_instances: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Algorithm 1: ``(slot_ids [T, k], load [n_e], act_rep [E])``, int32."""
     if eids.device.type == "cpu":
         return aebs_assign(eids, tables, num_instances)
-    load, act_rep = aebs_collect_greedy(eids, tables, num_instances)
-    return aebs_rewrite(eids, act_rep), load, act_rep
+    if eids.device.type != "cuda":
+        raise ValueError(f"aebs_schedule: unsupported device {eids.device}")
+    hosts = tables["expert_hosts"]
+    counts = tables["replica_counts"]
+    slot_of = tables["slot_of"]
+    E, R = hosts.shape
+    n_e = num_instances
+    if not 1 <= E <= MAX_EXPERTS:
+        raise ValueError(f"aebs_schedule: {E} experts, the kernel takes 1 to {MAX_EXPERTS}")
+    if R > n_e or counts.shape != (E,) or slot_of.shape != (E, n_e):
+        raise ValueError("aebs_schedule: replica tables disagree on E, R <= n_e or n_e")
+    for name, t in (("eids", eids), ("expert_hosts", hosts), ("replica_counts", counts),
+                    ("slot_of", slot_of)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"aebs_schedule: {name} must be int32, got {t.dtype}")
+    cuda.check_tensors(
+        {"eids": eids, "expert_hosts": hosts, "replica_counts": counts, "slot_of": slot_of},
+        eids.device,
+    )
+    # csrc/aebs.cu smem_bytes: five [E] tables, hosts, slot_of, the loads,
+    # and where the chain keeps its loads in registers (8 <= n_e <= 32) its
+    # [E, n_e] 16-bit keys
+    kbits = (E * n_e + 1) // 2 if 8 <= n_e <= 32 else 0
+    if (4 * E + E * R + E * n_e + n_e + kbits) * 4 > MAX_SMEM:
+        raise ValueError(f"aebs_schedule: tables E={E}, R={R}, n_e={n_e} exceed shared memory")
+    n_items = eids.numel()
+    slot_ids = torch.empty_like(eids)
+    act_rep = torch.empty(E, dtype=torch.int32, device=eids.device)
+    load = torch.empty(n_e, dtype=torch.int32, device=eids.device)
+    fn = cuda.function("aebs", "aebs_schedule", _ARGS)
+    err = fn(
+        eids.data_ptr(), n_items, hosts.data_ptr(), counts.data_ptr(), slot_of.data_ptr(),
+        E, R, n_e, cluster_blocks(n_items), slot_ids.data_ptr(), act_rep.data_ptr(), load.data_ptr(),
+        eids.device.index, cuda.stream_of(eids),
+    )
+    cuda.check("aebs", err, "aebs_schedule")
+    cuda.count("aebs_schedule")
+    return slot_ids, load, act_rep
 
 
 # same Algorithm-1 contract as aebs_assign: one replica per activated expert

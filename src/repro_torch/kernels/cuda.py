@@ -37,8 +37,7 @@ LAUNCHES: Dict[str, int] = {
     "paged_decode_attention": 0,
     "decode_attention": 0,
     "decode_attention_int8": 0,
-    "aebs_collect_greedy": 0,
-    "aebs_rewrite": 0,
+    "aebs_schedule": 0,
     "expert_ffn": 0,
 }
 BUILD_LOG: Dict[str, str] = {}  # nvcc/ptxas output of the builds this process ran

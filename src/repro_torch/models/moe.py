@@ -173,8 +173,9 @@ def moe_layer(
         num_buckets = int(slot_to_expert.shape[0])
         # capacity is a per-slot budget, computed before the collapse
         cap = capacity or default_capacity(b * s, cfg.top_k, num_buckets, cfg.capacity_factor)
-        aux["load"] = load
-        aux["a_max"] = load.max()
+        if with_aux:
+            aux["load"] = load
+            aux["a_max"] = load.max()
         if scheduler_is_single_replica(scheduler):
             # <= 1 activated replica per expert: slots collapse to experts
             bucket_ids = torch.where(

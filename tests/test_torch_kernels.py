@@ -8,6 +8,7 @@ card.  This file imports the reference inside the tests, so the card's
 machine, which has no JAX, can collect and run the ``gpu`` test alone.
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -18,7 +19,7 @@ import torch
 from _torch_parity import (
     TOL, assert_close, assert_equal_int, assert_one_rounding, rounding_excess, tol_for,
 )
-from repro_torch.core.aebs import aebs_numpy
+from repro_torch.core.aebs import ReplicaLayout, aebs_numpy
 from repro_torch.core.amax import make_routing_trace
 from repro_torch.core.placement import build_layout
 from repro_torch.kernels import cuda
@@ -372,6 +373,159 @@ def test_aebs_plain_padding_neutral():
     assert (slot_ids[100:] == -1).all()
 
 
+def _fig15(n_e):
+    """The paper's Fig. 15 grid as ``benchmarks/fig15_overhead.py:20-36``
+    builds it: 64 experts, top-6, 12 slots an instance, one skewed trace."""
+    trace = make_routing_trace(8192, 64, 6, skew=1.0, seed=0)
+    return trace, build_layout(trace, 64, n_e, 12)
+
+
+@pytest.mark.parametrize("n_e", [8, 16])
+def test_aebs_plain_matches_reference_fig15(n_e):
+    import jax.numpy as jnp
+    from repro.core.aebs import aebs_numpy as ref_aebs_numpy
+    from repro.core.placement import build_layout as ref_build_layout
+    from repro.kernels.aebs.ops import aebs_schedule as ref_aebs_schedule
+
+    trace, layout = _fig15(n_e)
+    ref_layout = ref_build_layout(trace, 64, n_e, 12)
+    tables = layout.device_tables("cpu")
+    # B = 256 through the reference's Pallas kernels (interpret mode)
+    got = aebs_schedule(torch.from_numpy(trace[:256]), tables, n_e)
+    want = ref_aebs_schedule(jnp.asarray(trace[:256]), ref_layout.device_tables(), n_e)
+    for a, b in zip(got, want):
+        assert_equal_int(a, np.asarray(b))
+    # B = 4096 against the reference's host implementation
+    got = aebs_schedule(torch.from_numpy(trace[:4096]), tables, n_e)
+    for a, b in zip(got, ref_aebs_numpy(trace[:4096], ref_layout)):
+        assert_equal_int(a, b)
+
+
+_NO_KEY = 0xFFFFFFFF
+
+
+def _aebs_kernel_model(eids, hosts, counts, slot_of, n_e, blocks=1):
+    """``csrc/aebs.cu``'s ``aebs_schedule_kernel`` step for step in numpy:
+    each block's bitmap over its range of 4-item units, ORed; pass 1 over the
+    single-replica experts; warp 0's ballot-compacted list of the activated
+    replicated experts; the chain over that list, each step the minimum of
+    the packed keys -- ``(load << b) | r`` over 32-lane passes, and with
+    8 <= n_e <= 32 ``(((load << b) | r) << gb) | g``, the winner's instance in
+    the low bits -- leaving the chosen instance, which the staged
+    ``slot_of`` turns into the slot; the rewrite."""
+    E, R = hosts.shape
+    flat = np.asarray(eids, np.int64).reshape(-1)
+    n_units = -(-flat.size // 4)
+    per = -(-n_units // blocks)
+    act = np.zeros(E, bool)
+    for rank in range(blocks):
+        items = flat[4 * rank * per: 4 * min(n_units, (rank + 1) * per)]
+        own = np.zeros(E, bool)
+        own[items[(items >= 0) & (items < E)]] = True
+        act |= own
+    ld = np.zeros(n_e, np.int64)
+    rep = -np.ones(E, np.int64)
+    for e in range(E):  # pass 1: no order between these experts
+        if act[e] and counts[e] == 1 and hosts[e, 0] >= 0:
+            rep[e] = slot_of[e, hosts[e, 0]]
+            ld[hosts[e, 0]] += 1
+    listed, M = -np.ones(E, np.int64), 0
+    for e0 in range(0, E, 32):  # one ballot per 32 experts
+        flags = [e0 + t < E and act[e0 + t] and counts[e0 + t] >= 2 for t in range(32)]
+        ballot = sum(1 << t for t, f in enumerate(flags) if f)
+        for t, f in enumerate(flags):
+            if f:
+                listed[M + bin(ballot & ((1 << t) - 1)).count("1")] = e0 + t
+        M += bin(ballot).count("1")
+    b = (R - 1).bit_length() if R > 1 else 0
+    gb = (n_e - 1).bit_length() if 8 <= n_e <= 32 else 0  # loads in registers: g in the key
+    for e in listed[:M]:
+        best = _NO_KEY
+        for r0 in range(0, R, 32):  # lane passes
+            keys = [(((int(ld[g]) << b) | r) << gb) | (g if gb else 0) if g >= 0 else _NO_KEY
+                    for r, g in zip(range(r0, r0 + 32), hosts[e, r0:r0 + 32])]
+            best = min(best, min(keys))
+        assert best == _NO_KEY or best < 2**32  # the key is exact in 32 bits
+        if best != _NO_KEY:
+            r = (best >> gb) & ((1 << b) - 1)
+            g = best & ((1 << gb) - 1) if gb else hosts[e, r]
+            assert g == hosts[e, r]
+            ld[g] = (best >> (b + gb)) + 1
+            rep[e] = g
+    for e in listed[:M]:  # the chosen instance -> its slot
+        if rep[e] >= 0:
+            rep[e] = slot_of[e, rep[e]]
+    valid = (flat >= 0) & (flat < E)
+    slot_ids = np.where(valid, rep[np.clip(flat, 0, E - 1)], -1).reshape(np.shape(eids))
+    return slot_ids, ld, rep
+
+
+def _tie_layout():
+    """Every instance hosts all 8 experts, each row of hosts in descending
+    instance order: loads tie at every step, and the first minimum is the
+    lowest replica index, not the lowest instance id."""
+    base = ReplicaLayout.build(np.tile(np.arange(8, dtype=np.int32), (4, 1)), 8)
+    return dataclasses.replace(base, expert_hosts=base.expert_hosts[:, ::-1].copy())
+
+
+_SWEEP = ((16, 4, 5, 64, 2), (64, 8, 12, 300, 6), (60, 16, 4, 128, 4), (256, 16, 17, 512, 8),
+          (64, 4, 17, 8, 6))
+_MODEL_CASES = ([f"sweep{i}" for i in range(len(_SWEEP))]
+                + [f"fig15-{n_e}-{B}" for n_e in (8, 16) for B in (64, 256, 1024, 4096)]
+                + ["ties", "ne40", "E512"])
+
+
+def _aebs_model_case(name):
+    """(eids, layout) of one named case of the kernel's numpy model."""
+    if name.startswith("sweep"):
+        E, n_e, C, T, k = _SWEEP[int(name[5:])]
+        trace = make_routing_trace(max(T, 512), E, k, skew=0.8, seed=E)
+        return trace[:T], build_layout(trace, E, n_e, C)
+    if name.startswith("fig15"):
+        _, n_e, B = name.split("-")
+        trace, layout = _fig15(int(n_e))
+        return trace[:int(B)], layout
+    if name == "ties":
+        return np.random.default_rng(5).integers(0, 8, size=(40, 3)).astype(np.int32), _tie_layout()
+    if name == "ne40":  # more instances than lanes, and a row of 40 replicas
+        trace = make_routing_trace(4096, 64, 6, skew=1.2, seed=3)
+        return trace[:512], build_layout(trace, 64, 40, 8)
+    trace = make_routing_trace(4096, 512, 8, skew=0.8, seed=3)  # E512
+    return trace[:1024], build_layout(trace, 512, 16, 40)
+
+
+@pytest.mark.parametrize("blocks", [1, 8])
+@pytest.mark.parametrize("name", _MODEL_CASES)
+def test_aebs_kernel_model_matches_numpy(name, blocks):
+    """The kernel's algorithm (the numpy transcription above, in one block
+    and in a cluster of 8) against ``aebs_numpy``: a check of the design,
+    not of the CUDA code, which only the ``gpu`` test runs."""
+    eids, layout = _aebs_model_case(name)
+    if name == "ties":
+        assert (layout.replica_counts == 4).all() and (np.diff(layout.expert_hosts, axis=1) < 0).all()
+    if name == "ne40":
+        assert layout.expert_hosts.shape[1] == 40  # two lane passes
+    got = _aebs_kernel_model(eids, layout.expert_hosts, layout.replica_counts, layout.slot_of,
+                             layout.num_instances, blocks)
+    for a, b in zip(got, aebs_numpy(eids, layout)):
+        assert_equal_int(a, b)
+
+
+@pytest.mark.parametrize("T", [0, 1, 37])
+def test_aebs_kernel_model_padding_matches_plain(T):
+    """All padding, one token, and padding mixed in: the model against the
+    plain ``aebs_assign`` (``aebs_numpy`` takes no padding)."""
+    trace, layout = _fig15(16)
+    eids = np.full((max(T, 4), 6), -1, np.int32)
+    eids[:T] = trace[:T]
+    eids[:T:5, 2] = -1
+    eids[:T:7, 4] = 64  # out of range counts as padding
+    got = _aebs_kernel_model(eids, layout.expert_hosts, layout.replica_counts, layout.slot_of, 16)
+    want = aebs_schedule(torch.from_numpy(eids), layout.device_tables("cpu"), 16)
+    for a, b in zip(got, want):
+        assert_equal_int(a, b)
+
+
 # ---------------------------------------------------------------------------
 # K3 grouped expert FFN
 # ---------------------------------------------------------------------------
@@ -481,17 +635,49 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                 want = decode_attention_int8_ref(*args, logit_cap=cap)
                 assert_close(got, want, tol_for(dtype))
 
-    # K2: the reference's sweep, padding included; integers exact
-    for E, n_e, C, T, k in ((16, 4, 5, 64, 2), (64, 8, 12, 300, 6), (64, 4, 17, 8, 6),
-                            (256, 16, 17, 512, 8)):
-        trace = make_routing_trace(max(T, 512), E, k, skew=0.8, seed=E)
-        layout = build_layout(trace, E, n_e, C)
-        eids = trace[:T].copy()
-        eids[-1] = -1
-        got = aebs_schedule(_t(eids, device=dev), layout.device_tables(dev), n_e)
+    # K2, integers exact: the reference's sweep with padding; the Fig. 15
+    # grid; all padding, one token, more instances than lanes (n_e 40, rows
+    # of 40 replicas), E 512 (past 48 KB of shared memory), forced ties;
+    # item counts on both sides of the cluster threshold, and ids that are
+    # not 16-byte aligned, in one block and in a cluster
+    from repro_torch.kernels.aebs.ops import CLUSTER_ITEMS
+
+    def k2(eids, layout, offset=0):
+        n_e = layout.num_instances
+        flat = torch.full((eids.size + offset,), -1, dtype=torch.int32, device=dev)
+        flat[offset:] = _t(eids, device=dev).reshape(-1)
+        got = aebs_schedule(flat[offset:].view(eids.shape), layout.device_tables(dev), n_e)
         want = aebs_schedule(_t(eids), layout.device_tables("cpu"), n_e)
         for a, b in zip(got, want):
             assert_equal_int(a, b)
+
+    def past_threshold(eids):
+        """``eids`` repeated to just over CLUSTER_ITEMS ids: a cluster."""
+        reps = CLUSTER_ITEMS // eids.size + 1
+        return np.concatenate([eids] * reps)
+
+    for E, n_e, C, T, k in _SWEEP:
+        trace = make_routing_trace(max(T, 512), E, k, skew=0.8, seed=E)
+        eids = trace[:T].copy()
+        eids[-1] = -1
+        k2(eids, build_layout(trace, E, n_e, C))
+    for n_e in (8, 16):
+        trace, layout = _fig15(n_e)
+        for B in (64, 256, 1024, 4096):
+            k2(trace[:B], layout)
+        k2(np.full((64, 6), -1, np.int32), layout)
+        k2(trace[:0], layout)
+        k2(trace[:1], layout)
+        k2(trace[:37], layout, offset=1)
+        n_tok = CLUSTER_ITEMS // 6
+        for T in (n_tok, n_tok + 1):  # one block (past its registers), then a cluster
+            k2(trace[:T], layout)
+        k2(trace[:n_tok + 3], layout, offset=3)  # a cluster over unaligned ids
+        k2(np.concatenate([trace, trace]), layout)  # past the cluster's registers
+    for name in ("ties", "ne40", "E512"):
+        eids, layout = _aebs_model_case(name)
+        k2(eids, layout)
+        k2(past_threshold(eids), layout)
 
     # K1, K4 and K5 at decode_32k's S, lengths on and beside the split
     # boundaries each wrapper chooses, every G and head_dim the kernels are

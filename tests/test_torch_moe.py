@@ -94,3 +94,11 @@ def test_moe_layer_aebs_matches_reference(kind, dtype):
     assert int(aux["a_max"]) == int(aux_ref["a_max"])
     assert y.dtype == cfg.torch_dtype
     assert_close(y, y_ref, tol_for(dtype, "layer"))
+    # without with_aux the layer returns the bare output, the same tensor
+    bare = moe.moe_layer(
+        params, torch.from_numpy(x).to(cfg.torch_dtype), cfg, layout_tables=layout.device_tables("cpu"),
+        slot_to_expert=torch.from_numpy(s2e.astype(np.int32)),
+        num_instances=n_e, scheduler=aebs_schedule,
+    )
+    assert isinstance(bare, torch.Tensor)
+    assert torch.equal(bare, y)
