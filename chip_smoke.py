@@ -17,18 +17,34 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      prefill chunk's shape, and checked at a 320-token one (two launches of
      rows); K2 (one launch: bitmap, both greedy passes and the rewrite) at
      the serving shape and the paper's Fig. 15 grid, integers exact, each
-     also timed on the device alone from a CUDA graph;
+     also timed on the device alone from a CUDA graph; and each kernel at
+     the disaggregated executor's shapes of phase 5: K4 and K5 over a 4-row
+     attention shard, K1 over a 2-row ping-pong shard with its own block
+     table, K3 over each MoE instance's 17 slots through its row of
+     ``slot_to_expert``;
   4. reduced parity: dsv2-lite-reduced in float32 through the plain versions
      on the CPU and through the kernels on the card, same seeded weights and
      requests, for four KV layouts: paged (K1), contiguous (K4), int8
-     contiguous (K5) and int8 paged (gather path, no attention kernel);
+     contiguous (K5) and int8 paged (gather path, no attention kernel); then
+     the disaggregated executor (2 attention shards, 2 MoE instances x 3
+     slots, capacity 64) for contiguous KV, paged KV with ping-pong and int8
+     contiguous KV: streams CPU = card = the card's mono streams, and
+     ``amax_log`` CPU = card;
   5. full-width serving: dsv2-lite (27 layers, d 2048, 64 experts top-6 + 2
      shared, vocab 102400) with random bf16 weights drawn once on the card
      from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
      three times: paged KV (K1), contiguous KV (K4), int8 contiguous KV (K5);
      launch counts are zeroed just before each run and read just after it,
-     and K2 must have launched once per scheduled MoE layer call;
-     then a profiled short run of each layout (device time per step);
+     and K2 must have launched once per scheduled MoE layer call; then the
+     same 12 requests through the disaggregated executor (2 attention
+     shards, 4 MoE instances), contiguous KV (K4) and paged KV with
+     ping-pong (K1), with its exchange telemetry and exact launch counts
+     (K2 = instances x micro-batches x MoE layers x decode steps, K3 = as
+     many plus MoE layers x prefill chunks, the attention kernel = shards x
+     layers x decode steps); whether each stream equals its mono stream is
+     reported, not gated (split-KV plans differ by batch in bf16);
+     then a profiled short run of each mono layout and each disagg run
+     (device time per step, idle share);
   6. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
@@ -117,7 +133,9 @@ def main():
     from repro_torch.models import model as model_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.attention import quantize_kv
+    from repro_torch.serving.disagg import DisaggExecutor
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_cache import PagedKVCache
     from repro_torch.serving.request import Request, WorkloadSpec, sample_requests
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32 (parity phase)
@@ -178,6 +196,17 @@ def main():
              "shape": shape or "serving", "tolerance": tol, "ok": ok, **row, **detail})
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                                 f"({err} > {tol}, or rounding excess {excess} > 1)")
+
+    def check(kernel, shape, err, tol, excess=None, **detail):
+        """Log one kernel-vs-plain check that is not timed, and raise if the
+        kernel disagrees with its plain version (or, where ``excess`` is
+        given, passes one bf16 rounding of its f32 oracle)."""
+        ok = err <= tol and (excess is None or excess <= 1.0)
+        log({"phase": "kernel_check", "kernel": kernel, "shape": shape, "max_abs_err": err,
+             "tolerance": tol, "rounding_excess": excess, "ok": ok, "card": card, **detail})
+        if not ok:
+            raise AssertionError(f"{kernel} at {shape}: kernel disagrees with its plain version "
                                  f"({err} > {tol}, or rounding excess {excess} > 1)")
 
     def cycled(fn, n):
@@ -307,6 +336,40 @@ def main():
     contiguous_case(32768, np.full(B, 32768, np.int32), 1, 20, 3, "decode_32k: B 8, S 32768, all rows valid")
     contiguous_case(32768, np.full(1, 32768, np.int32), 1, 50, 5, "decode_32k: B 1, S 32768, all rows valid")
 
+    # the disaggregated executor's attention shards (phase 5: 8 rows over 2
+    # attention devices, cache_len 512): K4 and K5 over a 4-row shard's own
+    # cache, K1 over a 2-row ping-pong shard's own pools through the
+    # shard-local block table its PagedKVCache builds, each with the split
+    # plan its wrapper chose at that batch
+    S_serve = nblk * ps
+    q_sh, lens_sh = q_all[:4], torch.from_numpy(lens_np[:4]).to(dev)
+    kc = torch.randn((4, S_serve, nkv, hd), generator=gen, device=dev).to(bf)
+    vc = torch.randn((4, S_serve, nkv, hd), generator=gen, device=dev).to(bf)
+    n_split, split_rows = split_plan(4, nkv, S_serve, n_sms)
+    got, want = decode_attention(q_sh, kc, vc, lens_sh), decode_attention_ref(q_sh, kc, vc, lens_sh)
+    check("decode_attention", f"disagg shard: 4 rows, S {S_serve}", float((got.float() - want.float()).abs().max()),
+          TOL["bf16"], rounding_excess(got, want), n_split=n_split, rows_per_split=split_rows)
+    (k8, ks), (v8, vs) = quantize_kv(kc), quantize_kv(vc)
+    got = decode_attention_int8(q_sh, k8, v8, ks, vs, lens_sh)
+    err = float((got.float() - decode_attention_int8_ref(q_sh, k8, v8, ks, vs, lens_sh).float()).abs().max())
+    want = decode_attention_ref(q_sh, k8.float() * ks[..., None], v8.float() * vs[..., None], lens_sh)
+    check("decode_attention_int8", f"disagg shard: 4 rows, S {S_serve}", err, TOL["bf16"],
+          rounding_excess(got, want), n_split=n_split, rows_per_split=split_rows)
+    pager = PagedKVCache(2, S_serve, ps)
+    for r in range(2):
+        pager.ensure(r, int(lens_np[r]) - 1)
+    bt, lens_sh = pager.table_device(dev), lens_sh[:2]
+    kp = torch.randn((pager.num_pages, ps, nkv, hd), generator=gen, device=dev).to(bf)
+    vp = torch.randn((pager.num_pages, ps, nkv, hd), generator=gen, device=dev).to(bf)
+    n_split, split_rows = split_plan(2, nkv, S_serve, n_sms, ps)
+    got = paged_decode_attention(q_all[:2], kp, vp, bt, lens_sh)
+    want = paged_decode_attention_ref(q_all[:2], kp, vp, bt, lens_sh)
+    check("paged_decode_attention", f"disagg ping-pong shard: 2 rows, S {S_serve}, its own pages",
+          float((got.float() - want.float()).abs().max()), TOL["bf16"], rounding_excess(got, want),
+          n_split=n_split, pages_per_split=split_rows // ps)
+    del kc, vc, k8, ks, v8, vs, kp, vp, got, want
+    torch.cuda.empty_cache()
+
     # ---- 3c. K2 AEBS: bitmap, both greedy passes and the rewrite in one
     # launch; the serving shape (8 tokens' top-6 over 4 x 17 slots), then the
     # paper's Fig. 15 grid (benchmarks/fig15_overhead.py:20-36: 64 experts,
@@ -393,6 +456,22 @@ def main():
            time_ms(lambda: expert_ffn_grouped_ref(x, wg, wu, wd, s2e, active), 5),
            bound(k3_bytes, k3_ops, BF16_FLOPS), time_ms(k3_library, 50))
     log({"phase": "kernel_detail", "kernel": "expert_ffn", "active_experts": n_act, "card": card})
+    # the disaggregated executor's MoE instances (phase 5: the layout's 4 x
+    # 17 slots): each runs K3 over its own slots at CAP 4 on the tokens AEBS
+    # sends it, reading the logical weights through its row of slot_to_expert
+    slot_ids = aebs_schedule(eids, layout.device_tables(dev), layout.num_instances)[0].reshape(-1).long()
+    C = layout.capacity
+    for g in range(layout.num_instances):
+        s2e_g = torch.as_tensor(layout.slot_to_expert[g], dtype=torch.int32, device=dev)
+        local = slot_ids[(slot_ids >= g * C) & (slot_ids < (g + 1) * C)] - g * C
+        counts_g = torch.bincount(local, minlength=C)
+        xg = torch.randn((C, CAP, d), generator=gen, device=dev).to(bf)
+        xg = torch.where(torch.arange(CAP, device=dev)[None, :, None] < counts_g[:, None, None], xg, 0)
+        act_g = (counts_g > 0) & (s2e_g >= 0)
+        err = float((expert_ffn_grouped(xg, wg, wu, wd, s2e_g, act_g).float()
+                     - expert_ffn_grouped_ref(xg, wg, wu, wd, s2e_g, act_g).float()).abs().max())
+        check("expert_ffn", f"disagg instance {g}: {C} slots, CAP {CAP}, slot_to_expert row {g}", err,
+              TOL["bf16"], active_slots=int(act_g.sum()), slot_to_expert=layout.slot_to_expert[g].tolist())
     # the prefill shape: one 64-token chunk, drop-free capacity 64, all experts
     CAPP = 64
     xp = torch.randn((E, CAPP, d), generator=gen, device=dev).to(bf)
@@ -420,11 +499,8 @@ def main():
     actl = torch.ones(SL, dtype=torch.bool, device=dev)
     err = float((expert_ffn_grouped(xl, wg, wu, wd, s2el, actl).float()
                  - expert_ffn_grouped_ref(xl, wg, wu, wd, s2el, actl).float()).abs().max())
-    log({"phase": "kernel_check", "kernel": "expert_ffn", "shape": f"CAP {CAPL}, {SL} slots",
-         "max_abs_err": err, "tolerance": TOL["bf16"], "ok": err <= TOL["bf16"], "card": card})
-    if err > TOL["bf16"]:
-        raise AssertionError(f"expert_ffn at CAP {CAPL}: kernel disagrees ({err} > {TOL['bf16']})")
-    del wg, wu, wd, wg_a, wu_a, wd_a, x, xp, xl, got, want
+    check("expert_ffn", f"CAP {CAPL}, {SL} slots", err, TOL["bf16"])
+    del wg, wu, wd, wg_a, wu_a, wd_a, x, xp, xl, xg, got, want
     torch.cuda.empty_cache()
 
     # ---- 4. reduced parity: plain versions on the CPU vs kernels on the card
@@ -473,6 +549,7 @@ def main():
                            rcfg.num_experts, 2, 3)
     spec = WorkloadSpec(mean_input=8, mean_output=10, vocab_size=rcfg.vocab_size, max_input=24,
                         max_output=16, seed=1)
+    mono_streams = {}  # the card's mono streams per KV layout
     for name, kv_quant, page, attn_kernel in layouts:
         lcfg = dataclasses.replace(rcfg, kv_quant=kv_quant)
         streams = {}
@@ -485,6 +562,7 @@ def main():
             launches = dict(cuda.LAUNCHES)
             streams[where] = {r.rid: r.tokens_out for r in eng.completed}
         check_launches(f"reduced {name} run on the card", launches, attn_kernel, 1)
+        mono_streams[name] = streams["cuda"]
         same = streams["cpu"] == streams["cuda"] and len(streams["cpu"]) == 6
         log({"phase": "reduced_parity", "layout": name, "dtype": "float32",
              "kv_dtype": "int8" if kv_quant else "float32", "streams_equal": same,
@@ -503,6 +581,68 @@ def main():
          "tolerance": TOL["f32_layer"], "card": card})
     if lerr > TOL["f32_layer"]:
         raise AssertionError("reduced parity: prefill logits on the card disagree with the CPU")
+
+    # the disaggregated executor: 2 attention shards, rlayout's 2 instances,
+    # capacity 64.  Every instance schedules each MoE layer call of a
+    # micro-batch once, through the executor's scheduler, which is wrapped so
+    # that K2's launches are counted against its calls exactly
+    def counted_scheduler(fn):
+        def call(*args):
+            scheduled["calls"] += 1
+            return fn(*args)
+        return call
+
+    def check_disagg_launches(what, launches, attn_kernel, ex, steps, prefill_chunks):
+        """Exactly: K2 once per instance, micro-batch, MoE layer and decode
+        step (and once per call of the executor's scheduler), K3 as often
+        plus once per MoE layer of each prefill chunk (prefill runs the mono
+        model, experts as buckets, unscheduled), the attention kernel once
+        per shard, layer and step (prefill attends densely); no other
+        attention kernel."""
+        kinds = ex.cfg.layer_kinds()
+        n_moe_layers = sum(k == "moe" for k in kinds)
+        per_decode = ex.n_moe * ex.n_micro * n_moe_layers * steps
+        exact = {"aebs_schedule": per_decode,
+                 "expert_ffn": per_decode + prefill_chunks * n_moe_layers,
+                 attn_kernel: len(ex.shards) * len(kinds) * steps}
+        wrong = {n: launches[n] for n, want in exact.items() if launches[n] != want}
+        stray = {n: launches[n] for n in attn_kernels if n != attn_kernel and launches[n]}
+        if wrong or stray or scheduled["calls"] != exact["aebs_schedule"]:
+            raise AssertionError(f"{what}: launches {wrong} not the exact {exact}, off the path "
+                                 f"{stray}, or {scheduled['calls']} scheduler calls")
+        return {"launches_exact": exact, "prefill_chunks": prefill_chunks}
+
+    # (KV layout, kv_quant, kv_page_size, attention kernel, ping_pong)
+    disagg_layouts = (("contiguous", False, None, "decode_attention", False),
+                      ("paged", False, 16, "paged_decode_attention", True),
+                      ("int8_contiguous", True, None, "decode_attention_int8", False))
+    for name, kv_quant, page, attn_kernel, pp in disagg_layouts:
+        lcfg = dataclasses.replace(rcfg, kv_quant=kv_quant)
+        streams, amax = {}, {}
+        for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+            eng = ServingEngine(lcfg, params, max_batch=4, cache_len=64, kv_page_size=page,
+                                prefill_chunk=16, layout=rlayout, scheduler="aebs", capacity_tokens=64,
+                                executor="disagg", n_attn=2, ping_pong=pp, device=where)
+            eng.disagg.scheduler = counted_scheduler(eng.disagg.scheduler)
+            cuda.reset_launch_counts()
+            scheduled["calls"] = 0
+            eng.run(sample_requests(spec, np.zeros(6), with_prompts=True), max_steps=500)
+            launches = dict(cuda.LAUNCHES)
+            streams[where] = {r.rid: r.tokens_out for r in eng.completed}
+            amax[where] = eng.amax_log
+        checked = check_disagg_launches(f"reduced disagg {name} run on the card", launches,
+                                        attn_kernel, eng.disagg, eng.steps_done,
+                                        eng.prefill_worker.chunks_done)
+        same = streams["cpu"] == streams["cuda"] and len(streams["cpu"]) == 6
+        like_mono = streams["cuda"] == mono_streams[name]
+        log({"phase": "reduced_parity_disagg", "layout": name, "ping_pong": pp, "dtype": "float32",
+             "kv_dtype": "int8" if kv_quant else "float32", "n_attn": 2, "n_moe": rlayout.num_instances,
+             "streams_equal": same, "streams_equal_mono": like_mono,
+             "amax_log_equal": amax["cpu"] == amax["cuda"], "amax_log": amax["cuda"],
+             "decode_steps": eng.steps_done, "launches": launches, **checked, "card": card})
+        if not (same and like_mono and amax["cpu"] == amax["cuda"]):
+            raise AssertionError(f"reduced disagg parity ({name}): streams CPU = card = mono "
+                                 f"{same, like_mono}, amax_log CPU = card {amax['cpu'] == amax['cuda']}")
     del p_gpu
 
     # ---- 5. full-width serving ------------------------------------------
@@ -586,6 +726,71 @@ def main():
         for kname in (attn_kernel,) + moe_kernels:
             if rows[kname]["launches"] is None:
                 rows[kname]["launches"] = launches[kname]
+        served[name] = {"step_ms": float(np.mean(step_ms)), "ttft_ms": m["ttft_mean"] * 1e3,
+                        "streams": {r.rid: r.tokens_out for r in engine.completed}}
+        del engine
+        torch.cuda.empty_cache()
+
+    # the same requests through the disaggregated executor: 2 attention
+    # shards, the layout's 4 instances (every pool on this card), served
+    # with contiguous KV (K4) and with paged KV and ping-pong (K1)
+    disagg_step = DisaggExecutor.decode_step
+    # (run, kv_page_size, attention kernel, ping_pong, the mono run it is compared with)
+    disagg_runs = (("disagg_contiguous", None, "decode_attention", False, "contiguous"),
+                   ("disagg_paged_pingpong", 16, "paged_decode_attention", True, "paged"))
+    for name, page, attn_kernel, pp, mono_name in disagg_runs:
+        reqs = make_requests(2, 12, 16, 48, 16, 32)
+        step_ms = []
+        nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def checked_disagg_step(*args, **kwargs):
+            t = time.perf_counter()
+            logits, tel = disagg_step(*args, **kwargs)
+            nonfinite.add_((~torch.isfinite(logits)).sum())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return logits, tel
+
+        engine = ServingEngine(cfg, params, kv_page_size=page, executor="disagg", n_attn=2,
+                               ping_pong=pp, **kw)
+        engine.disagg.scheduler = counted_scheduler(engine.disagg.scheduler)
+        DisaggExecutor.decode_step = checked_disagg_step
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        scheduled["calls"] = 0
+        t0 = time.perf_counter()
+        m = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        DisaggExecutor.decode_step = disagg_step
+        steps = engine.steps_done
+        streams = {r.rid: r.tokens_out for r in engine.completed}
+        log({"phase": "serve", "layout": name, "executor": "disagg", "card": card, "model": cfg.name,
+             "n_attn": len(engine.disagg.pools.attn_devices), "n_moe": engine.disagg.n_moe,
+             "ping_pong": pp, "kv_dtype": str(engine.disagg._kv[0][0]["k"].dtype),
+             "requests": len(reqs), "completed": m["completed"], "tokens": m["tokens"],
+             "decode_steps": steps, "wall_s": wall, "tokens_per_s": m["throughput_tok_s"],
+             "decode_step_ms_mean": float(np.mean(step_ms)),
+             "decode_step_ms_p50": float(np.median(step_ms)),
+             "tpot_ms_mean": m["tpot_mean"] * 1e3, "tpot_ms_p99": m["tpot_p99"] * 1e3,
+             "ttft_ms_mean": m["ttft_mean"] * 1e3, "ttft_ms_p99": m["ttft_p99"] * 1e3,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "kv_pages": m.get("kv_pages"), "regime_counts": m["regime_counts"],
+             "transfer_bytes_per_step": m["transfer_bytes_per_step"],
+             "amax_mean": m["amax_mean"], "amax_max": m["amax_max"], "launches": launches,
+             "scheduler_calls": scheduled["calls"],
+             "streams_equal_mono": streams == served[mono_name]["streams"],
+             "tokens_equal_mono": sum(a == b for rid, s in streams.items()
+                                      for a, b in zip(s, served[mono_name]["streams"][rid]))})
+        if m["completed"] != len(reqs) or m["truncated"]:
+            raise AssertionError(f"serving ({name}): {m['completed']} of {len(reqs)} requests completed")
+        if any(r.generated != r.output_len for r in engine.completed):
+            raise AssertionError(f"serving ({name}): a request stopped short of its output length")
+        if int(nonfinite) != 0:
+            raise AssertionError(f"serving ({name}): {int(nonfinite)} non-finite logits")
+        check_disagg_launches(f"serving ({name}): {steps} decode steps", launches, attn_kernel,
+                              engine.disagg, steps, m["prefill_chunks"])
         served[name] = {"step_ms": float(np.mean(step_ms)), "ttft_ms": m["ttft_mean"] * 1e3}
         del engine
         torch.cuda.empty_cache()
@@ -596,8 +801,25 @@ def main():
     # counting)
     from torch.profiler import ProfilerActivity, profile
 
-    for name, kv_quant, page, _ in serve_layouts:
+    # (run, its config, engine options, the mono run it is set beside)
+    profile_runs = [(name, dataclasses.replace(cfg, kv_quant=kv_quant), dict(kv_page_size=page), None)
+                    for name, kv_quant, page, _ in serve_layouts]
+    profile_runs += [(name, cfg, dict(kv_page_size=page, executor="disagg", n_attn=2, ping_pong=pp),
+                      mono_name) for name, page, _, pp, mono_name in disagg_runs]
+    profiled_ms = {}
+    # device ops by kind, first match wins: the port's kernels, cuBLAS,
+    # sorting, copies and fills; the rest is PyTorch's elementwise ops and
+    # reductions
+    profile_groups = (("K3", ("expert_mma_kernel", "f32_gate_up_kernel", "f32_down_kernel")),
+                      ("K2", ("aebs_schedule_kernel",)),
+                      ("attention", ("decode_attention_kernel", "merge_splits_kernel")),
+                      ("gemm", ("nvjet", "gemm", "gemv", "cutlass", "xmma")),
+                      ("sort_topk", ("sort", "Sort", "topk", "TopK")),
+                      ("copy_fill", ("copy", "Memcpy", "Memset", "fill")))
+    for name, run_cfg, engine_kw, mono_name in profile_runs:
         device_ms = {"decode": [], "prefill": []}
+        device_ops = {"decode": [], "prefill": []}  # kernels, copies and fills on the card
+        kernel_n = {"decode": {}, "prefill": {}}
         kernel_ms = {"decode": {}, "prefill": {}}
 
         def profiled(fn, kind):
@@ -605,35 +827,53 @@ def main():
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     out = fn(*args, **kwargs)
                     torch.cuda.synchronize()
-                total = 0.0
+                total, ops = 0.0, 0
                 for e in prof.key_averages():
                     t = e.self_device_time_total / 1e3
                     kernel_ms[kind][e.key] = kernel_ms[kind].get(e.key, 0.0) + t
+                    kernel_n[kind][e.key] = kernel_n[kind].get(e.key, 0) + e.count
                     total += t
+                    ops += e.count
                 device_ms[kind].append(total)
+                device_ops[kind].append(ops)
                 return out
             return call
 
-        engine = ServingEngine(dataclasses.replace(cfg, kv_quant=kv_quant), params,
-                               kv_page_size=page, **kw)
-        model_mod.decode_step = profiled(decode_step, "decode")
+        engine = ServingEngine(run_cfg, params, **engine_kw, **kw)
+        if engine.disagg is not None:
+            DisaggExecutor.decode_step = profiled(disagg_step, "decode")
+        else:
+            model_mod.decode_step = profiled(decode_step, "decode")
         model_mod.prefill_chunk = profiled(prefill_chunk, "prefill")
         engine.run(make_requests(3, 8, 16, 16, 16, 16, rid0=100))
         model_mod.decode_step, model_mod.prefill_chunk = decode_step, prefill_chunk
+        DisaggExecutor.decode_step = disagg_step
         del engine
         busy = float(np.mean(device_ms["decode"]))
-        log({"phase": "profile", "layout": name, "card": card,
-             "decode_steps": len(device_ms["decode"]),
+        profiled_ms[name] = busy
+        beside = {}
+        if mono_name is not None:
+            beside = {"mono_layout": mono_name, "mono_device_ms_per_decode_step": profiled_ms[mono_name],
+                      "mono_device_idle_share_decode": 1.0 - profiled_ms[mono_name] / served[mono_name]["step_ms"]}
+        log({"phase": "profile", "layout": name, "executor": engine_kw.get("executor", "mono"),
+             "card": card, "decode_steps": len(device_ms["decode"]),
              "device_ms_per_decode_step": busy,
+             "device_ops_per_decode_step": float(np.mean(device_ops["decode"])),
              "step_ms_unprofiled": served[name]["step_ms"],
              "device_idle_share_decode": 1.0 - busy / served[name]["step_ms"],
              "device_ms_per_prefill_chunk": float(np.mean(device_ms["prefill"])),
-             "ttft_ms_unprofiled": served[name]["ttft_ms"]})
+             "ttft_ms_unprofiled": served[name]["ttft_ms"], **beside})
         for kind in ("decode", "prefill"):
             n = len(device_ms[kind])
             top = sorted(kernel_ms[kind].items(), key=lambda kv: -kv[1])[:10]
+            groups = {}  # [ms, ops] per call, by what the device op is
+            for key, ms in kernel_ms[kind].items():
+                g = next((g for g, words in profile_groups if any(w in key for w in words)), "other")
+                acc = groups.setdefault(g, [0.0, 0.0])
+                acc[0] += ms / n
+                acc[1] += kernel_n[kind][key] / n
             log({"phase": "profile_top", "layout": name, "kind": kind, "card": card,
-                 "ms_per_call": [[k[:96], v / n] for k, v in top]})
+                 "ms_per_call": [[k[:96], v / n] for k, v in top], "by_group_ms_ops": groups})
 
     # ---- 6. results ------------------------------------------------------
     log({"kernels": [rows[n] for n in cuda.LAUNCHES]})

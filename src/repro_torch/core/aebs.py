@@ -60,6 +60,16 @@ class ReplicaLayout:
             slot_of=slot_of,
         )
 
+    @staticmethod
+    def round_robin(num_experts: int, num_instances: int, capacity: int) -> "ReplicaLayout":
+        """Default layout: experts 0..E-1 dealt round-robin, leftover slots
+        replicate the first experts (``aebs.py:91``)."""
+        total = num_instances * capacity
+        seq = [e % num_experts for e in range(total)]
+        # order='F': slot (g, c) = c * n_e + g, experts striped across instances
+        stx = np.array(seq, np.int32).reshape(num_instances, capacity, order="F")
+        return ReplicaLayout.build(stx, num_experts)
+
     def device_tables(self, device) -> Dict[str, torch.Tensor]:
         return {
             "expert_hosts": torch.as_tensor(self.expert_hosts, dtype=torch.int32, device=device),

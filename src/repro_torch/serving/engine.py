@@ -1,6 +1,7 @@
 """Continuous-batching decode engine with the Janus scheduled-MoE path
-(``repro.serving.engine.ServingEngine``): the monolithic executor with
-blocking admission and FIFO order.
+(``repro.serving.engine.ServingEngine``): the monolithic executor or the
+disaggregated one (``executor="disagg"``), with blocking admission and FIFO
+order.
 
 * admission: an arrived request takes the lowest free slot and its whole
   prompt is prefilled through the chunked :class:`PrefillWorker` before the
@@ -12,6 +13,11 @@ blocking admission and FIFO order.
   contiguous KV (``cfg.kv_quant``) through K5 and paged KV
   (``kv_page_size``) through K1; paged int8 KV gathers and dequantises, as
   the reference does;
+* disagg: :class:`repro_torch.serving.disagg.DisaggExecutor` holds the KV
+  caches in attention shards and runs every MoE layer per instance (K2 per
+  instance, K3 over its local slots); on one card every pool aliases the
+  engine's device.  Each step logs its exchange regime, transfer bytes and
+  ``a_max``, and :meth:`ServingEngine.reconfigure` resizes a pool mid-run;
 * timing: wall clock around work that ends in a device sync.
 
 Options of the reference that later slices port raise ``NotImplementedError``.
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.aebs import ReplicaLayout
+from repro_torch.core.disagg import DevicePools
 from repro_torch.kernels.aebs.ops import aebs_schedule
 from repro_torch.models import model as model_mod
 from repro_torch.models.common import resolve_device
@@ -36,6 +43,7 @@ from repro_torch.serving.kv_cache import (
     scatter_prefill_chunk_caches,
     scatter_prefill_chunk_paged,
 )
+from repro_torch.serving.disagg import DisaggExecutor
 from repro_torch.serving.prefill import PrefillEvent, PrefillWorker
 from repro_torch.serving.request import Request
 
@@ -47,21 +55,14 @@ SCHEDULERS = {"aebs": aebs_schedule, "aebs_kernel": aebs_schedule, "none": None}
 # reference options this slice does not run: name -> (values it accepts,
 # which later slice ports the rest)
 _LATER = {
-    "executor": (("mono",), "the disaggregated executor"),
     "admission": ((None, "blocking"), "pipelined admission"),
     "sched": (("fifo",), "priority preemption"),
     "dispatch": (("grouped",), "the einsum/scatter oracles"),
-    "capacity_tokens": ((None,), "a later slice (capacity overrides)"),
-    "prefill_capacity_tokens": ((None,), "a later slice (capacity overrides)"),
     "kv_num_pages": ((None,), "preemption (an undersized page pool)"),
     "step_time_fn": ((None,), "modeled clocks (the simulator slice)"),
     "prefill_time_fn": ((None,), "modeled clocks (the simulator slice)"),
     "extra_builder": ((None,), "the other families"),
-    "n_attn": ((1,), "the disaggregated executor"),
     "n_prefill": ((0,), "pipelined admission"),
-    "pools": ((None,), "the disaggregated executor"),
-    "node_size": ((1,), "the disaggregated executor"),
-    "ping_pong": ((False,), "the disaggregated executor"),
     "fault_plan": ((None,), "fault recovery"),
     "retry_policy": ((None,), "fault recovery"),
     "watchdog": ((None,), "fault recovery"),
@@ -87,6 +88,13 @@ class ServingEngine:
         scheduler: str = "aebs",
         prefill_chunk: int = 64,
         kv_page_size: Optional[int] = None,
+        capacity_tokens: Optional[int] = None,
+        prefill_capacity_tokens: Optional[int] = None,
+        executor: str = "mono",
+        n_attn: int = 1,
+        pools: Optional[DevicePools] = None,
+        node_size: int = 1,
+        ping_pong: bool = False,
         device="cuda",
         **later,
     ):
@@ -115,6 +123,9 @@ class ServingEngine:
         self.completed: List[Request] = []
         self.decode_stall_time = 0.0
         self.steps_done = 0
+        self.amax_log: List[int] = []
+        self.regime_log: List[str] = []
+        self.transfer_bytes_log: List[int] = []
 
         moe_ctx = None
         if cfg.has_moe and layout is not None and scheduler != "none":
@@ -125,17 +136,39 @@ class ServingEngine:
                 ),
                 num_instances=layout.num_instances,
                 scheduler=SCHEDULERS[scheduler],
+                capacity=capacity_tokens,
             )
         self._extra = {"moe_ctx": moe_ctx} if moe_ctx else None
 
-        self.caches = model_mod.init_decode_caches(cfg, max_batch, cache_len, self.device)
         self.paged: Optional[PagedKVCache] = None
-        if kv_page_size is not None:
-            self.paged, self.caches = make_paged_caches(
-                self.caches, max_batch, cache_len, kv_page_size
+        self.disagg: Optional[DisaggExecutor] = None
+        if executor == "disagg":
+            if layout is None or scheduler == "none":
+                raise ValueError("executor='disagg' needs a replica layout and scheduler")
+            devices = None
+            if pools is None:
+                # one card: every pool aliases the engine's device
+                devices = [self.device]
+                pools = DevicePools.split(
+                    n_attn, layout.num_instances, devices, node_size=node_size, allow_reuse=True
+                )
+            self.disagg = DisaggExecutor(
+                cfg, params, pools, layout, max_batch=max_batch, cache_len=cache_len,
+                scheduler=SCHEDULERS[scheduler], capacity=capacity_tokens,
+                ping_pong=ping_pong, devices=devices, kv_page_size=kv_page_size,
             )
+            self.caches = None  # the executor's attention shards hold the KV
+        elif executor == "mono":
+            self.caches = model_mod.init_decode_caches(cfg, max_batch, cache_len, self.device)
+            if kv_page_size is not None:
+                self.paged, self.caches = make_paged_caches(
+                    self.caches, max_batch, cache_len, kv_page_size
+                )
+        else:
+            raise ValueError(f"unknown executor: {executor}")
         self.prefill_worker = PrefillWorker(
-            cfg, params, self.device, cache_len=cache_len, chunk=prefill_chunk
+            cfg, params, self.device, cache_len=cache_len, chunk=prefill_chunk,
+            capacity=prefill_capacity_tokens,
         )
 
     # ------------------------------------------------------------------
@@ -162,7 +195,9 @@ class ServingEngine:
 
     def _chunk_sink(self, slot: int, start: int, length: int, one_caches: Dict) -> None:
         """Land one streamed prefill chunk in the decode caches."""
-        if self.paged is not None:
+        if self.disagg is not None:
+            self.disagg.scatter_prefill_chunk(one_caches, slot, start, length)
+        elif self.paged is not None:
             self.caches = scatter_prefill_chunk_paged(
                 self.caches, one_caches, slot, start, length, self.paged
             )
@@ -175,19 +210,30 @@ class ServingEngine:
             for s in self.slots.active_slots:
                 self.paged.ensure(s, int(self.slots.positions[s]))
             self.caches["block_tables"] = self.paged.table_device(self.device)
+        elif self.disagg is not None:
+            for s in self.slots.active_slots:
+                self.disagg.ensure_slot_pages(s, int(self.slots.positions[s]))
 
     def _release_pages(self, slot: int) -> None:
         if self.paged is not None:
             self.paged.release(slot)
+        elif self.disagg is not None:
+            self.disagg.release_slot(slot)
 
     def _decode_iteration(self) -> None:
         self._ensure_pages()
         positions = self.slots.positions_device(self.device)
         tokens = torch.from_numpy(self.tokens).to(self.device)
         t0 = time.perf_counter()
-        logits, self.caches = model_mod.decode_step(
-            self.params, tokens, self.caches, positions, self.cfg, extra=self._extra
-        )
+        if self.disagg is not None:
+            logits, tel = self.disagg.decode_step(tokens, positions)
+            self.regime_log.append(tel["regime"])
+            self.transfer_bytes_log.append(tel["bytes_total"])
+            self.amax_log.append(tel["a_max"])
+        else:
+            logits, self.caches = model_mod.decode_step(
+                self.params, tokens, self.caches, positions, self.cfg, extra=self._extra
+            )
         next_tokens = model_mod.greedy_token(logits).cpu().numpy()  # waits for the device
         self.clock += time.perf_counter() - t0
         self.steps_done += 1
@@ -222,6 +268,25 @@ class ServingEngine:
             steps += 1
         return self.metrics()
 
+    def reconfigure(
+        self,
+        n_attn: Optional[int] = None,
+        n_moe: Optional[int] = None,
+        layout: Optional[ReplicaLayout] = None,
+        n_prefill: Optional[int] = None,
+    ) -> Dict[str, bool]:
+        """Actuate a scaling decision mid-run (§3.5): only the pools whose
+        counts changed are rebuilt; in-flight KV caches are preserved.
+        Disagg executor only."""
+        if self.disagg is None:
+            raise NotImplementedError(
+                "mid-run reconfigure requires executor='disagg' (the monolithic "
+                "engine re-lowers wholesale — rebuild the engine instead)"
+            )
+        relower = self.disagg.reconfigure(n_attn=n_attn, n_moe=n_moe, layout=layout, n_prefill=n_prefill)
+        self.layout = self.disagg.layout
+        return relower
+
     def metrics(self) -> Dict:
         done = self.completed
         out: Dict = {"completed": len(done), "tokens": sum(r.generated for r in done)}
@@ -230,6 +295,17 @@ class ServingEngine:
         out["prefill_chunks"] = self.prefill_worker.chunks_done
         if self.paged is not None:
             out["kv_pages"] = self.paged.stats()
+        elif self.disagg is not None and self.disagg.kv_page_size is not None:
+            out["kv_pages"] = self.disagg.page_stats()
+        # disaggregated-exchange telemetry: which two-phase regime served
+        # each step, the bytes it moved, and the busiest instance's load
+        if self.regime_log:
+            out["regime_counts"] = {r: self.regime_log.count(r) for r in sorted(set(self.regime_log))}
+            out["transfer_bytes_total"] = int(sum(self.transfer_bytes_log))
+            out["transfer_bytes_per_step"] = float(np.mean(self.transfer_bytes_log))
+        if self.amax_log:
+            out["amax_mean"] = float(np.mean(self.amax_log))
+            out["amax_max"] = int(np.max(self.amax_log))
         if not done:
             return out
         ttfts = np.array([r.prefill_done - r.arrival for r in done if r.prefill_done >= 0])

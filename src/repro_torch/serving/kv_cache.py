@@ -92,6 +92,14 @@ class SlotManager:
         return torch.from_numpy(self.positions.astype(np.int64)).to(device)
 
 
+def chunk_rows(cache_len: int, start: int, length: int) -> np.ndarray:
+    """Position-axis rows holding prompt positions ``[start, start + length)``
+    in a cache of ``cache_len`` entries (``kv_cache.py:254``): contiguous for
+    full-length caches; a rolling-window cache stores position ``p`` at row
+    ``p % cache_len``, so rows wrap."""
+    return (start + np.arange(length)) % cache_len
+
+
 def scatter_prefill_chunk_caches(
     batch_caches: Dict[str, torch.Tensor],
     one_caches: Dict[str, torch.Tensor],
@@ -202,6 +210,15 @@ class PagedKVCache:
         if len(positions) and blocks[-1] >= len(self._owned[slot]):
             raise RuntimeError(f"slot {slot} rows [{start}, {start + length}) not page-backed")
         return self.tables[slot, blocks], positions % self.page_size
+
+    def slot_blocks(self, slot: int) -> int:
+        """Pages ``slot`` owns, in block order from block 0."""
+        return len(self._owned[slot])
+
+    @property
+    def dirty(self) -> bool:
+        """The host tables changed since :meth:`table_device` last uploaded."""
+        return self._dirty
 
     def table_device(self, device) -> torch.Tensor:
         """Device copy of the block tables, re-uploaded only after a change."""

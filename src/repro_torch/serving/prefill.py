@@ -7,8 +7,9 @@ the chunk's rows to the engine's ``sink``, which lands them in the decode
 caches.  The last chunk's last-position logits give the first token.  Chunks
 are timed on a pool timeline (``busy_until``) that runs beside the engine's
 decode clock.  Prompts route over logical experts (no replica scheduling)
-with drop-free capacity: each call's own token count, the reference's
-default (``prefill.py:112-123``).
+with drop-free capacity by default: each call's own token count, the
+reference's default (``prefill.py:112-123``); ``capacity`` fixes it instead
+(the engine's ``prefill_capacity_tokens``).
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ class _InFlight:
 
 
 class PrefillWorker:
-    def __init__(self, cfg, params, device, *, cache_len: int, chunk: int = 64):
+    def __init__(self, cfg, params, device, *, cache_len: int, chunk: int = 64,
+                 capacity: Optional[int] = None):
         if not model_mod.supports_chunked_prefill(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: whole-prompt prefill fallback is not ported yet"
@@ -53,6 +55,7 @@ class PrefillWorker:
         self.device = torch.device(device)
         self.cache_len = cache_len
         self.chunk = max(1, int(chunk))
+        self.capacity = capacity
         self.chunks_done = 0
         self.busy_until = 0.0
         self._queue: List[_InFlight] = []
@@ -88,7 +91,8 @@ class PrefillWorker:
             entry.caches = model_mod.init_decode_caches(self.cfg, 1, self.cache_len, self.device)
         toks = torch.from_numpy(entry.prompt[lo:hi][None, :].astype(np.int64)).to(self.device)
         t0 = time.perf_counter()
-        extra = {"moe_ctx": {"capacity": hi - lo}} if self.cfg.has_moe else None
+        cap = hi - lo if self.capacity is None else self.capacity
+        extra = {"moe_ctx": {"capacity": cap}} if self.cfg.has_moe else None
         logits, entry.caches = model_mod.prefill_chunk(
             self.params, toks, entry.caches, lo, self.cfg, extra=extra
         )
