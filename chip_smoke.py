@@ -14,14 +14,15 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      K1 also at a 32k context at batch 4, K4 and K5 at batch 8 and 1 (each
      with the split-KV plan its wrapper chose), every attention case held
      within one bf16 rounding of its f32 oracle; K3 also at a 64-token
-     prefill chunk's shape, and checked at a 320-token one (two launches of
-     rows); K2 (one launch: bitmap, both greedy passes and the rewrite) at
+     prefill chunk's shape and at a batched prefill call's (2 x 64 tokens,
+     CAP 128), and checked at a whole-prompt call's (CAP 48) and a
+     320-token chunk's (two launches of rows); K2 (one launch: bitmap, both greedy passes and the rewrite) at
      the serving shape and the paper's Fig. 15 grid, integers exact, each
      also timed on the device alone from a CUDA graph; and each kernel at
      the disaggregated executor's shapes of phase 5: K4 and K5 over a 4-row
-     attention shard, K1 over a 2-row ping-pong shard with its own block
-     table, K3 over each MoE instance's 17 slots through its row of
-     ``slot_to_expert``;
+     attention shard (K4 also over a 2-row one, phase 5c after its resize),
+     K1 over a 2-row ping-pong shard with its own block table, K3 over each
+     MoE instance's 17 slots through its row of ``slot_to_expert``;
   4. reduced parity: dsv2-lite-reduced in float32 through the plain versions
      on the CPU and through the kernels on the card, same seeded weights and
      requests, for four KV layouts: paged (K1), contiguous (K4), int8
@@ -29,7 +30,10 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      the disaggregated executor (2 attention shards, 2 MoE instances x 3
      slots, capacity 64) for contiguous KV, paged KV with ping-pong and int8
      contiguous KV: streams CPU = card = the card's mono streams, and
-     ``amax_log`` CPU = card;
+     ``amax_log`` CPU = card; then disagg with a prefill pool, pipelined
+     admission and 2-prompt batched prefill under modeled clocks, with one
+     ``AutoScaler.actuate`` between two halves of the requests (contiguous
+     KV): streams, ``amax_log`` and the decision CPU = card;
   5. full-width serving: dsv2-lite (27 layers, d 2048, 64 experts top-6 + 2
      shared, vocab 102400) with random bf16 weights drawn once on the card
      from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
@@ -43,8 +47,15 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      many plus MoE layers x prefill chunks, the attention kernel = shards x
      layers x decode steps); whether each stream equals its mono stream is
      reported, not gated (split-KV plans differ by batch in bf16);
-     then a profiled short run of each mono layout and each disagg run
-     (device time per step, idle share);
+     then (5c) the disagg deployment with a prefill pool of one device,
+     pipelined admission and 2-prompt batched prefill serving the 12
+     requests in two halves, an ``AutoScaler`` over the H100 performance
+     model actuating a resize of the prefill, attention and MoE pools
+     between them (launch counts exact in each half, K2/K3 held at the new
+     layout's shapes, the streams held to an undisturbed blocking run, a
+     flip allowed only on a bf16 near-tie); then a profiled short run of
+     each mono layout and each disagg run (device time per step, idle
+     share);
   6. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
@@ -130,6 +141,10 @@ def main():
     )
     from repro_torch.kernels.expert_ffn.ops import expert_ffn_grouped, expert_ffn_grouped_ref
     from repro_torch.core.aebs import aebs_assign
+    from repro_torch.core.amax import MonteCarloAmax
+    from repro_torch.core.comm import H100
+    from repro_torch.core.scaling import PerfModel
+    from repro_torch.serving.controller import AutoScaler
     from repro_torch.models import model as model_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.attention import quantize_kv
@@ -349,6 +364,12 @@ def main():
     got, want = decode_attention(q_sh, kc, vc, lens_sh), decode_attention_ref(q_sh, kc, vc, lens_sh)
     check("decode_attention", f"disagg shard: 4 rows, S {S_serve}", float((got.float() - want.float()).abs().max()),
           TOL["bf16"], rounding_excess(got, want), n_split=n_split, rows_per_split=split_rows)
+    n_split2, split_rows2 = split_plan(2, nkv, S_serve, n_sms)
+    got, want = (decode_attention(q_sh[:2], kc[:2], vc[:2], lens_sh[:2]),
+                 decode_attention_ref(q_sh[:2], kc[:2], vc[:2], lens_sh[:2]))
+    check("decode_attention", f"disagg shard after the resize to 4 shards: 2 rows, S {S_serve}",
+          float((got.float() - want.float()).abs().max()), TOL["bf16"], rounding_excess(got, want),
+          n_split=n_split2, rows_per_split=split_rows2)
     (k8, ks), (v8, vs) = quantize_kv(kc), quantize_kv(vc)
     got = decode_attention_int8(q_sh, k8, v8, ks, vs, lens_sh)
     err = float((got.float() - decode_attention_int8_ref(q_sh, k8, v8, ks, vs, lens_sh).float()).abs().max())
@@ -490,6 +511,30 @@ def main():
            bound(3 * E * d * f * 2 + 2 * E * CAPP * d * 2 + 2 * E * 4, E * CAPP * 6 * d * f,
                  BF16_FLOPS),
            time_ms(k3_library_prefill, 20), f"prefill: CAP {CAPP}, {E} active")
+    # batched prefill (phase 5c): two prompts' 64-token chunks in one call,
+    # drop-free capacity 2 x 64 = 128 over all experts; timed, as the 64-token
+    # chunk is.  Then a whole-prompt call's shape: one 48-token prompt, CAP 48
+    CAPB = 128
+    xb = torch.randn((E, CAPB, d), generator=gen, device=dev).to(bf)
+    err = float((expert_ffn_grouped(xb, wg, wu, wd, s2e, allp).float()
+                 - expert_ffn_grouped_ref(xb, wg, wu, wd, s2e, allp).float()).abs().max())
+
+    def k3_library_batched():
+        h = F.silu(torch.bmm(xb, wg)) * torch.bmm(xb, wu)
+        torch.bmm(h, wd)
+
+    record("expert_ffn", "src/repro_torch/csrc/expert_ffn.cu",
+           "src/repro/kernels/expert_ffn/kernel.py:40", err, TOL["bf16"],
+           time_ms(lambda: expert_ffn_grouped(xb, wg, wu, wd, s2e, allp), 20),
+           time_ms(lambda: expert_ffn_grouped_ref(xb, wg, wu, wd, s2e, allp), 3),
+           bound(3 * E * d * f * 2 + 2 * E * CAPB * d * 2 + 2 * E * 4, E * CAPB * 6 * d * f,
+                 BF16_FLOPS),
+           time_ms(k3_library_batched, 20), f"batched prefill: 2 x 64 tokens, CAP {CAPB}, {E} active")
+    xw = torch.randn((E, 48, d), generator=gen, device=dev).to(bf)
+    err = float((expert_ffn_grouped(xw, wg, wu, wd, s2e, allp).float()
+                 - expert_ffn_grouped_ref(xw, wg, wu, wd, s2e, allp).float()).abs().max())
+    check("expert_ffn", f"whole-prompt prefill: 48 tokens, CAP 48, {E} active", err, TOL["bf16"])
+    del xb, xw
     # a 320-token chunk: more rows than a block holds (256), so the bf16
     # kernel runs over two blocks of rows
     CAPL, SL = 320, 8
@@ -592,25 +637,25 @@ def main():
             return fn(*args)
         return call
 
-    def check_disagg_launches(what, launches, attn_kernel, ex, steps, prefill_chunks):
+    def check_disagg_launches(what, launches, attn_kernel, ex, steps, prefill_calls):
         """Exactly: K2 once per instance, micro-batch, MoE layer and decode
         step (and once per call of the executor's scheduler), K3 as often
-        plus once per MoE layer of each prefill chunk (prefill runs the mono
-        model, experts as buckets, unscheduled), the attention kernel once
-        per shard, layer and step (prefill attends densely); no other
-        attention kernel."""
+        plus once per MoE layer of each prefill call (a chunk, or a batched
+        call of several prompts' chunks; prefill runs the mono model, experts
+        as buckets, unscheduled), the attention kernel once per shard, layer
+        and step (prefill attends densely); no other attention kernel."""
         kinds = ex.cfg.layer_kinds()
         n_moe_layers = sum(k == "moe" for k in kinds)
         per_decode = ex.n_moe * ex.n_micro * n_moe_layers * steps
         exact = {"aebs_schedule": per_decode,
-                 "expert_ffn": per_decode + prefill_chunks * n_moe_layers,
+                 "expert_ffn": per_decode + prefill_calls * n_moe_layers,
                  attn_kernel: len(ex.shards) * len(kinds) * steps}
         wrong = {n: launches[n] for n, want in exact.items() if launches[n] != want}
         stray = {n: launches[n] for n in attn_kernels if n != attn_kernel and launches[n]}
         if wrong or stray or scheduled["calls"] != exact["aebs_schedule"]:
             raise AssertionError(f"{what}: launches {wrong} not the exact {exact}, off the path "
                                  f"{stray}, or {scheduled['calls']} scheduler calls")
-        return {"launches_exact": exact, "prefill_chunks": prefill_chunks}
+        return {"launches_exact": exact, "prefill_calls": prefill_calls}
 
     # (KV layout, kv_quant, kv_page_size, attention kernel, ping_pong)
     disagg_layouts = (("contiguous", False, None, "decode_attention", False),
@@ -643,6 +688,100 @@ def main():
         if not (same and like_mono and amax["cpu"] == amax["cuda"]):
             raise AssertionError(f"reduced disagg parity ({name}): streams CPU = card = mono "
                                  f"{same, like_mono}, amax_log CPU = card {amax['cpu'] == amax['cuda']}")
+
+    def serve_counted(eng, reqs, what, attn_kernel, **run_kw):
+        """Serve ``reqs`` with the launch counts zeroed just before and read
+        just after, the prefill calls counted and timed; on the card, hold
+        the launches exactly to the executor's pools as they stand."""
+        steps0, chunks0 = eng.steps_done, eng.prefill_worker.chunks_done
+        calls = {"n": 0, "s": 0.0}
+        originals = model_mod.prefill_chunk, model_mod.prefill_chunk_batched
+
+        def counted(fn):
+            def call(*args, **kwargs):
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                if out[0].is_cuda:
+                    torch.cuda.synchronize()
+                calls["n"] += 1
+                calls["s"] += time.perf_counter() - t
+                return out
+            return call
+
+        model_mod.prefill_chunk, model_mod.prefill_chunk_batched = (counted(f) for f in originals)
+        cuda.reset_launch_counts()
+        scheduled["calls"] = 0
+        t0 = time.perf_counter()
+        try:
+            m = eng.run(reqs, **run_kw)
+        finally:
+            model_mod.prefill_chunk, model_mod.prefill_chunk_batched = originals
+        wall = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        info = {"decode_steps": eng.steps_done - steps0, "prefill_calls": calls["n"],
+                "prefill_s": calls["s"], "prefill_chunks": eng.prefill_worker.chunks_done - chunks0,
+                "wall_s": wall, "launches": launches}
+        if eng.device.type == "cuda":
+            info.update(check_disagg_launches(what, launches, attn_kernel, eng.disagg,
+                                              info["decode_steps"], calls["n"]))
+        return m, info
+
+    def pools_of(eng):
+        ex = eng.disagg
+        return {"n_p": len(ex.pools.prefill_devices), "n_a": len(ex.pools.attn_devices), "n_e": ex.n_moe}
+
+    # pipelined admission through a prefill pool with 2-prompt batched
+    # prefill, and one actuate of the AutoScaler between two halves of the
+    # workload (contiguous KV).  Modeled clocks make the schedule, and so
+    # amax_log, the same on both sides.  The decision is the scaler's at a
+    # decode demand of 1e5 tokens/s (the window that gives it) and a 1 ms
+    # SLO on the H100 spec: 1 attention device, 2 MoE instances, and a second
+    # prefill device, as the prompt demand is 1e5 x prompt/output tokens
+    # against 1000 prompt tokens/s a device (the modeled prefill rate)
+    step_time = lambda b: 0.01 + 0.002 * b  # noqa: E731
+    prefill_time = lambda n: 0.001 * n  # noqa: E731
+    rtrace = make_routing_trace(512, rcfg.num_experts, rcfg.top_k, 0.8, 1)
+    streams, amax, decisions = {}, {}, {}
+    for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        eng = ServingEngine(rcfg, params, max_batch=4, cache_len=64, prefill_chunk=16, layout=rlayout,
+                            scheduler="aebs", capacity_tokens=64, executor="disagg", n_attn=2,
+                            n_prefill=1, prefill_batch=2, step_time_fn=step_time,
+                            prefill_time_fn=prefill_time, device=where)
+        eng.disagg.scheduler = counted_scheduler(eng.disagg.scheduler)
+        reqs = sample_requests(spec, np.zeros(6), with_prompts=True)
+        _, half1 = serve_counted(eng, reqs[:3], "reduced pipelined disagg, first half", "decode_attention",
+                                 max_steps=500)
+        window = sum(r.generated for r in reqs[:3]) / 1e5
+        ctrl = AutoScaler(PerfModel(rcfg, hw=H100, slots_per_instance=3, s_ctx=64), slo=1e-3, n_max=4,
+                          window=window, prefill_tok_rate=1000.0, n_prefill_max=2)
+        for r in reqs[:3]:
+            ctrl.observe(r.arrival, r.generated, input_tokens=r.input_len)
+        before = pools_of(eng)
+        ctrl.actuate(eng, now=window, trace=rtrace)
+        decisions[where] = (before, pools_of(eng), eng.disagg.relower_log[-1])
+        m, half2 = serve_counted(eng, reqs[3:], "reduced pipelined disagg, after the actuate",
+                                 "decode_attention", max_steps=500)
+        streams[where] = {r.rid: r.tokens_out for r in eng.completed}
+        amax[where] = eng.amax_log
+    before, after, relower = decisions["cuda"]
+    same = streams["cpu"] == streams["cuda"] and len(streams["cpu"]) == 6
+    like_mono = streams["cuda"] == mono_streams["contiguous"]
+    log({"phase": "reduced_parity_pipelined", "layout": "contiguous", "dtype": "float32",
+         "admission": eng.admission, "prefill_batch": 2, "pools_before": before, "pools_after": after,
+         "relower": relower, "decision_cpu_equal": decisions["cpu"] == decisions["cuda"],
+         "streams_equal": same, "streams_equal_mono": like_mono,
+         "amax_log_equal": amax["cpu"] == amax["cuda"], "amax_log": amax["cuda"],
+         "decode_stall_time": m["decode_stall_time"],
+         "first_half": {k: v for k, v in half1.items() if k != "launches"},
+         "second_half": {k: v for k, v in half2.items() if k != "launches"}, "card": card})
+    if not (same and like_mono and amax["cpu"] == amax["cuda"] and decisions["cpu"] == decisions["cuda"]):
+        raise AssertionError(f"reduced pipelined disagg parity: streams CPU = card = mono {same, like_mono}, "
+                             f"amax_log CPU = card {amax['cpu'] == amax['cuda']}, decisions {decisions}")
+    if after["n_p"] == before["n_p"] or (after["n_a"], after["n_e"]) == (before["n_a"], before["n_e"]):
+        raise AssertionError(f"reduced actuate: {before} -> {after} moves the prefill pool and no decode "
+                             "pool, or not the prefill pool")
+    if m["decode_stall_time"] != 0.0:
+        raise AssertionError("reduced pipelined admission charged the decode clock")
     del p_gpu
 
     # ---- 5. full-width serving ------------------------------------------
@@ -674,6 +813,7 @@ def main():
 
     decode_step = model_mod.decode_step
     prefill_chunk = model_mod.prefill_chunk
+    prefill_chunk_batched = model_mod.prefill_chunk_batched
     n_layers = cfg.num_layers
     serve_layouts = [lay for lay in layouts if lay[3] is not None]  # the three with a kernel
     served = {}
@@ -795,6 +935,206 @@ def main():
         del engine
         torch.cuda.empty_cache()
 
+    # ---- 5c. the prefill pool and the AutoScaler at full width -----------
+    # phase 5's disagg deployment (2 attention shards, the layout's 4 MoE
+    # instances of 17 slots) with a prefill pool of one device (every pool on
+    # this card), pipelined admission and 2-prompt batched prefill, serving
+    # the 12 requests in two halves of 6.  Between them an AutoScaler over
+    # the H100 performance model observes the first half (arrivals on the
+    # run's clock) and actuates: the window is chosen for a decode demand of
+    # 30,000 tokens/s, where a 6 ms TPOT SLO needs 4 attention devices and 5
+    # MoE instances (a layout replanned from the routing trace), and the
+    # prompt demand exceeds one prefill device's measured rate (a second
+    # device).  Decode capacity 8 (the batch) drops nothing, so each stream
+    # is the request's own; they are held to an undisturbed run (blocking
+    # admission, no prefill pool, no resize, the same halves), a flip only on
+    # a bf16 near-tie (top-2 logit margin <= 2 TOL["bf16"] in either run).
+
+    D_TARGET, SLO, NEAR_TIE = 30000.0, 0.006, 2 * TOL["bf16"]
+    serve_trace = make_routing_trace(2048, E, K, skew=0.8, seed=0)  # `layout` was planned from it
+    as_kw = dict(kw, capacity_tokens=8, executor="disagg", n_attn=2)
+
+    def halves():
+        reqs = make_requests(2, 12, 16, 48, 16, 32)
+        return reqs[:6], reqs[6:]
+
+    def check_instances(lay, label):
+        """K2 on the layout's tables and K3 on each instance's slots at CAP 8
+        (the phase's decode capacity), against their plain versions."""
+        tables, n_e, C = lay.device_tables(dev), lay.num_instances, lay.capacity
+        got, want = aebs_schedule(eids, tables, n_e), aebs_assign(eids, tables, n_e)
+        check("aebs_schedule", f"{label}: {n_e} x {C} slots", max(float((g - w).abs().max())
+                                                                 for g, w in zip(got, want)), 0.0)
+        slots = got[0].reshape(-1).long()
+        for g in range(n_e):
+            s2e_g = torch.as_tensor(lay.slot_to_expert[g], dtype=torch.int32, device=dev)
+            counts_g = torch.bincount(slots[(slots >= g * C) & (slots < (g + 1) * C)] - g * C, minlength=C)
+            xg = torch.randn((C, 8, d), generator=gen, device=dev).to(bf)
+            xg = torch.where(torch.arange(8, device=dev)[None, :, None] < counts_g[:, None, None], xg, 0)
+            act_g = (counts_g > 0) & (s2e_g >= 0)
+            mp = params["layers"][0]["moe"]
+            err = float((expert_ffn_grouped(xg, mp["w_gate"], mp["w_up"], mp["w_down"], s2e_g, act_g).float()
+                         - expert_ffn_grouped_ref(xg, mp["w_gate"], mp["w_up"], mp["w_down"], s2e_g,
+                                                  act_g).float()).abs().max())
+            check("expert_ffn", f"{label}: instance {g}, {C} slots, CAP 8", err, TOL["bf16"],
+                  active_slots=int(act_g.sum()))
+
+    greedy = model_mod.greedy_token
+    last_logits = {}
+
+    def stash_greedy(logits):
+        last_logits["t"] = logits
+        return greedy(logits)
+
+    def top2(row):
+        v = row.float().topk(2).values
+        return float(v[0] - v[1])
+
+    def record_margins(engine):
+        """Top-2 logit margin of every token ``engine`` emits, by (rid, index):
+        index 0 from its prefill call's logits, then one per decode step."""
+        margins = {}
+        worker = engine.prefill_worker
+        adv, adv_b, dec = worker._advance, worker._advance_batched, engine._decode_iteration
+
+        def advance(entry, sink):
+            ev = adv(entry, sink)
+            if ev is not None:
+                margins[(ev.req.rid, 0)] = top2(last_logits["t"][0])
+            return ev
+
+        def advance_batched(di, sink):
+            rids = [e.req.rid for e in worker._current[di]]
+            evs = adv_b(di, sink)
+            for ev in evs:
+                margins[(ev.req.rid, 0)] = top2(last_logits["t"][rids.index(ev.req.rid)])
+            return evs
+
+        def decode_iteration():
+            at = {s: (engine.slots.slot_req[s].rid, len(engine.slots.slot_req[s].tokens_out))
+                  for s in engine.slots.active_slots}
+            dec()
+            for s, key in at.items():
+                margins[key] = top2(last_logits["t"][s])
+
+        worker._advance, worker._advance_batched = advance, advance_batched
+        engine._decode_iteration = decode_iteration
+        return margins
+
+    def sample_steps(engine):
+        """Check every decode step's logits and time it on the host (its
+        device time comes from phase 5b's profiled runs of both pool sizes)."""
+        fn = engine.disagg.decode_step
+        st = {"wall_ms": [], "nonfinite": 0}
+
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            st["wall_ms"].append((time.perf_counter() - t) * 1e3)
+            st["nonfinite"] += int((~torch.isfinite(out[0])).sum())
+            return out
+
+        engine.disagg.decode_step = call
+        return st
+
+    def half_metrics(reqs):
+        """TTFT, TPOT and tokens/s of one half's requests, from their own
+        arrivals (the second half arrives when the first has drained)."""
+        ttft = [r.prefill_done - r.arrival for r in reqs]
+        gaps = np.concatenate([r.decode_gaps() for r in reqs])
+        span = max(r.finished for r in reqs) - min(r.arrival for r in reqs)
+        return {"ttft_ms_mean": float(np.mean(ttft)) * 1e3, "ttft_ms_max": float(np.max(ttft)) * 1e3,
+                "tpot_ms_mean": float(gaps.mean()) * 1e3,
+                "tokens_per_s": sum(r.generated for r in reqs) / span}
+
+    model_mod.greedy_token = stash_greedy
+    check_instances(layout, "phase 5c before the resize")
+    undisturbed = ServingEngine(cfg, params, **as_kw)
+    ref_margins = record_margins(undisturbed)
+    blocking = {}
+    for when, half in zip(("before", "after"), halves()):
+        for r in half:
+            r.arrival = undisturbed.clock
+        undisturbed.run(half)
+        blocking[when] = half_metrics(half)
+    ref_streams = {r.rid: r.tokens_out for r in undisturbed.completed}
+    del undisturbed
+    torch.cuda.empty_cache()
+
+    engine = ServingEngine(cfg, params, n_prefill=1, admission="pipelined", prefill_batch=2, **as_kw)
+    engine.disagg.scheduler = counted_scheduler(engine.disagg.scheduler)
+    margins = record_margins(engine)
+    steps_st = sample_steps(engine)
+    first, second = halves()
+    torch.cuda.reset_peak_memory_stats()
+    _, c1 = serve_counted(engine, first, "phase 5c, first half (before the resize)", "decode_attention")
+    wall_ms = {"before": float(np.mean(steps_st["wall_ms"]))}
+    steps_st["wall_ms"].clear()
+    rate = sum(r.input_len for r in first) / c1["prefill_s"]  # prompt tokens/s of the pool's device
+    window = sum(r.generated for r in first) / D_TARGET
+    pm = PerfModel(cfg, hw=H100, slots_per_instance=17, s_ctx=512,
+                   layout_fn=lambda n: build_layout(serve_trace, E, n, 17),
+                   amax_estimator=MonteCarloAmax(serve_trace, E, trials=4))
+    ctrl = AutoScaler(pm, slo=SLO, n_max=6, window=window, prefill_tok_rate=rate, n_prefill_max=2)
+    for r in first:
+        ctrl.observe(r.arrival, r.generated, input_tokens=r.input_len)
+    before = pools_of(engine)
+    t0 = time.perf_counter()
+    best = ctrl.actuate(engine, now=window, trace=serve_trace)
+    actuate_s = time.perf_counter() - t0
+    after = pools_of(engine)
+    resized_layout = engine.layout
+    check_instances(resized_layout, "phase 5c after the resize")
+    for r in second:
+        r.arrival = engine.clock
+    m2, c2 = serve_counted(engine, second, "phase 5c, second half (after the resize)", "decode_attention")
+    wall_ms["after"] = float(np.mean(steps_st["wall_ms"]))
+    model_mod.greedy_token = greedy
+    streams = {r.rid: r.tokens_out for r in engine.completed}
+    flips = {}
+    for rid, want in ref_streams.items():
+        got = streams.get(rid, [])
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None if len(got) == len(want) else min(len(got), len(want)))
+        if j is not None:
+            flips[rid] = {"token": j, "margin": margins.get((rid, j)), "margin_undisturbed": ref_margins.get((rid, j))}
+    predicted = {when: pm.tpot(8.0, p["n_a"], p["n_e"]).tpot * 1e3 for when, p in (("before", before),
+                                                                                     ("after", after))}
+    log({"phase": "serve_autoscaled", "executor": "disagg", "card": card, "model": cfg.name,
+         "admission": engine.admission, "prefill_batch": 2, "requests": len(first) + len(second),
+         "completed": m2["completed"], "tokens": m2["tokens"], "truncated": m2["truncated"],
+         "decision": {"n_a": best.n_a, "n_e": best.n_e, "n_p": ctrl.events[-1].n_p, "tpot_ms": best.tpot * 1e3,
+                      "batch": best.batch, "a_max": best.a_max, "feasible": best.feasible,
+                      "demand_tok_s": ctrl.events[-1].demand, "slo_ms": SLO * 1e3},
+         "prefill_tok_rate": rate, "window_s": window, "actuate_s": actuate_s,
+         "pools_before": before, "pools_after": after, "relower": engine.disagg.relower_log[-1],
+         "predicted_tpot_ms_at_batch_8": predicted, "host_wall_ms_per_step": wall_ms,
+         "halves": {"before": half_metrics(first), "after": half_metrics(second)},
+         "halves_undisturbed_blocking": blocking, "decode_stall_time": m2["decode_stall_time"], "prefill_chunks": m2["prefill_chunks"],
+         "amax_mean": m2["amax_mean"], "amax_max": m2["amax_max"],
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "first_half": {k: v for k, v in c1.items() if k != "launches"},
+         "second_half": {k: v for k, v in c2.items() if k != "launches"},
+         "streams_equal_undisturbed": not flips, "flips": flips,
+         "tokens_equal_undisturbed": sum(a == b for rid, st in streams.items()
+                                         for a, b in zip(st, ref_streams[rid]))})
+    if m2["completed"] != 12 or m2["truncated"] or any(r.generated != r.output_len for r in engine.completed):
+        raise AssertionError(f"phase 5c: {m2['completed']} of 12 requests completed in full")
+    if steps_st["nonfinite"]:
+        raise AssertionError(f"phase 5c: {steps_st['nonfinite']} non-finite logits")
+    if m2["decode_stall_time"] != 0.0:
+        raise AssertionError("phase 5c: pipelined admission charged the decode clock")
+    if after["n_p"] == before["n_p"] or (after["n_a"], after["n_e"]) == (before["n_a"], before["n_e"]):
+        raise AssertionError(f"phase 5c: the decision {before} -> {after} does not move the prefill pool "
+                             "and a decode pool")
+    wide = {rid: f for rid, f in flips.items()
+            if min(x for x in (f["margin"], f["margin_undisturbed"], float("inf")) if x is not None) > NEAR_TIE}
+    if wide:
+        raise AssertionError(f"phase 5c: streams part from the undisturbed run off a near-tie: {wide}")
+    del engine
+    torch.cuda.empty_cache()
+
     # ---- 5b. where the time goes: device time of each decode step and
     # prefill chunk of a short run (8 requests, 16 in, 16 out) per layout,
     # profiled one call at a time with CUDA activity only (kernels, no double
@@ -806,6 +1146,12 @@ def main():
                     for name, kv_quant, page, _ in serve_layouts]
     profile_runs += [(name, cfg, dict(kv_page_size=page, executor="disagg", n_attn=2, ping_pong=pp),
                       mono_name) for name, page, _, pp, mono_name in disagg_runs]
+    # phase 5c's deployment at both pool sizes (the resize's layout after it)
+    profile_runs += [("autoscaled_before", cfg, dict(as_kw, n_prefill=1, prefill_batch=2), None),
+                     ("autoscaled_after", cfg, dict(as_kw, n_attn=after["n_a"], n_prefill=after["n_p"],
+                                                    prefill_batch=2, layout=resized_layout), None)]
+    served["autoscaled_before"] = {"step_ms": wall_ms["before"], "ttft_ms": half_metrics(first)["ttft_ms_mean"]}
+    served["autoscaled_after"] = {"step_ms": wall_ms["after"], "ttft_ms": half_metrics(second)["ttft_ms_mean"]}
     profiled_ms = {}
     # device ops by kind, first match wins: the port's kernels, cuBLAS,
     # sorting, copies and fills; the rest is PyTorch's elementwise ops and
@@ -839,14 +1185,16 @@ def main():
                 return out
             return call
 
-        engine = ServingEngine(run_cfg, params, **engine_kw, **kw)
+        engine = ServingEngine(run_cfg, params, **{**kw, **engine_kw})
         if engine.disagg is not None:
             DisaggExecutor.decode_step = profiled(disagg_step, "decode")
         else:
             model_mod.decode_step = profiled(decode_step, "decode")
         model_mod.prefill_chunk = profiled(prefill_chunk, "prefill")
+        model_mod.prefill_chunk_batched = profiled(prefill_chunk_batched, "prefill")
         engine.run(make_requests(3, 8, 16, 16, 16, 16, rid0=100))
         model_mod.decode_step, model_mod.prefill_chunk = decode_step, prefill_chunk
+        model_mod.prefill_chunk_batched = prefill_chunk_batched
         DisaggExecutor.decode_step = disagg_step
         del engine
         busy = float(np.mean(device_ms["decode"]))
@@ -874,6 +1222,13 @@ def main():
                 acc[1] += kernel_n[kind][key] / n
             log({"phase": "profile_top", "layout": name, "kind": kind, "card": card,
                  "ms_per_call": [[k[:96], v / n] for k, v in top], "by_group_ms_ops": groups})
+
+    # phase 5c's pools before and after the resize: the performance model's
+    # TPOT at batch 8 (H100 spec) beside the card's device time per step
+    log({"phase": "autoscaled_model_vs_card", "card": card, "pools": {"before": before, "after": after},
+         "predicted_tpot_ms_at_batch_8": predicted,
+         "device_ms_per_decode_step": {w: profiled_ms[f"autoscaled_{w}"] for w in ("before", "after")},
+         "host_wall_ms_per_step": wall_ms})
 
     # ---- 6. results ------------------------------------------------------
     log({"kernels": [rows[n] for n in cuda.LAUNCHES]})

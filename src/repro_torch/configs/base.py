@@ -105,6 +105,33 @@ class ModelConfig:
                 kinds.append("dense")
         return tuple(kinds)
 
+    def param_counts(self) -> Dict[str, int]:
+        """Approximate parameter counts per subsystem (``base.py:199``), for
+        the dense and MoE stacks the port runs: the scaling model's memory
+        terms read them."""
+        check_supported(self)
+        d = self.d_model
+        hd = self.resolved_head_dim
+        counts = dict(embed=self.vocab_size * d, attn=0, ffn=0, expert=0, ssm=0, norm=self.num_layers * 4 * d)
+        attn_p = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd + self.num_heads * hd * d
+        glu_mult = 3 if self.ffn_activation in ("swiglu", "geglu") else 2
+        kinds = self.layer_kinds()
+        n_moe = sum(1 for k in kinds if k == "moe")
+        counts["attn"] = len(kinds) * attn_p
+        counts["ffn"] = (len(kinds) - n_moe) * (glu_mult * d * self.d_ff if self.d_ff else 0)
+        if n_moe:
+            expert_p = glu_mult * d * self.d_ff_expert
+            counts["expert"] = n_moe * self.num_experts * expert_p
+            counts["ffn"] += n_moe * (self.num_shared_experts * expert_p + d * self.num_experts)
+        return counts
+
+    def bytes_per_param(self) -> int:
+        return 2 if self.dtype == "bfloat16" else 4
+
+    def kv_bytes_per_token(self) -> int:
+        """KV-cache bytes per token across all attention layers."""
+        return len(self.layer_kinds()) * 2 * self.num_kv_heads * self.resolved_head_dim * self.bytes_per_param()
+
     def reduced(self) -> "ModelConfig":
         """A tiny same-family variant for CPU tests (``base.py:156``)."""
         d_model = min(self.d_model, 256)

@@ -163,51 +163,110 @@ def attention_decode(
     return y, cache_k, cache_v
 
 
+def attention_full(
+    params: Params,
+    x: torch.Tensor,  # [b, s, d]
+    cfg,
+    positions: Optional[torch.Tensor] = None,  # [s]
+    return_kv: bool = False,
+):
+    """Causal self-attention over a whole sequence (``attention.py:121``, the
+    whole-prompt prefill), full context.  Returns ``out [b, s, d]``, and the
+    post-rope ``(k, v)`` ``[b, s, nkv, hd]`` (cache-ready) with
+    ``return_kv``.  The reference attends in 256-row query blocks past 2048
+    tokens; that is a memory bound, not another function."""
+    b, s, _ = x.shape
+    nkv = cfg.num_kv_heads
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if cfg.use_rope:
+        q = apply_rope(q, positions.expand(b, s), cfg.rope_theta)
+        k = apply_rope(k, positions.expand(b, s), cfg.rope_theta)
+    idx = torch.arange(s, device=x.device)
+    mask = idx[None, :] <= idx[:, None]  # [s, s] causal
+    qg = q.reshape(b, s, nkv, q.shape[2] // nkv, q.shape[3])
+    out = _attend(qg, k, v, mask[None, None, None], cfg.attn_logit_softcap)
+    y = _out_proj(out, params["wo"])
+    return (y, (k, v)) if return_kv else y
+
+
 def attention_prefill_chunk(
     params: Params,
-    x: torch.Tensor,  # [b, c, d], one prompt chunk
+    x: torch.Tensor,  # [b, c, d], one prompt chunk (zero-padded rows with ``lengths``)
     cache_k: torch.Tensor,  # [b, S, nkv, hd]
     cache_v: torch.Tensor,
-    start: int,  # absolute position of the chunk's first token
+    start,  # int: the chunk's first absolute position; or [b] tensor, one per row
     cfg,
     k_scale: Optional[torch.Tensor] = None,  # [b, S, nkv] (int8 caches only)
     v_scale: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,  # [b] valid tokens per row (vector start)
 ):
-    """Chunked prefill, scalar-start full-context branch
-    (``attention.py:302-315``): the chunk's K/V land in place at rows
-    ``[start, start + c)`` -- clamped to ``S - c`` as
+    """Chunked prefill, full-context branches (``attention.py:174``).
+
+    Scalar ``start`` (``attention.py:302-315``): the chunk's K/V land in
+    place at rows ``[start, start + c)`` -- clamped to ``S - c`` as
     ``dynamic_update_slice`` does -- and the chunk's queries attend causally
-    over the cache.  An int8 cache takes the chunk quantised once, with its
-    scales, and is attended dequantised, so the chunk's own keys go through
-    the same round trip later reads see.  Returns ``(out [b, c, d], cache_k,
-    cache_v)``, plus ``(k_scale, v_scale)`` when the cache is int8."""
+    over the cache.
+
+    Vector ``start`` (``[b]``, with ``lengths``; batched multi-prompt
+    prefill, ``attention.py:282-301``): row ``i`` writes its
+    ``lengths[i]`` tokens at ``[start[i], start[i] + lengths[i])``; padding
+    columns (and rows past the cache) are dropped, and padded query rows are
+    fully masked, so each valid row computes what the scalar path would.
+
+    An int8 cache takes the chunk quantised once, with its scales, and is
+    attended dequantised, so the chunk's own keys go through the same round
+    trip later reads see.  Returns ``(out [b, c, d], cache_k, cache_v)``,
+    plus ``(k_scale, v_scale)`` when the cache is int8."""
     b, c, _ = x.shape
     S = cache_k.shape[1]
     nkv = cfg.num_kv_heads
     quant = cache_k.dtype == torch.int8
-    pos = start + torch.arange(c, device=x.device)
+    vec = torch.is_tensor(start) and start.dim() == 1
+    if vec and lengths is None:
+        raise ValueError("vector-start chunks require per-row lengths")
+    cols = torch.arange(c, device=x.device)
+    # [c] absolute positions (scalar start) or [b, c] (vector start)
+    pos = start.long()[:, None] + cols[None, :] if vec else start + cols
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
     if cfg.use_rope:
         q = apply_rope(q, pos.expand(b, c), cfg.rope_theta)
         k = apply_rope(k, pos.expand(b, c), cfg.rope_theta)
-    s0 = min(max(int(start), 0), S - c)
     if quant:
         k, ks_q = quantize_kv(k)
         v, vs_q = quantize_kv(v)
-        k_scale[:, s0 : s0 + c] = ks_q
-        v_scale[:, s0 : s0 + c] = vs_q
-    cache_k[:, s0 : s0 + c] = k.to(cache_k.dtype)
-    cache_v[:, s0 : s0 + c] = v.to(cache_v.dtype)
+    if vec:
+        valid = cols[None, :] < lengths.long()[:, None]  # [b, c]
+        write = valid & (pos < S)
+        rows = (torch.arange(b, device=x.device)[:, None].expand(b, c)[write], pos[write])
+        cache_k[rows] = k[write].to(cache_k.dtype)
+        cache_v[rows] = v[write].to(cache_v.dtype)
+        if quant:
+            k_scale[rows] = ks_q[write]
+            v_scale[rows] = vs_q[write]
+        # [b, c, S]: causal per row, padded query rows fully masked
+        mask = ((torch.arange(S, device=x.device)[None, None, :] <= pos[:, :, None])
+                & valid[:, :, None])[:, None, None]
+    else:
+        s0 = min(max(int(start), 0), S - c)
+        if quant:
+            k_scale[:, s0 : s0 + c] = ks_q
+            v_scale[:, s0 : s0 + c] = vs_q
+        cache_k[:, s0 : s0 + c] = k.to(cache_k.dtype)
+        cache_v[:, s0 : s0 + c] = v.to(cache_v.dtype)
+        mask = (torch.arange(S, device=x.device)[None, :] <= pos[:, None])[None, None, None]  # [c, S]
     if quant:
         k_att = dequantize_kv(cache_k, k_scale, x.dtype)
         v_att = dequantize_kv(cache_v, v_scale, x.dtype)
     else:
         k_att, v_att = cache_k, cache_v
-    mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]  # [c, S]
     qg = q.reshape(b, c, nkv, q.shape[2] // nkv, q.shape[3])
-    out = _attend(qg, k_att, v_att, mask[None, None, None], cfg.attn_logit_softcap)
+    out = _attend(qg, k_att, v_att, mask, cfg.attn_logit_softcap)
     y = _out_proj(out, params["wo"])
     if quant:
         return y, cache_k, cache_v, k_scale, v_scale

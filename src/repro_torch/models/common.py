@@ -20,6 +20,19 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def tree_to(tree, dev: torch.device):
+    """``tree`` (dicts and lists of tensors, ``None`` leaves) on ``dev``; a
+    tensor already there is returned as is, so a pool that aliases a device
+    shares its tensors instead of copying them."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    if tree is None:
+        return None
+    return tree.to(dev)
+
+
 def init_rmsnorm(d: int, device) -> Params:
     return {"scale": torch.zeros(d, dtype=torch.float32, device=device)}
 

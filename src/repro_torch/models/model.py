@@ -29,8 +29,20 @@ def prefill_chunk(params, tokens, caches, start, cfg, extra=None):
     return transformer.prefill_chunk(params, tokens, caches, start, cfg, extra=extra)
 
 
+def prefill(params, tokens, cfg, cache_len, extra=None):
+    return transformer.prefill(params, tokens, cfg, cache_len, extra=extra)
+
+
+def prefill_chunk_batched(params, tokens, caches, starts, lengths, cfg, extra=None):
+    return transformer.prefill_chunk_batched(params, tokens, caches, starts, lengths, cfg, extra=extra)
+
+
 def supports_chunked_prefill(cfg) -> bool:
     return transformer.supports_chunked_prefill(cfg)
+
+
+def supports_batched_prefill(cfg) -> bool:
+    return transformer.supports_batched_prefill(cfg)
 
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:

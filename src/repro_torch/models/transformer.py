@@ -73,12 +73,26 @@ def attention_stage(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg):
     return x, rmsnorm(lp["ln2"], x, cfg.norm_eps)
 
 
-def attention_stage_chunk(lp, x, kv: Dict[str, torch.Tensor], start: int, cfg):
-    """Chunked-prefill analogue of :func:`attention_stage`."""
+def attention_stage_full(lp, x, cfg, positions=None, return_kv: bool = False):
+    """Whole-sequence analogue of :func:`attention_stage` (``transformer.py:210``).
+    Returns ``(x_resid, h_ffn, (k, v) or None)``."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    kv = None
+    if return_kv:
+        h, kv = attn_mod.attention_full(lp["attn"], h, cfg, positions=positions, return_kv=True)
+    else:
+        h = attn_mod.attention_full(lp["attn"], h, cfg, positions=positions)
+    x = x + h
+    return x, rmsnorm(lp["ln2"], x, cfg.norm_eps), kv
+
+
+def attention_stage_chunk(lp, x, kv: Dict[str, torch.Tensor], start, cfg, lengths=None):
+    """Chunked-prefill analogue of :func:`attention_stage`; a vector
+    ``start`` with ``lengths`` is the batched multi-prompt chunk."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     h = attn_mod.attention_prefill_chunk(
         lp["attn"], h, kv["k"], kv["v"], start, cfg,
-        k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"),
+        k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"), lengths=lengths,
     )[0]
     x = x + h
     return x, rmsnorm(lp["ln2"], x, cfg.norm_eps)
@@ -98,6 +112,52 @@ def moe_stage(lp, x, h, cfg, moe_ctx: Optional[Dict[str, Any]] = None):
     if "moe" in lp:
         return x + moe_mod.moe_layer(lp["moe"], h, cfg, **(moe_ctx or {}))
     return x + ffn(lp["ffn"], h, cfg.ffn_activation)
+
+
+def _layer_full(kind, lp, x, cfg, positions, moe_ctx, collect: bool):
+    """One layer over a whole sequence (``transformer.py:322``, dense and
+    MoE kinds).  Returns ``(x, (k, v) or None)``."""
+    x, h2, kv = attention_stage_full(lp, x, cfg, positions, return_kv=collect)
+    return moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None), kv
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg, extra: Optional[Dict[str, Any]] = None,
+            collect_caches: bool = False):
+    """Whole-sequence pass (``transformer.py:359``) over the dense/MoE
+    stacks the port runs.  Returns ``(hidden [b, s, d], kv)``, ``kv`` a list
+    of each layer's post-rope ``(k, v)`` with ``collect_caches`` (else
+    empty).  The reference's load-balance loss (training) is not ported."""
+    check_supported(cfg)
+    moe_ctx = (extra or {}).get("moe_ctx")
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    kvs = []
+    for kind, lp in zip(cfg.layer_kinds(), params["layers"]):
+        x, kv = _layer_full(kind, lp, x, cfg, positions, moe_ctx, collect_caches)
+        if kv is not None:
+            kvs.append(kv)
+    return x, kvs
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg, cache_len: int,
+            extra: Optional[Dict[str, Any]] = None):
+    """Whole-prompt prefill (``transformer.py:606``): one :func:`forward`,
+    then decode-format caches ``[L, b, cache_len, nkv, hd]`` (int8 with
+    scales under ``kv_quant``, quantised once from the raw keys).  Returns
+    ``(last-token logits [b, V] f32, caches)``."""
+    b, s = tokens.shape
+    x, kvs = forward(params, tokens, cfg, extra=extra, collect_caches=True)
+    logits = lm_head(params, x[:, -1, :], cfg)
+    out: Dict[str, torch.Tensor] = {}
+    for name, i in (("k", 0), ("v", 1)):
+        full = torch.stack([kv[i] for kv in kvs])  # [L, b, s, nkv, hd]
+        pad = torch.zeros((full.shape[0], b, cache_len, *full.shape[3:]), dtype=full.dtype, device=full.device)
+        pad[:, :, : min(s, cache_len)] = full[:, :, :cache_len]
+        if cfg.kv_quant:
+            out[f"kv_{name}"], out[f"kv_{name}_scale"] = attn_mod.quantize_kv(pad)
+        else:
+            out[f"kv_{name}"] = pad
+    return logits, out
 
 
 def decode_step(
@@ -151,3 +211,36 @@ def prefill_chunk(
         x, h2 = attention_stage_chunk(lp, x, kv, start, cfg)
         x = moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None)
     return lm_head(params, x[:, -1, :], cfg), caches
+
+
+def supports_batched_prefill(cfg) -> bool:
+    """Batched multi-prompt chunks need full-context layers only
+    (``transformer.py:780``); every stack the port runs qualifies."""
+    return supports_chunked_prefill(cfg)
+
+
+def prefill_chunk_batched(
+    params: Params,
+    tokens: torch.Tensor,  # [b, c_max], one chunk per prompt, zero-padded
+    caches: Dict[str, torch.Tensor],  # contiguous decode-format caches, batch axis b
+    starts: torch.Tensor,  # [b] absolute position of each row's chunk
+    lengths: torch.Tensor,  # [b] valid tokens per row (<= c_max)
+    cfg,
+    extra: Optional[Dict[str, Any]] = None,
+):
+    """Multi-prompt :func:`prefill_chunk` (``transformer.py:793``): row ``i``
+    prefills ``lengths[i]`` tokens from position ``starts[i]``; padding adds
+    query rows, never keys (its cache writes are dropped).  Returns
+    ``(each row's last-valid-token logits [b, V], caches)``, caches updated
+    in place."""
+    if not supports_batched_prefill(cfg):
+        raise NotImplementedError(f"{cfg.name}: batched prefill is not ported for this architecture")
+    moe_ctx = (extra or {}).get("moe_ctx")
+    x = embed_tokens(params, tokens, cfg)
+    for l, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
+        kv = _layer_kv(caches, l, cfg)
+        x, h2 = attention_stage_chunk(lp, x, kv, starts, cfg, lengths=lengths)
+        x = moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None)
+    last = torch.clamp_min(lengths.long() - 1, 0)
+    x_last = x[torch.arange(x.shape[0], device=x.device), last]  # each row's own tail
+    return lm_head(params, x_last, cfg), caches

@@ -34,7 +34,9 @@ micro-batch on its own; it matches whenever expert capacity is ample.
 
 ``reconfigure`` actuates a §3.5 scaling decision mid-run: only the pool
 whose count changed is rebuilt, and KV caches are re-sharded so in-flight
-requests continue undisturbed.
+requests continue undisturbed.  The prefill pool (``pools.prefill_devices``)
+is the engine's :class:`repro_torch.serving.prefill.PrefillWorker`'s; the
+executor keeps its place in the device split and reports when it moves.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from repro_torch.core.disagg import reconfigure as disagg_reconfigure
 from repro_torch.kernels.aebs.ops import aebs_schedule
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer
+from repro_torch.models.common import tree_to
 from repro_torch.models.ffn import ffn
 from repro_torch.serving.kv_cache import PagedKVCache, chunk_rows
 
@@ -82,16 +85,6 @@ def _shard_bounds(max_batch: int, n: int) -> List[Tuple[int, int]]:
         bounds.append((lo, lo + s))
         lo += s
     return bounds
-
-
-def _to(tree, dev: torch.device):
-    """``tree`` on ``dev``; a tensor already there is returned as is (an
-    aliased pool shares its parameters, it does not copy them)."""
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    if tree is None:
-        return None
-    return tree.to(dev)
 
 
 def _index(parts: List[np.ndarray]) -> torch.Tensor:
@@ -140,8 +133,6 @@ class DisaggExecutor:
             )
         if len(pools.attn_devices) < 1:
             raise ValueError("attention pool must have ≥ 1 device")
-        if pools.prefill_devices:
-            raise _later(f"a prefill pool of {len(pools.prefill_devices)}", "pipelined admission")
         self.cfg = cfg
         self.params = params
         self.pools = pools
@@ -208,9 +199,9 @@ class DisaggExecutor:
         self._attn_params = [
             {
                 "embed": self.params["embed"].to(dev),
-                "final_norm": _to(self.params["final_norm"], dev),
-                "layers": [_to(lp, dev) for lp in attn_layers],
-                "shared": [_to(sp, dev) for sp in shared_layers],
+                "final_norm": tree_to(self.params["final_norm"], dev),
+                "layers": tree_to(attn_layers, dev),
+                "shared": tree_to(shared_layers, dev),
             }
             for dev in pools.attn_devices
         ]
@@ -534,8 +525,6 @@ class DisaggExecutor:
             )
         if n_prefill < 0:
             raise ValueError(f"prefill pool size must be ≥ 0, got n_prefill={n_prefill}")
-        if n_prefill > 0:
-            raise _later(f"n_prefill={n_prefill}", "pipelined admission")
         avail = len(self._all_devices)
         if not self._aliased and n_attn + n_moe + n_prefill > avail:
             raise ValueError(
@@ -546,7 +535,9 @@ class DisaggExecutor:
         relower = {
             "attn": n_attn != cur_a,
             "moe": n_moe != cur_e or layout is not None,
-            "prefill": n_prefill != cur_p,
+            # a MoE resize re-anchors the prefill pool, which sits just
+            # ahead of the MoE pool in the device list
+            "prefill": n_prefill != cur_p or (n_prefill > 0 and n_moe != cur_e),
         }
         if not (relower["attn"] or relower["moe"] or relower["prefill"]):
             self.relower_log.append(relower)

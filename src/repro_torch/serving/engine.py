@@ -1,11 +1,14 @@
 """Continuous-batching decode engine with the Janus scheduled-MoE path
 (``repro.serving.engine.ServingEngine``): the monolithic executor or the
-disaggregated one (``executor="disagg"``), with blocking admission and FIFO
-order.
+disaggregated one (``executor="disagg"``), in FIFO order.
 
-* admission: an arrived request takes the lowest free slot and its whole
-  prompt is prefilled through the chunked :class:`PrefillWorker` before the
-  next decode iteration (the decode clock is charged);
+* admission: an arrived request takes the lowest free slot and its prompt
+  goes through the chunked :class:`PrefillWorker`.  ``"blocking"`` drains it
+  before the next decode iteration (the decode clock is charged);
+  ``"pipelined"`` (the default with ``n_prefill``) queues it for the prefill
+  pool, whose timeline runs beside the decode clock, and activates the slot
+  once the clock passes its completion stamp (``max_prefill_queue`` bounds
+  the pending prompts; ``prefill_batch`` packs prompts into one chunk call);
 * decode: one batched ``decode_step`` per iteration with per-slot positions;
   MoE layers route -> AEBS (``scheduler="aebs"``; on the card that is the K2
   kernel) -> grouped dispatch over the activated experts (K3 on the card);
@@ -17,8 +20,14 @@ order.
   caches in attention shards and runs every MoE layer per instance (K2 per
   instance, K3 over its local slots); on one card every pool aliases the
   engine's device.  Each step logs its exchange regime, transfer bytes and
-  ``a_max``, and :meth:`ServingEngine.reconfigure` resizes a pool mid-run;
-* timing: wall clock around work that ends in a device sync.
+  ``a_max``, and :meth:`ServingEngine.reconfigure` resizes a pool mid-run
+  (the prefill pool too; :class:`repro_torch.serving.controller.AutoScaler`
+  decides the sizes);
+* timing: wall clock around work that ends in a device sync, or modeled
+  clocks: ``step_time_fn(active slots)`` per decode step and
+  ``prefill_time_fn(prompt tokens)`` per prefill call (prefill is free under
+  a modeled decode clock without a prefill model), which make the schedule
+  the same on every device.
 
 Options of the reference that later slices port raise ``NotImplementedError``.
 """
@@ -26,7 +35,7 @@ Options of the reference that later slices port raise ``NotImplementedError``.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -55,21 +64,15 @@ SCHEDULERS = {"aebs": aebs_schedule, "aebs_kernel": aebs_schedule, "none": None}
 # reference options this slice does not run: name -> (values it accepts,
 # which later slice ports the rest)
 _LATER = {
-    "admission": ((None, "blocking"), "pipelined admission"),
     "sched": (("fifo",), "priority preemption"),
     "dispatch": (("grouped",), "the einsum/scatter oracles"),
     "kv_num_pages": ((None,), "preemption (an undersized page pool)"),
-    "step_time_fn": ((None,), "modeled clocks (the simulator slice)"),
-    "prefill_time_fn": ((None,), "modeled clocks (the simulator slice)"),
     "extra_builder": ((None,), "the other families"),
-    "n_prefill": ((0,), "pipelined admission"),
     "fault_plan": ((None,), "fault recovery"),
     "retry_policy": ((None,), "fault recovery"),
     "watchdog": ((None,), "fault recovery"),
-    "max_prefill_queue": ((None,), "pipelined admission"),
     "prefix_cache": ((False,), "the prefix cache"),
     "prefix_cache_pages": ((None,), "the prefix cache"),
-    "prefill_batch": ((1,), "batched prefill"),
     "draft_config": ((None,), "speculative decode"),
     "draft_params": ((None,), "speculative decode"),
     "spec_k": ((0,), "speculative decode"),
@@ -92,6 +95,12 @@ class ServingEngine:
         prefill_capacity_tokens: Optional[int] = None,
         executor: str = "mono",
         n_attn: int = 1,
+        n_prefill: int = 0,
+        admission: Optional[str] = None,  # blocking | pipelined (default: pipelined iff n_prefill)
+        max_prefill_queue: Optional[int] = None,  # admission backpressure bound
+        prefill_batch: int = 1,  # prompts fused per prefill-device chunk call
+        step_time_fn: Optional[Callable[[int], float]] = None,
+        prefill_time_fn: Optional[Callable[[int], float]] = None,
         pools: Optional[DevicePools] = None,
         node_size: int = 1,
         ping_pong: bool = False,
@@ -109,6 +118,19 @@ class ServingEngine:
                 f"scheduler={scheduler!r}: ported schedulers are {sorted(SCHEDULERS)}; "
                 "random and token_hash come in a later slice"
             )
+        if max_prefill_queue is not None and max_prefill_queue < 1:
+            raise ValueError(
+                f"max_prefill_queue must be ≥ 1, got {max_prefill_queue} "
+                "(a zero bound would close admission permanently)"
+            )
+        if admission is None:
+            admission = "pipelined" if n_prefill else "blocking"
+        if admission not in ("blocking", "pipelined"):
+            raise ValueError(f"unknown admission mode: {admission}")
+        self.admission = admission
+        self.step_time_fn = step_time_fn
+        self.max_prefill_queue = max_prefill_queue
+        self._ready: List[PrefillEvent] = []
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -150,7 +172,8 @@ class ServingEngine:
                 # one card: every pool aliases the engine's device
                 devices = [self.device]
                 pools = DevicePools.split(
-                    n_attn, layout.num_instances, devices, node_size=node_size, allow_reuse=True
+                    n_attn, layout.num_instances, devices, node_size=node_size, allow_reuse=True,
+                    n_prefill=n_prefill,
                 )
             self.disagg = DisaggExecutor(
                 cfg, params, pools, layout, max_batch=max_batch, cache_len=cache_len,
@@ -159,6 +182,8 @@ class ServingEngine:
             )
             self.caches = None  # the executor's attention shards hold the KV
         elif executor == "mono":
+            if pools is None and n_prefill:
+                pools = DevicePools.split(0, 0, [self.device], n_prefill=n_prefill, allow_reuse=True)
             self.caches = model_mod.init_decode_caches(cfg, max_batch, cache_len, self.device)
             if kv_page_size is not None:
                 self.paged, self.caches = make_paged_caches(
@@ -166,9 +191,16 @@ class ServingEngine:
                 )
         else:
             raise ValueError(f"unknown executor: {executor}")
+        # one worker serves both admission modes, so their numerics (chunk
+        # grid, programs) are the same by construction.  A modeled decode
+        # clock never mixes in wall-clock prefill stamps.
+        worker_time_fn = prefill_time_fn
+        if step_time_fn is not None and prefill_time_fn is None:
+            worker_time_fn = lambda n_tok: 0.0  # noqa: E731
         self.prefill_worker = PrefillWorker(
-            cfg, params, self.device, cache_len=cache_len, chunk=prefill_chunk,
-            capacity=prefill_capacity_tokens,
+            cfg, params, list(pools.prefill_devices) if pools is not None else [],
+            device=self.device, cache_len=cache_len, chunk=prefill_chunk,
+            capacity=prefill_capacity_tokens, batch=prefill_batch, prefill_time_fn=worker_time_fn,
         )
 
     # ------------------------------------------------------------------
@@ -193,16 +225,56 @@ class ServingEngine:
         req.token_times.append(self.clock)
         req.tokens_out = [ev.first_token]
 
+    def _submit_request(self, req: Request) -> None:
+        """Pipelined admission: reserve the slot and queue the prompt for the
+        prefill pool; the decode clock is never charged."""
+        slot = self.slots.reserve(req)
+        self.slots.start_prefill(slot)
+        self.prefill_worker.submit(req, slot, now=max(self.clock, req.arrival))
+
+    def _admission_open(self) -> bool:
+        """Backpressure: stop admitting when the prefill queue is full."""
+        if self.max_prefill_queue is None:
+            return True
+        return self.prefill_worker.num_pending < self.max_prefill_queue
+
     def _chunk_sink(self, slot: int, start: int, length: int, one_caches: Dict) -> None:
-        """Land one streamed prefill chunk in the decode caches."""
+        """Land one streamed prefill chunk (or a whole-prompt cache, ``length
+        == -1``) in the decode caches."""
         if self.disagg is not None:
-            self.disagg.scatter_prefill_chunk(one_caches, slot, start, length)
+            if length < 0:
+                self.disagg.scatter_prefill(one_caches, slot)
+            else:
+                self.disagg.scatter_prefill_chunk(one_caches, slot, start, length)
         elif self.paged is not None:
+            if length < 0:  # the prompt's rows as one chunk
+                start, length = 0, self.slots.slot_req[slot].input_len
             self.caches = scatter_prefill_chunk_paged(
                 self.caches, one_caches, slot, start, length, self.paged
             )
         else:
+            if length < 0:  # the whole cache row
+                start, length = 0, self.cache_len
             self.caches = scatter_prefill_chunk_caches(self.caches, one_caches, slot, start, length)
+
+    def _poll_prefill(self) -> None:
+        """Advance the prefill pipeline and activate the finished requests
+        whose completion stamp the decode clock has passed."""
+        self._ready.extend(self.prefill_worker.poll(self._chunk_sink))
+        still: List[PrefillEvent] = []
+        for ev in self._ready:
+            if ev.finish_t <= self.clock:
+                self.slots.activate(ev.slot)
+                self.tokens[ev.slot, 0] = ev.first_token
+                ev.req.prefill_done = ev.finish_t
+                ev.req.token_times.append(ev.finish_t)
+                ev.req.tokens_out = [ev.first_token]
+            else:
+                still.append(ev)
+        self._ready = still
+
+    def _prefill_pending(self) -> int:
+        return self.prefill_worker.num_pending + len(self._ready)
 
     def _ensure_pages(self) -> None:
         """Back every active slot's next write position with a page."""
@@ -235,7 +307,8 @@ class ServingEngine:
                 self.params, tokens, self.caches, positions, self.cfg, extra=self._extra
             )
         next_tokens = model_mod.greedy_token(logits).cpu().numpy()  # waits for the device
-        self.clock += time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        self.clock += self.step_time_fn(self.slots.num_active) if self.step_time_fn else wall
         self.steps_done += 1
         for s in self.slots.active_slots:
             req = self.slots.slot_req[s]
@@ -256,10 +329,21 @@ class ServingEngine:
         """Serve all requests (arrivals gated by the engine clock)."""
         waiting = sorted(requests, key=lambda r: r.arrival)
         steps = 0
-        while (waiting or self.slots.num_active) and steps < max_steps:
-            while waiting and waiting[0].arrival <= self.clock and self.slots.free_slots:
-                self._prefill_request(waiting.pop(0))
+        while (waiting or self.slots.num_active or self._prefill_pending()) and steps < max_steps:
+            while (waiting and waiting[0].arrival <= self.clock and self.slots.free_slots
+                   and self._admission_open()):
+                req = waiting.pop(0)
+                if self.admission == "pipelined":
+                    self._submit_request(req)
+                else:
+                    self._prefill_request(req)
+            self._poll_prefill()
             if self.slots.num_active == 0:
+                if self._ready:  # idle: jump to the next prefill completion
+                    self.clock = max(self.clock, min(ev.finish_t for ev in self._ready))
+                    continue
+                if self._prefill_pending():  # chunks still streaming: keep polling
+                    continue
                 if waiting:  # idle: jump to the next arrival
                     self.clock = max(self.clock, waiting[0].arrival)
                     continue
@@ -276,8 +360,9 @@ class ServingEngine:
         n_prefill: Optional[int] = None,
     ) -> Dict[str, bool]:
         """Actuate a scaling decision mid-run (§3.5): only the pools whose
-        counts changed are rebuilt; in-flight KV caches are preserved.
-        Disagg executor only."""
+        counts changed are rebuilt; in-flight KV caches are preserved and
+        in-progress prefills move with the prefill pool.  Disagg executor
+        only."""
         if self.disagg is None:
             raise NotImplementedError(
                 "mid-run reconfigure requires executor='disagg' (the monolithic "
@@ -285,6 +370,8 @@ class ServingEngine:
             )
         relower = self.disagg.reconfigure(n_attn=n_attn, n_moe=n_moe, layout=layout, n_prefill=n_prefill)
         self.layout = self.disagg.layout
+        if relower.get("prefill"):
+            self.prefill_worker.set_devices(self.disagg.pools.prefill_devices, self.params)
         return relower
 
     def metrics(self) -> Dict:

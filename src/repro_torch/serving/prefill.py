@@ -1,27 +1,44 @@
-"""Chunked prompt prefill with streamed KV hand-off (``repro.serving
-.prefill.PrefillWorker``, one device, one prompt at a time).
+"""Prefill pool worker: chunked prompt prefill with streamed KV hand-off
+(``repro.serving.prefill.PrefillWorker``, fault-free).
 
-The engine reserves a slot and submits the request; each :meth:`poll`
-prefills one fixed-size chunk into a per-request contiguous cache and hands
-the chunk's rows to the engine's ``sink``, which lands them in the decode
-caches.  The last chunk's last-position logits give the first token.  Chunks
-are timed on a pool timeline (``busy_until``) that runs beside the engine's
-decode clock.  Prompts route over logical experts (no replica scheduling)
-with drop-free capacity by default: each call's own token count, the
-reference's default (``prefill.py:112-123``); ``capacity`` fixes it instead
-(the engine's ``prefill_capacity_tokens``).
+The worker owns the prefill pool's devices (``DevicePools.prefill_devices``;
+on one card they alias the engine's device), each with the model's
+parameters, and drives an admission pipeline beside the decode loop:
+
+* the engine reserves a slot for an arrived request and submits it here; it
+  queues (FIFO) until a pool device is free;
+* each :meth:`PrefillWorker.poll` advances every device by up to
+  ``max_chunks_per_poll`` fixed-size chunks; with ``batch > 1`` a device
+  packs up to ``batch`` pending prompts into one padded-and-masked
+  :func:`repro_torch.models.model.prefill_chunk_batched` call (row by row
+  what the serial path computes);
+* after every chunk its KV rows go to the engine's ``sink``, which lands them
+  in the decode caches; a stack that cannot chunk (``chunked`` false) takes
+  one whole-prompt :func:`repro_torch.models.model.prefill` call and hands
+  the whole cache over (``length == -1``);
+* the last chunk's last-position logits give the request's first token.
+
+Calls are timed by the wall clock around work that ends in a device read
+(or by ``prefill_time_fn(prompt tokens)`` under a modeled clock), on a
+per-device pool timeline (``busy_until``) that runs beside the engine's
+decode clock; the engine activates a finished request once its clock passes
+the completion stamp.  Prompts route over logical experts (no replica
+scheduling) with drop-free capacity by default: each call's own token count
+(``prefill.py:112-123``); ``capacity`` fixes it instead (the engine's
+``prefill_capacity_tokens``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.models import model as model_mod
+from repro_torch.models.common import tree_to
 from repro_torch.serving.request import Request
 
 
@@ -30,13 +47,14 @@ class PrefillEvent:
     req: Request
     slot: int
     first_token: int
-    finish_t: float  # completion stamp on the prefill timeline
+    finish_t: float  # completion stamp on the prefill pool's timeline
 
 
 @dataclasses.dataclass
 class _InFlight:
     req: Request
     slot: int
+    dev_index: int
     prompt: np.ndarray
     caches: Optional[Dict[str, torch.Tensor]] = None
     done: int = 0  # prompt tokens already prefilled
@@ -44,23 +62,63 @@ class _InFlight:
 
 
 class PrefillWorker:
-    def __init__(self, cfg, params, device, *, cache_len: int, chunk: int = 64,
-                 capacity: Optional[int] = None):
-        if not model_mod.supports_chunked_prefill(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: whole-prompt prefill fallback is not ported yet"
-            )
+    def __init__(
+        self,
+        cfg,
+        params,
+        devices: Optional[Sequence[torch.device]] = None,
+        *,
+        device,
+        cache_len: int,
+        chunk: int = 64,
+        capacity: Optional[int] = None,
+        max_chunks_per_poll: int = 1,
+        batch: int = 1,
+        prefill_time_fn: Optional[Callable[[int], float]] = None,
+    ):
         self.cfg = cfg
-        self.params = params
-        self.device = torch.device(device)
+        self.device = torch.device(device)  # the engine's: serves an empty pool
         self.cache_len = cache_len
         self.chunk = max(1, int(chunk))
         self.capacity = capacity
+        self.prefill_time_fn = prefill_time_fn
+        self.max_chunks_per_poll = max(1, int(max_chunks_per_poll))
+        self.chunked = model_mod.supports_chunked_prefill(cfg)
+        # batched multi-prompt prefill: up to ``batch`` pending prompts share
+        # one padded chunk call per device
+        self.batch = max(1, int(batch))
+        self.batched = self.batch > 1 and model_mod.supports_batched_prefill(cfg)
         self.chunks_done = 0
-        self.busy_until = 0.0
         self._queue: List[_InFlight] = []
-        self._current: Optional[_InFlight] = None
+        self.set_devices(devices, params)
 
+    # ------------------------------------------------------------------
+    # pool membership (reconfigure)
+    # ------------------------------------------------------------------
+    def set_devices(self, devices: Optional[Sequence[torch.device]], params) -> None:
+        """(Re-)place the parameters on every pool device; an empty pool runs
+        on the engine's device.  A surviving device keeps its timeline, new
+        ones start idle, and in-flight requests move with their caches to
+        the resized pool, so a resize loses no chunk progress."""
+        devs = [torch.device(d) for d in (devices or [])] or [self.device]
+        self.devices = devs
+        self._params = [tree_to(params, d) for d in devs]
+        old_busy = getattr(self, "busy_until", [])
+        self.busy_until = [old_busy[i] if i < len(old_busy) else 0.0 for i in range(len(devs))]
+        cur = getattr(self, "_current", None)
+        self._current: List[List[_InFlight]] = [[] for _ in devs]
+        for e in [e for group in cur or [] for e in group]:
+            e.dev_index = min(e.dev_index, len(devs) - 1)
+            if e.caches is not None:
+                e.caches = tree_to(e.caches, devs[e.dev_index])
+            if len(self._current[e.dev_index]) < self.batch:
+                self._current[e.dev_index].append(e)
+            else:
+                self._queue.insert(0, e)
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
     def submit(self, req: Request, slot: int, now: float) -> None:
         """Queue a reserved request (FIFO); a request without a prompt gets the
         reference's seeded synthetic one."""
@@ -68,42 +126,141 @@ class PrefillWorker:
         if prompt is None:
             rng = np.random.default_rng(req.rid)
             prompt = rng.integers(0, self.cfg.vocab_size, size=req.input_len, dtype=np.int32)
-        self._queue.append(_InFlight(req, slot, np.asarray(prompt, np.int32), ready_t=now))
+        self._queue.append(_InFlight(req, slot, -1, np.asarray(prompt, np.int32), ready_t=now))
 
+    @property
+    def num_pending(self) -> int:
+        return len(self._queue) + sum(len(g) for g in self._current)
+
+    # ------------------------------------------------------------------
+    # the pipeline: one poll = at most ``max_chunks_per_poll`` chunks a device
+    # ------------------------------------------------------------------
     def poll(self, sink: Callable[[int, int, int, Dict], None]) -> List[PrefillEvent]:
-        """Prefill one chunk and stream it through ``sink(slot, start, length,
-        one_caches)``.  Returns the request whose prefill finished, if any."""
-        if self._current is None:
-            if not self._queue:
+        """Advance prefill work, streaming each chunk through ``sink(slot,
+        start, length, one_caches)`` (``length == -1``: a whole-prompt
+        cache).  Returns the requests whose prefill finished, stamped with
+        their completion times on the pool's timeline."""
+        events: List[PrefillEvent] = []
+        limit = self.batch if self.batched else 1
+        for di in range(len(self.devices)):
+            group = self._current[di]
+            while len(group) < limit and self._queue:
+                entry = self._queue.pop(0)
+                if entry.caches is not None and entry.dev_index != di:
+                    entry.caches = tree_to(entry.caches, self.devices[di])
+                entry.dev_index = di
+                group.append(entry)
+            if not group:
+                continue
+            for _ in range(self.max_chunks_per_poll):
+                events.extend(self._advance_group(di, sink))
+                if not self._current[di]:
+                    break
+        return events
+
+    def _advance_group(self, di: int, sink) -> List[PrefillEvent]:
+        group = self._current[di]
+        if len(group) == 1:
+            ev = self._advance(group[0], sink)
+            if ev is None:
                 return []
-            self._current = self._queue.pop(0)
-        ev = self._advance(self._current, sink)
-        if ev is None:
-            return []
-        self._current = None
-        return [ev]
+            self._current[di] = []
+            return [ev]
+        return self._advance_batched(di, sink)
+
+    def _elapsed(self, t0: float, n_tokens: int) -> float:
+        return self.prefill_time_fn(n_tokens) if self.prefill_time_fn else time.perf_counter() - t0
+
+    def _extra(self, n_tokens: int) -> Optional[Dict]:
+        """Drop-free capacity unless fixed: a call's own token count."""
+        if not self.cfg.has_moe:
+            return None
+        return {"moe_ctx": {"capacity": n_tokens if self.capacity is None else self.capacity}}
 
     def _advance(self, entry: _InFlight, sink) -> Optional[PrefillEvent]:
+        dev = self.devices[entry.dev_index]
+        params = self._params[entry.dev_index]
         n = len(entry.prompt)
+        if not self.chunked:
+            # whole-prompt fallback: one call on the pool device, one hand-off
+            toks = torch.from_numpy(entry.prompt[None, :].astype(np.int64)).to(dev)
+            t0 = time.perf_counter()
+            logits, caches = model_mod.prefill(params, toks, self.cfg, self.cache_len, extra=self._extra(n))
+            first = int(model_mod.greedy_token(logits)[0])  # waits for the device
+            dt = self._elapsed(t0, n)
+            sink(entry.slot, 0, -1, caches)
+            return self._finish(entry, first, dt)
+
         lo = entry.done
         hi = min(lo + self.chunk, n)
         if entry.caches is None:
-            entry.caches = model_mod.init_decode_caches(self.cfg, 1, self.cache_len, self.device)
-        toks = torch.from_numpy(entry.prompt[lo:hi][None, :].astype(np.int64)).to(self.device)
+            entry.caches = model_mod.init_decode_caches(self.cfg, 1, self.cache_len, dev)
+        toks = torch.from_numpy(entry.prompt[lo:hi][None, :].astype(np.int64)).to(dev)
         t0 = time.perf_counter()
-        cap = hi - lo if self.capacity is None else self.capacity
-        extra = {"moe_ctx": {"capacity": cap}} if self.cfg.has_moe else None
         logits, entry.caches = model_mod.prefill_chunk(
-            self.params, toks, entry.caches, lo, self.cfg, extra=extra
+            params, toks, entry.caches, lo, self.cfg, extra=self._extra(hi - lo)
         )
         first = int(model_mod.greedy_token(logits)[0])  # waits for the device
-        dt = time.perf_counter() - t0
+        dt = self._elapsed(t0, hi - lo)
         sink(entry.slot, lo, hi - lo, entry.caches)
         entry.done = hi
         self.chunks_done += 1
-        start_t = max(self.busy_until, entry.ready_t)
-        self.busy_until = entry.ready_t = start_t + dt
         if hi < n:
+            # the chunk starts once both the device and the request's
+            # previous chunk are done; the decode clock is never charged
+            start_t = max(self.busy_until[entry.dev_index], entry.ready_t)
+            self.busy_until[entry.dev_index] = entry.ready_t = start_t + dt
             return None
+        return self._finish(entry, first, dt)
+
+    def _finish(self, entry: _InFlight, first: int, dt: float) -> PrefillEvent:
+        start_t = max(self.busy_until[entry.dev_index], entry.ready_t)
+        finish_t = start_t + dt
+        self.busy_until[entry.dev_index] = finish_t
         entry.caches = None  # KV already streamed out
-        return PrefillEvent(entry.req, entry.slot, first, self.busy_until)
+        return PrefillEvent(entry.req, entry.slot, first, finish_t)
+
+    def _advance_batched(self, di: int, sink) -> List[PrefillEvent]:
+        """One fused chunk call for every request on device ``di``: rows are
+        padded to the widest chunk and masked by their own (start, length).
+        The device's timeline is charged once for the call."""
+        group = self._current[di]
+        dev = self.devices[di]
+        for e in group:
+            if e.caches is None:
+                e.caches = model_mod.init_decode_caches(self.cfg, 1, self.cache_len, dev)
+        B = len(group)
+        los = [e.done for e in group]
+        his = [min(e.done + self.chunk, len(e.prompt)) for e in group]
+        lens = [hi - lo for lo, hi in zip(los, his)]
+        toks = np.zeros((B, max(lens)), np.int64)
+        for i, e in enumerate(group):
+            toks[i, : lens[i]] = e.prompt[los[i] : his[i]]
+        keys = list(group[0].caches)
+        stacked = {k: torch.cat([e.caches[k] for e in group], dim=1) for k in keys}
+        t0 = time.perf_counter()
+        logits, stacked = model_mod.prefill_chunk_batched(
+            self._params[di], torch.from_numpy(toks).to(dev), stacked,
+            torch.tensor(los, dtype=torch.int64, device=dev),
+            torch.tensor(lens, dtype=torch.int64, device=dev), self.cfg,
+            extra=self._extra(toks.size),
+        )
+        firsts = model_mod.greedy_token(logits).cpu().numpy()  # waits for the device
+        dt = self._elapsed(t0, sum(lens))
+        finish_t = max([self.busy_until[di]] + [e.ready_t for e in group]) + dt
+        self.busy_until[di] = finish_t
+        events: List[PrefillEvent] = []
+        remaining: List[_InFlight] = []
+        for i, e in enumerate(group):
+            e.caches = {k: stacked[k][:, i : i + 1] for k in keys}
+            sink(e.slot, los[i], lens[i], e.caches)
+            e.done = his[i]
+            e.ready_t = finish_t
+            self.chunks_done += 1
+            if e.done >= len(e.prompt):
+                e.caches = None
+                events.append(PrefillEvent(e.req, e.slot, int(firsts[i]), finish_t))
+            else:
+                remaining.append(e)
+        self._current[di] = remaining
+        return events

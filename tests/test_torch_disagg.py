@@ -380,8 +380,10 @@ def test_reconfigure_preserves_caches_and_logits(setup, page):
     assert ex.reconfigure() == {"attn": False, "moe": False, "prefill": False}
     with pytest.raises(ValueError, match="n_attn=0"):
         ex.reconfigure(n_attn=0)
-    with pytest.raises(NotImplementedError, match="pipelined admission"):
-        ex.reconfigure(n_prefill=1)
+    # the prefill pool moves alone; a MoE resize re-anchors a non-empty one
+    assert ex.reconfigure(n_prefill=1) == {"attn": False, "moe": False, "prefill": True}
+    assert len(ex.pools.prefill_devices) == 1 and ex.disagg_cfg.describe() == "1P3A2E"
+    assert ex.reconfigure(n_moe=4) == {"attn": False, "moe": True, "prefill": True}
 
 
 def test_shards_own_their_storage(setup):

@@ -11,7 +11,6 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
 
 import repro_torch.models.model as port_model_mod
 from _torch_parity import as_f32, assert_close, first_divergence, tol_for
@@ -146,30 +145,16 @@ def test_engine_paged_equals_contiguous():
 
 
 @pytest.mark.parametrize("option", [
-    dict(executor="disagg", n_attn=2), dict(admission="pipelined"), dict(sched="priority"),
-    dict(prefix_cache=True), dict(spec_k=2), dict(n_prefill=1), dict(scheduler="random"),
+    dict(sched="priority"), dict(prefix_cache=True), dict(spec_k=2), dict(scheduler="random"),
 ])
 def test_engine_rejects_unported_options(option):
     """Options of the reference's engine that later slices port raise
-    instead of being ignored; their defaults are accepted.  The disagg
-    executor is ported, its prefill pool (pipelined admission) is not: a
-    deployment that is valid but for its prefill pool reaches the executor,
-    which refuses it."""
-    from repro_torch.core.disagg import DevicePools
+    instead of being ignored; their defaults are accepted."""
     from repro_torch.models import model
 
     cfg = get_config("dsv2-lite-reduced")
     params = model.init_params(cfg, seed=0, device="cpu")
     ServingEngine(cfg, params, device="cpu", executor="mono", admission="blocking",
                   sched="fifo", prefix_cache=False, spec_k=0, n_prefill=0)
-    if option.get("executor") == "disagg":
-        layout = build_layout(make_routing_trace(512, cfg.num_experts, cfg.top_k, skew=0.8, seed=0),
-                              cfg.num_experts, 2, 3)
-        pools = DevicePools.split(option["n_attn"], 2, [torch.device("cpu")], allow_reuse=True,
-                                  n_prefill=1)
-        ServingEngine(cfg, params, device="cpu", layout=layout, **option)  # no prefill pool: served
-        option = dict(option, layout=layout, pools=pools)
-    with pytest.raises(NotImplementedError) as err:
+    with pytest.raises(NotImplementedError):
         ServingEngine(cfg, params, device="cpu", **option)
-    if "n_prefill" in option or "pools" in option:
-        assert "pipelined admission" in str(err.value)
