@@ -33,7 +33,12 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      ``amax_log`` CPU = card; then disagg with a prefill pool, pipelined
      admission and 2-prompt batched prefill under modeled clocks, with one
      ``AutoScaler.actuate`` between two halves of the requests (contiguous
-     KV): streams, ``amax_log`` and the decision CPU = card;
+     KV): streams, ``amax_log`` and the decision CPU = card; then fault
+     recovery in tests/test_faults.py's deployment: one plan that loses a
+     prefill, an attention and a MoE device and times an exchange out twice,
+     and an n_attn=1 attention loss over paged KV that degrades to mono:
+     streams CPU = card = the fault-free run's, fault stats (without their
+     wall-clock latencies) and ``amax_log`` CPU = card, launches exact;
   5. full-width serving: dsv2-lite (27 layers, d 2048, 64 experts top-6 + 2
      shared, vocab 102400) with random bf16 weights drawn once on the card
      from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
@@ -53,9 +58,18 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      model actuating a resize of the prefill, attention and MoE pools
      between them (launch counts exact in each half, K2/K3 held at the new
      layout's shapes, the streams held to an undisturbed blocking run, a
-     flip allowed only on a bf16 near-tie); then a profiled short run of
-     each mono layout and each disagg run (device time per step, idle
-     share);
+     flip allowed only on a bf16 near-tie); then (5d) fault recovery at
+     full width: the 5c deployment (1P 2A 4E, contiguous KV, pipelined
+     admission, the wall clock) loses its prefill device, times an exchange
+     out twice, loses attention device 1 and MoE instance 0 and ends at 0P
+     1A 3E, and an n_attn=1 deployment over paged KV loses its attention
+     device and degrades to mono, replaying every slot through K1; each held
+     to an undisturbed run of its deployment (a flip only on a bf16
+     near-tie), with recovery latencies, replayed tokens, fault stall and
+     peak memory logged and launches exact over every served, retried and
+     replayed step; then a profiled short run of each mono layout, each
+     disagg run and each pool size the fault runs pass through (device time
+     per step, idle share);
   6. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
@@ -63,6 +77,7 @@ printing any result.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -115,6 +130,129 @@ def bound(nbytes, ops, ops_rate):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def first_flips(streams, ref_streams, margins, ref_margins):
+    """Where each stream first parts from its reference stream, with the
+    top-2 logit margin of that token in both runs (None where not recorded)."""
+    flips = {}
+    for rid, want in ref_streams.items():
+        got = streams.get(rid, [])
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None if len(got) == len(want) else min(len(got), len(want)))
+        if j is not None:
+            flips[rid] = {"token": j, "margin": margins.get((rid, j)), "margin_undisturbed": ref_margins.get((rid, j))}
+    return flips
+
+
+def wide_flips(flips, near_tie):
+    """The flips that are not on a near-tie (margin above ``near_tie`` in both
+    runs, or unrecorded)."""
+    return {rid: f for rid, f in flips.items()
+            if min(x for x in (f["margin"], f["margin_undisturbed"], float("inf")) if x is not None) > near_tie}
+
+
+class StepTally:
+    """Every decode step an engine runs while the tally is open (served,
+    retried after a fault, or replayed by a recovery) with the executor and
+    pools it ran at and, for a step a fault hook interrupted, the (layer,
+    micro-batch) it stopped before; so the launches of a run with faults are
+    held exactly; also the prefill calls (the queued path's and the
+    replay's).  Wraps the engine's executor, its replay and the mono
+    ``decode_step`` and prefill calls of ``model_mod``; ``close`` restores
+    the module."""
+
+    PREFILL = ("prefill_chunk", "prefill_chunk_batched", "prefill")
+
+    def __init__(self, engine, model_mod):
+        self.steps = []  # (kind, executor, rows per micro-batch, MoE instances, stopped at)
+        self.prefill_calls = 0
+        self._model, self._mono = model_mod, model_mod.decode_step
+        self._prefill = {n: getattr(model_mod, n) for n in self.PREFILL}
+        self._at, self._replaying = None, False
+        ex = engine.disagg
+        hook = ex.fault_hook
+
+        def traced_hook(site, li, m):
+            self._at = (li, m)
+            if hook is not None:
+                hook(site, li, m)
+
+        def disagg_step(*args, **kwargs):
+            # the executor through the engine, so that a degrade frees it
+            ex = engine.disagg
+            shards = [sum(s.mb == m for s in ex.shards) for m in range(ex.n_micro)]
+            n_moe, done = ex.n_moe, False
+            self._at = None
+            try:
+                out = type(ex).decode_step(ex, *args, **kwargs)
+                done = True
+            finally:
+                self.steps.append((self._kind(done), "disagg", shards, n_moe, None if done else self._at))
+            return out
+
+        def mono_step(*args, **kwargs):
+            out = self._mono(*args, **kwargs)
+            self.steps.append((self._kind(True), "mono", [1], 1, None))
+            return out
+
+        replay = engine._replay_slot
+
+        def replay_slot(slot):
+            self._replaying = True
+            try:
+                replay(slot)
+            finally:
+                self._replaying = False
+
+        def counted(fn):
+            def call(*args, **kwargs):
+                self.prefill_calls += 1
+                return fn(*args, **kwargs)
+            return call
+
+        ex.fault_hook, ex.decode_step = traced_hook, disagg_step
+        engine._replay_slot = replay_slot
+        model_mod.decode_step = mono_step
+        for n, fn in self._prefill.items():
+            setattr(model_mod, n, counted(fn))
+
+    def _kind(self, done):
+        return "replay" if self._replaying else ("served" if done else "retried")
+
+    def close(self):
+        self._model.decode_step = self._mono
+        for n, fn in self._prefill.items():
+            setattr(self._model, n, fn)
+
+    def counts(self):
+        """Steps by (kind, executor)."""
+        out = {}
+        for kind, where, *_ in self.steps:
+            out[f"{kind}_{where}"] = out.get(f"{kind}_{where}", 0) + 1
+        return out
+
+    def expected(self, kinds, attn_kernel):
+        """The exact launches of the tallied steps and prefill calls: a
+        disagg step launches the attention kernel once per shard and layer
+        and K2 and K3 once per instance, micro-batch and MoE layer, as far as
+        it got (a hook stops it before the exchange of (layer, micro-batch):
+        that layer's attention ran for micro-batches up to it, its MoE stage
+        for those before it); a mono step launches each once per layer (K2, K3
+        per MoE layer); a prefill call K3 once per MoE layer."""
+        n_moe_layers = sum(k == "moe" for k in kinds)
+        attn = k2 = 0
+        for _, where, shards, n_moe, at in self.steps:
+            if where == "mono":
+                attn, k2 = attn + len(kinds), k2 + n_moe_layers
+            elif at is None:
+                attn, k2 = attn + sum(shards) * len(kinds), k2 + n_moe * len(shards) * n_moe_layers
+            else:
+                li, m = at
+                moe_before = sum(k == "moe" for k in kinds[:li])
+                attn += sum(shards) * li + sum(shards[: m + 1])
+                k2 += n_moe * (len(shards) * moe_before + m)
+        return {attn_kernel: attn, "aebs_schedule": k2, "expert_ffn": k2 + self.prefill_calls * n_moe_layers}
+
+
 def main():
     import torch
 
@@ -127,7 +265,8 @@ def main():
 
     from repro_torch.configs import get_config
     from repro_torch.core.amax import make_routing_trace
-    from repro_torch.core.placement import build_layout
+    from repro_torch.core.aebs import ReplicaLayout
+    from repro_torch.core.placement import build_layout, layout_for_survivors
     from repro_torch.kernels import cuda
     from repro_torch.kernels.aebs.ops import CLUSTER_ITEMS, aebs_schedule, cluster_blocks
     from repro_torch.kernels.decode_attention.ops import (
@@ -150,6 +289,7 @@ def main():
     from repro_torch.models.attention import quantize_kv
     from repro_torch.serving.disagg import DisaggExecutor
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import DEVICE_LOSS, EXCHANGE_TIMEOUT, FaultPlan, FaultSpec, RetryPolicy
     from repro_torch.serving.kv_cache import PagedKVCache
     from repro_torch.serving.request import Request, WorkloadSpec, sample_requests
 
@@ -534,7 +674,24 @@ def main():
     err = float((expert_ffn_grouped(xw, wg, wu, wd, s2e, allp).float()
                  - expert_ffn_grouped_ref(xw, wg, wu, wd, s2e, allp).float()).abs().max())
     check("expert_ffn", f"whole-prompt prefill: 48 tokens, CAP 48, {E} active", err, TOL["bf16"])
-    del xb, xw
+    # every drop-free capacity a prefill call of phases 5-5d gives: a chunk
+    # (or its tail) on the 16-token grid of 5d (a), whose replay's run_sync
+    # keeps that grid, a prompt of up to 64 tokens in one call, and 5c's
+    # batched pairs of chunks (up to 2 x 64 rows)
+    err = 0.0
+    for cap in range(1, 129):
+        xc = torch.randn((E, cap, d), generator=gen, device=dev).to(bf)
+        err = max(err, float((expert_ffn_grouped(xc, wg, wu, wd, s2e, allp).float()
+                              - expert_ffn_grouped_ref(xc, wg, wu, wd, s2e, allp).float()).abs().max()))
+    check("expert_ffn", f"prefill calls: CAP 1 to 128, {E} active", err, TOL["bf16"])
+    # (b)'s mono decode after the degrade: 8 tokens at capacity 8 over the
+    # experts AEBS's single-replica slots collapse to
+    x8 = torch.randn((E, 8, d), generator=gen, device=dev).to(bf)
+    x8 = torch.where(torch.arange(8, device=dev)[None, :, None] < counts[:, None, None], x8, 0)
+    err = float((expert_ffn_grouped(x8, wg, wu, wd, s2e, active).float()
+                 - expert_ffn_grouped_ref(x8, wg, wu, wd, s2e, active).float()).abs().max())
+    check("expert_ffn", f"mono decode after a degrade: 8 tokens, CAP 8, {n_act} active", err, TOL["bf16"])
+    del xb, xw, xc, x8
     # a 320-token chunk: more rows than a block holds (256), so the bf16
     # kernel runs over two blocks of rows
     CAPL, SL = 320, 8
@@ -782,6 +939,72 @@ def main():
                              "pool, or not the prefill pool")
     if m["decode_stall_time"] != 0.0:
         raise AssertionError("reduced pipelined admission charged the decode clock")
+
+    # fault recovery in tests/test_faults.py's deployment: 4 slots, cache 64,
+    # 2 attention shards, 2 x 3 round-robin MoE slots, 1 prefill device,
+    # 4-token chunks, a modeled 2 ms step, 10 ms charged a recovery.  One plan
+    # loses a device of every pool and times an exchange out twice (requeue,
+    # retry, replay, re-plan); then the one attention device of an n_attn=1
+    # deployment is lost under paged KV, which degrades to mono and replays
+    # every slot through K1.  Each run's streams equal its fault-free run's;
+    # streams, stats (without their wall-clock latencies) and amax_log are
+    # equal on the CPU and the card; launches exact on the card
+    flayout = ReplicaLayout.round_robin(rcfg.num_experts, 2, 3)
+    fspec = WorkloadSpec(mean_input=6, mean_output=24, vocab_size=rcfg.vocab_size, max_input=16,
+                         max_output=32, seed=3)
+    fault_plans = {
+        "all_pools": FaultPlan([FaultSpec(DEVICE_LOSS, pool="prefill", index=0, at_step=2),
+                                FaultSpec(EXCHANGE_TIMEOUT, at_step=4, transient=True, fail_count=2),
+                                FaultSpec(DEVICE_LOSS, pool="attn", index=1, at_step=6),
+                                FaultSpec(DEVICE_LOSS, pool="moe", index=0, at_step=9)]),
+        "degrade_paged": FaultPlan([FaultSpec(DEVICE_LOSS, pool="attn", index=0, at_step=5)]),
+    }
+    # (run, its plan or None, n_attn, kv_page_size, attention kernel, the fault-free run it is held to)
+    fault_runs = (("fault_free", None, 2, None, "decode_attention", None),
+                  ("all_pools", fault_plans["all_pools"], 2, None, "decode_attention", "fault_free"),
+                  ("fault_free_1a_paged", None, 1, 16, "paged_decode_attention", "fault_free"),
+                  ("degrade_paged", fault_plans["degrade_paged"], 1, 16, "paged_decode_attention",
+                   "fault_free_1a_paged"))
+    fault_streams = {}
+    for name, plan, n_attn, page, attn_kernel, held_to in fault_runs:
+        out = {}
+        for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+            eng = ServingEngine(rcfg, params, max_batch=4, cache_len=64, layout=flayout, scheduler="aebs",
+                                capacity_tokens=64, executor="disagg", n_attn=n_attn, n_prefill=1,
+                                prefill_chunk=4, kv_page_size=page, step_time_fn=lambda n: 2e-3,
+                                fault_plan=plan, retry_policy=RetryPolicy(recovery_charge_s=0.01), device=where)
+            eng.disagg.scheduler = counted_scheduler(eng.disagg.scheduler)
+            tally = StepTally(eng, model_mod)
+            cuda.reset_launch_counts()
+            scheduled["calls"] = 0
+            try:
+                m = eng.run(sample_requests(fspec, np.linspace(0, 0.005, 5), with_prompts=True), max_steps=2000)
+            finally:
+                tally.close()
+            launches = dict(cuda.LAUNCHES)
+            stats = {k: v for k, v in m.get("faults", {}).items() if not k.startswith("recovery_latency")}
+            out[where] = ({r.rid: r.tokens_out for r in eng.completed}, stats, eng.amax_log, eng.executor_name)
+        want = tally.expected(rcfg.layer_kinds(), attn_kernel)
+        wrong = {n: launches[n] for n in want if launches[n] != want[n]}
+        stray = {n: launches[n] for n in attn_kernels if n != attn_kernel and launches[n]}
+        fault_streams[name] = out["cuda"][0]
+        same = out["cpu"] == out["cuda"] and len(out["cpu"][0]) == 5
+        held = held_to is None or out["cuda"][0] == fault_streams[held_to]
+        log({"phase": "reduced_parity_faults", "run": name, "dtype": "float32", "n_attn": n_attn,
+             "kv_page_size": page, "plan": None if plan is None else json.loads(plan.to_json()),
+             "cpu_equal_card": same, "streams_equal_fault_free": held, "held_to": held_to,
+             "faults": out["cuda"][1], "executor_at_end": out["cuda"][3], "amax_log": out["cuda"][2],
+             "steps": tally.counts(), "launches": launches, "launches_exact": want, "card": card})
+        if not (same and held) or wrong or stray or scheduled["calls"] != want["aebs_schedule"]:
+            raise AssertionError(f"reduced faults ({name}): streams, stats, amax_log CPU = card {same}, "
+                                 f"= fault-free {held}; launches {wrong} not {want}, off the path {stray}, "
+                                 f"or {scheduled['calls']} scheduler calls")
+        f = out["cuda"][1]
+        if name == "all_pools" and ((f["injected"], f["recoveries"], f["retries"], f["degraded"]) != (4, 3, 2, 0)
+                                    or not f["requeued"] or not f["replayed_slots"]):
+            raise AssertionError(f"reduced faults ({name}): stats {f} are not the plan's")
+        if name == "degrade_paged" and (f["degraded"] != 1 or not f["replayed_slots"] or out["cuda"][3] != "mono"):
+            raise AssertionError(f"reduced faults ({name}): did not degrade to mono and replay: {f}")
     del p_gpu
 
     # ---- 5. full-width serving ------------------------------------------
@@ -1092,13 +1315,7 @@ def main():
     wall_ms["after"] = float(np.mean(steps_st["wall_ms"]))
     model_mod.greedy_token = greedy
     streams = {r.rid: r.tokens_out for r in engine.completed}
-    flips = {}
-    for rid, want in ref_streams.items():
-        got = streams.get(rid, [])
-        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
-                 None if len(got) == len(want) else min(len(got), len(want)))
-        if j is not None:
-            flips[rid] = {"token": j, "margin": margins.get((rid, j)), "margin_undisturbed": ref_margins.get((rid, j))}
+    flips = first_flips(streams, ref_streams, margins, ref_margins)
     predicted = {when: pm.tpot(8.0, p["n_a"], p["n_e"]).tpot * 1e3 for when, p in (("before", before),
                                                                                      ("after", after))}
     log({"phase": "serve_autoscaled", "executor": "disagg", "card": card, "model": cfg.name,
@@ -1128,12 +1345,134 @@ def main():
     if after["n_p"] == before["n_p"] or (after["n_a"], after["n_e"]) == (before["n_a"], before["n_e"]):
         raise AssertionError(f"phase 5c: the decision {before} -> {after} does not move the prefill pool "
                              "and a decode pool")
-    wide = {rid: f for rid, f in flips.items()
-            if min(x for x in (f["margin"], f["margin_undisturbed"], float("inf")) if x is not None) > NEAR_TIE}
+    wide = wide_flips(flips, NEAR_TIE)
     if wide:
         raise AssertionError(f"phase 5c: streams part from the undisturbed run off a near-tie: {wide}")
     del engine
     torch.cuda.empty_cache()
+
+    # ---- 5d. fault recovery at full width --------------------------------
+    # (a) phase 5c's first deployment (1 prefill device, 2 attention shards,
+    # 4 MoE instances of 17 slots, decode capacity 8, contiguous KV: K4) with
+    # pipelined, unbatched admission in 16-token chunks (every prompt takes
+    # 2-3, so one is in flight on the prefill device) on the wall clock.  The
+    # plan: the prefill device is lost at decode step 3 (its prompt in flight
+    # restarts on the engine's device), an exchange times out twice at step 5
+    # (two retries), attention device 1 at step 14 (its shard's active slots
+    # replay on the one survivor, a prefilling one restarts) and MoE instance
+    # 0 at step 24 (the layout is replanned onto 3 instances).  (b) n_attn=1
+    # with paged KV (K1) and blocking admission: the one attention device is
+    # lost at step 8, the engine degrades to mono and replays every slot
+    # through K1.  Each is held to an undisturbed run of its deployment as
+    # phase 5c is (a flip only on a bf16 near-tie) and its launches to the
+    # steps it ran (StepTally): served, retried and replayed
+    fault_kw = {"disagg": dict(as_kw, n_prefill=1, admission="pipelined", prefill_chunk=16),
+                "degrade": dict(as_kw, n_attn=1, kv_page_size=16)}
+    fw_plans = {"disagg": FaultPlan([FaultSpec(DEVICE_LOSS, pool="prefill", index=0, at_step=3),
+                                     FaultSpec(EXCHANGE_TIMEOUT, at_step=5, transient=True, fail_count=2),
+                                     FaultSpec(DEVICE_LOSS, pool="attn", index=1, at_step=14),
+                                     FaultSpec(DEVICE_LOSS, pool="moe", index=0, at_step=24)]),
+                "degrade": FaultPlan([FaultSpec(DEVICE_LOSS, pool="attn", index=0, at_step=8)])}
+    fw_attn = {"disagg": "decode_attention", "degrade": "paged_decode_attention"}
+    nonfinite = {"n": 0}
+
+    def checked_greedy(logits):
+        nonfinite["n"] += int((~torch.isfinite(logits)).sum())
+        return stash_greedy(logits)
+
+    model_mod.greedy_token = checked_greedy
+    # (a) ends on the survivors' layout: K2 and K3 there, as at 5c's layouts
+    check_instances(layout_for_survivors(E, 3), "phase 5d after the MoE loss")
+    fault_logs = {}
+    for run, run_kw in fault_kw.items():
+        seen = {}
+        for plan in (None, fw_plans[run]):
+            what = f"phase 5d ({run}, {'faults' if plan else 'undisturbed'})"
+            gc.collect()  # earlier engines' wrappers hold them in cycles
+            torch.cuda.empty_cache()
+            engine = ServingEngine(cfg, params, fault_plan=plan, **run_kw)
+            engine.disagg.scheduler = counted_scheduler(engine.disagg.scheduler)
+            run_margins = record_margins(engine)
+            recovered = []
+            recover = engine._recover
+
+            def traced_recover(fault, recover=recover, engine=engine, recovered=recovered):
+                recovered.append({"pool": fault.pool, "kind": fault.kind, "at_step": engine.steps_done,
+                                  "active_slots": engine.slots.num_active})
+                recover(fault)
+
+            engine._recover = traced_recover
+            tally = StepTally(engine, model_mod)
+            torch.cuda.reset_peak_memory_stats()
+            mem_start = torch.cuda.memory_allocated() / 1e9
+            cuda.reset_launch_counts()
+            scheduled["calls"] = 0
+            nonfinite["n"] = 0
+            t0 = time.perf_counter()
+            try:
+                m = engine.run(make_requests(2, 12, 16, 48, 16, 32))
+            finally:
+                tally.close()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(cuda.LAUNCHES)
+            want = tally.expected(cfg.layer_kinds(), fw_attn[run])
+            wrong = {n: launches[n] for n in want if launches[n] != want[n]}
+            stray = {n: launches[n] for n in attn_kernels if n != fw_attn[run] and launches[n]}
+            streams = {r.rid: r.tokens_out for r in engine.completed}
+            steps = tally.counts()
+            info = {"phase": "serve_faults", "run": run, "plan": None if plan is None else json.loads(plan.to_json()),
+                    "card": card, "model": cfg.name, "requests": 12, "completed": m["completed"],
+                    "tokens": m["tokens"], "decode_steps": engine.steps_done, "steps": steps,
+                    "prefill_calls": tally.prefill_calls, "wall_s": wall, "tokens_per_s": m["throughput_tok_s"],
+                    "tpot_ms_mean": m["tpot_mean"] * 1e3, "ttft_ms_mean": m["ttft_mean"] * 1e3,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "mem_at_start_gb": mem_start,
+                    "executor_at_end": engine.executor_name,
+                    "launches": launches, "launches_exact": want, "nonfinite_logits": nonfinite["n"]}
+            if engine.disagg is not None:
+                pools = engine.disagg.pools
+                info["pools_at_end"] = {"n_p": len(pools.prefill_devices), "n_a": len(pools.attn_devices),
+                                        "n_e": engine.disagg.n_moe, "prefill_worker_devices": [
+                                            str(d) for d in engine.prefill_worker.devices]}
+                info["experts_seated"] = len(set(engine.layout.slot_to_expert[engine.layout.slot_to_expert >= 0]
+                                                 .tolist()))
+            if plan is not None:
+                f = m["faults"]
+                lat = engine.faults.stats.recovery_latency_s
+                flips = first_flips(streams, seen["streams"], run_margins, seen["margins"])
+                info.update(faults=f, degraded_reason=m.get("degraded_reason"),
+                            recoveries=[dict(r, latency_ms=t * 1e3) for r, t in zip(recovered, lat)],
+                            replay_decode_steps=sum(v for k, v in steps.items() if k.startswith("replay")),
+                            replayed_tokens=sum(v for k, v in steps.items() if k.startswith("replay"))
+                            + f["replayed_slots"], fault_stall_s=f["fault_stall_s"],
+                            streams_equal_undisturbed=not flips, flips=flips,
+                            tokens_equal_undisturbed=sum(a == b for rid, st in streams.items()
+                                                         for a, b in zip(st, seen["streams"][rid])))
+            log(info)
+            if m["completed"] != 12 or m["truncated"] or any(r.generated != r.output_len for r in engine.completed):
+                raise AssertionError(f"{what}: {m['completed']} of 12 requests completed in full")
+            if nonfinite["n"]:
+                raise AssertionError(f"{what}: {nonfinite['n']} non-finite logits")
+            if wrong or stray or scheduled["calls"] != want["aebs_schedule"]:
+                raise AssertionError(f"{what}: launches {wrong} not the exact {want}, off the path {stray}, "
+                                     f"or {scheduled['calls']} scheduler calls")
+            if plan is None:
+                seen = {"streams": streams, "margins": run_margins}
+            elif wide_flips(flips, NEAR_TIE):
+                raise AssertionError(f"{what}: streams part from the undisturbed run off a near-tie: {flips}")
+            elif run == "disagg" and ((f["injected"], f["detected"], f["recoveries"], f["retries"], f["degraded"])
+                                      != (4, 5, 3, 2, 0) or not f["requeued"] or not f["replayed_slots"]
+                                      or info["pools_at_end"]["n_a"] != 1 or info["pools_at_end"]["n_e"] != 3
+                                      or info["pools_at_end"]["n_p"] != 0 or engine.prefill_worker.devices != [dev]
+                                      or info["experts_seated"] != E):
+                raise AssertionError(f"{what}: recovery is not the plan's: {f}, {info.get('pools_at_end')}")
+            elif run == "degrade" and (f["degraded"] != 1 or engine.executor_name != "mono"
+                                       or f["replayed_slots"] != recovered[0]["active_slots"]
+                                       or set(k for k in steps if k.startswith("replay")) != {"replay_mono"}):
+                raise AssertionError(f"{what}: did not degrade to mono and replay every slot there: {f}, {steps}")
+            fault_logs[(run, plan is not None)] = info
+            del engine, tally, recover, traced_recover
+    model_mod.greedy_token = greedy
 
     # ---- 5b. where the time goes: device time of each decode step and
     # prefill chunk of a short run (8 requests, 16 in, 16 out) per layout,
@@ -1150,6 +1489,14 @@ def main():
     profile_runs += [("autoscaled_before", cfg, dict(as_kw, n_prefill=1, prefill_batch=2), None),
                      ("autoscaled_after", cfg, dict(as_kw, n_attn=after["n_a"], n_prefill=after["n_p"],
                                                     prefill_batch=2, layout=resized_layout), None)]
+    # phase 5d's pools after each recovery (the host times of those runs mix
+    # pool sizes, so these have none): 1A 4E after the attention loss, 1A 3E
+    # on the survivors' layout after the MoE loss, and (b)'s 1A 4E paged
+    # before its degrade and mono paged after it, all at decode capacity 8
+    profile_runs += [("fault_1a4e", cfg, dict(as_kw, n_attn=1), None),
+                     ("fault_1a3e", cfg, dict(as_kw, n_attn=1, layout=layout_for_survivors(E, 3)), None),
+                     ("fault_1a4e_paged", cfg, dict(as_kw, n_attn=1, kv_page_size=16), None),
+                     ("fault_mono_paged", cfg, dict(kw, capacity_tokens=8, kv_page_size=16), None)]
     served["autoscaled_before"] = {"step_ms": wall_ms["before"], "ttft_ms": half_metrics(first)["ttft_ms_mean"]}
     served["autoscaled_after"] = {"step_ms": wall_ms["after"], "ttft_ms": half_metrics(second)["ttft_ms_mean"]}
     profiled_ms = {}
@@ -1207,10 +1554,10 @@ def main():
              "card": card, "decode_steps": len(device_ms["decode"]),
              "device_ms_per_decode_step": busy,
              "device_ops_per_decode_step": float(np.mean(device_ops["decode"])),
-             "step_ms_unprofiled": served[name]["step_ms"],
-             "device_idle_share_decode": 1.0 - busy / served[name]["step_ms"],
+             "step_ms_unprofiled": served[name]["step_ms"] if name in served else None,
+             "device_idle_share_decode": 1.0 - busy / served[name]["step_ms"] if name in served else None,
              "device_ms_per_prefill_chunk": float(np.mean(device_ms["prefill"])),
-             "ttft_ms_unprofiled": served[name]["ttft_ms"], **beside})
+             "ttft_ms_unprofiled": served[name]["ttft_ms"] if name in served else None, **beside})
         for kind in ("decode", "prefill"):
             n = len(device_ms[kind])
             top = sorted(kernel_ms[kind].items(), key=lambda kv: -kv[1])[:10]
@@ -1229,6 +1576,21 @@ def main():
          "predicted_tpot_ms_at_batch_8": predicted,
          "device_ms_per_decode_step": {w: profiled_ms[f"autoscaled_{w}"] for w in ("before", "after")},
          "host_wall_ms_per_step": wall_ms})
+    # phase 5d: device ms per decode step at the pools before and after each
+    # recovery, beside what the recoveries took
+    log({"phase": "fault_recovery_summary", "card": card,
+         "device_ms_per_decode_step": {
+             "disagg": {"1P2A4E (start, after the prefill loss 0P2A4E)": profiled_ms["autoscaled_before"],
+                        "1A4E (after the attention loss)": profiled_ms["fault_1a4e"],
+                        "1A3E (after the MoE loss)": profiled_ms["fault_1a3e"]},
+             "degrade": {"1A4E paged (start)": profiled_ms["fault_1a4e_paged"],
+                         "mono paged (after the degrade)": profiled_ms["fault_mono_paged"]}},
+         "recoveries": {run: fault_logs[(run, True)]["recoveries"] for run in fault_kw},
+         "fault_stall_s": {run: fault_logs[(run, True)]["fault_stall_s"] for run in fault_kw},
+         "replayed_tokens": {run: fault_logs[(run, True)]["replayed_tokens"] for run in fault_kw},
+         "replay_decode_steps": {run: fault_logs[(run, True)]["replay_decode_steps"] for run in fault_kw},
+         "peak_mem_gb": {f"{run}_{'faults' if hit else 'undisturbed'}": v["peak_mem_gb"]
+                         for (run, hit), v in fault_logs.items()}})
 
     # ---- 6. results ------------------------------------------------------
     log({"kernels": [rows[n] for n in cuda.LAUNCHES]})

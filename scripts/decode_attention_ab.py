@@ -29,8 +29,9 @@ beside
 them the launch floor, an empty kernel (``scripts/launch_floor.cu``, built
 into ``build/`` with the checkout's nvcc flags) in the same harness; K3
 ``expert_ffn_grouped`` at the decode shape (64 slots x CAP 4 x 2048 x 1408,
-the experts that 8 tokens' top-6 activate) and at a 64-token prefill
-chunk's (CAP 64, all 64 experts).  The inputs are those of
+the experts that 8 tokens' top-6 activate), at a 64-token prefill
+chunk's (CAP 64, all 64 experts) and at a batched prefill call's (two
+prompts' 64-token chunks, CAP 128).  The inputs are those of
 ``chip_smoke.py``'s phase 3.  ``--only`` keeps one group of kernels.  Needs
 one CUDA card; exits non-zero without one.
 """
@@ -240,8 +241,9 @@ def child(src, only):
         s2e = torch.arange(E, dtype=torch.int32, device=dev)
         eids = torch.from_numpy(make_routing_trace(8, E, top_k, skew=0.8, seed=1)).to(dev)
         counts = torch.bincount(eids.reshape(-1).long(), minlength=E)
-        for shape, CAP, active, iters in (("decode", 4, counts > 0, 50),
-                                          ("prefill", 64, torch.ones(E, dtype=torch.bool, device=dev), 20)):
+        every = torch.ones(E, dtype=torch.bool, device=dev)
+        for shape, CAP, active, iters in (("decode", 4, counts > 0, 50), ("prefill", 64, every, 20),
+                                          ("batched_prefill", 128, every, 20)):
             x = torch.randn((E, CAP, d), generator=gen, device=dev).to(bf)
             check("expert_ffn", ffn.expert_ffn_grouped(x, wg, wu, wd, s2e, active),
                   ffn.expert_ffn_grouped_ref(x, wg, wu, wd, s2e, active))

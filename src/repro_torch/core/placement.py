@@ -113,3 +113,26 @@ def build_layout(trace: np.ndarray, num_experts: int, num_instances: int, capaci
     R = allocate_replicas(counts, num_instances, capacity)
     A = coactivation_matrix(trace, num_experts)
     return place_replicas(R, A, num_instances, capacity, loads=counts)
+
+
+def layout_for_survivors(
+    num_experts: int,
+    n_surviving: int,
+    capacity: Optional[int] = None,
+    trace: Optional[np.ndarray] = None,
+) -> ReplicaLayout:
+    """Re-plan expert placement after a permanent MoE-device loss: seat every
+    expert on the ``n_surviving`` instances (ceil capacity, at least
+    ``capacity``, one slot of headroom when exactly full), activation-aware
+    from a routing ``trace`` or round-robin without one.  Every expert keeps
+    a seat, so expert semantics (and token streams) are unchanged."""
+    if n_surviving < 1:
+        raise ValueError("MoE pool lost its last device — degrade to mono instead")
+    C = -(-num_experts // n_surviving)
+    if capacity is not None:
+        C = max(C, capacity)
+    if n_surviving * C == num_experts:
+        C += 1
+    if trace is not None:
+        return build_layout(trace, num_experts, n_surviving, C)
+    return ReplicaLayout.round_robin(num_experts, n_surviving, C)

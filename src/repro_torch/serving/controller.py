@@ -86,8 +86,9 @@ class AutoScaler:
         self.device_losses.append((now, pool))
 
     def attach(self, engine) -> None:
-        """Subscribe to the engine's fault events (``engine.fault_listeners``)."""
-        raise NotImplementedError("attach: not ported yet (comes with fault recovery)")
+        """Subscribe to the engine's fault events (``engine.fault_listeners``),
+        so lost capacity feeds the next decision."""
+        engine.fault_listeners.append(lambda fault, t: self.on_device_loss(fault.pool, t))
 
     # -- demand estimation ---------------------------------------------------
     def observe(

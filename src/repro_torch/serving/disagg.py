@@ -1,5 +1,5 @@
 """Two-pool disaggregated decode execution, Janus §3.1-§3.3
-(``repro.serving.disagg.DisaggExecutor``, decode only, fault-free).
+(``repro.serving.disagg.DisaggExecutor``, decode only).
 
 :class:`DisaggExecutor` drives one continuous-batching decode step across two
 device pools:
@@ -37,6 +37,14 @@ whose count changed is rebuilt, and KV caches are re-sharded so in-flight
 requests continue undisturbed.  The prefill pool (``pools.prefill_devices``)
 is the engine's :class:`repro_torch.serving.prefill.PrefillWorker`'s; the
 executor keeps its place in the device split and reports when it moves.
+
+Faults: ``fault_hook("exchange", layer, micro_batch)`` (the engine's
+:meth:`repro_torch.serving.faults.FaultRuntime.exchange_hook` when a plan is
+armed) runs before each cross-pool exchange; a step it interrupts is retried
+whole (every KV write rewrites the same rows with the same values).
+:meth:`DisaggExecutor.exclude_device` drops a dead device from the universe
+and :meth:`DisaggExecutor.drop_attn_device` destroys a dead shard's KV and
+re-shards the batch over the survivors.
 """
 
 from __future__ import annotations
@@ -159,6 +167,8 @@ class DisaggExecutor:
             n_prefill=len(pools.prefill_devices),
         )
         self.relower_log: List[Dict[str, bool]] = []
+        # called before each cross-pool exchange when a fault plan is armed
+        self.fault_hook: Optional[Callable[[str, int, int], None]] = None
         self._kinds = kinds
         self._build_moe_side(layout)
         self._build_attn_side(len(pools.attn_devices), caches=None)
@@ -490,12 +500,6 @@ class DisaggExecutor:
     def publish_prefix(self, slot: int, tokens: np.ndarray, upto: int) -> None:
         raise _later("publish_prefix", "the prefix cache")
 
-    def exclude_device(self, pool: str, index: int) -> None:
-        raise _later("exclude_device", "fault recovery")
-
-    def drop_attn_device(self, dead: int) -> List[int]:
-        raise _later("drop_attn_device", "fault recovery")
-
     # ------------------------------------------------------------------
     # reconfigure (§3.5): rebuild only the affected pool
     # ------------------------------------------------------------------
@@ -565,6 +569,52 @@ class DisaggExecutor:
         self.disagg_cfg = disagg_reconfigure(self.disagg_cfg, n_attn, n_moe, new_layout, n_prefill=n_prefill)
         self.relower_log.append(relower)
         return relower
+
+    # ------------------------------------------------------------------
+    # fault recovery: device loss
+    # ------------------------------------------------------------------
+    def exclude_device(self, pool: str, index: int) -> None:
+        """Remove a dead device (by identity) from the universe the next
+        ``reconfigure`` re-splits.  A no-op on aliased pools (one card): the
+        loss is logical and recovery goes on on the shared device."""
+        dead = {
+            "attn": self.pools.attn_devices,
+            "moe": self.pools.moe_devices,
+            "prefill": self.pools.prefill_devices,
+        }[pool][index]
+        hits = [i for i, d in enumerate(self._all_devices) if d is dead]
+        if self._aliased or len(hits) != 1:
+            return
+        self._all_devices = [d for i, d in enumerate(self._all_devices) if i != hits[0]]
+
+    def drop_attn_device(self, dead: int) -> List[int]:
+        """Attention device ``dead`` died: zero its shards' KV (and release
+        their pages), set those slots' lengths to 0, exclude the device,
+        re-shard over the survivors and return the lost global batch rows
+        for the engine to rebuild.  Needs >= 2 attention devices; with one
+        the engine degrades to mono instead."""
+        n_attn = len(self.pools.attn_devices)
+        if not 0 <= dead < n_attn:
+            raise ValueError(f"no attention device {dead} (pool has {n_attn})")
+        if n_attn < 2:
+            raise ValueError("cannot drop the last attention device — degrade instead")
+        lost: List[int] = []
+        for si, s in enumerate(self.shards):
+            if s.dev_index != dead:
+                continue
+            lost.extend(range(s.lo, s.hi))
+            for layer_kv in self._kv[si]:
+                for short, t in layer_kv.items():
+                    if short != "bt":
+                        t.zero_()
+            if self._pagers is not None:
+                for r in range(s.rows):
+                    self._pagers[si].release(r)
+        if lost:
+            self._slot_len[np.asarray(lost)] = 0
+        self.exclude_device("attn", dead)
+        self.reconfigure(n_attn=n_attn - 1)
+        return sorted(lost)
 
     # ------------------------------------------------------------------
     # the exchange: realised two-phase transfer
@@ -690,6 +740,8 @@ class DisaggExecutor:
                 attn_mb(group)
                 t0 = time.perf_counter()
                 h2s = {self.shards[si].dev_index: h2s_all[si] for si in group}
+                if self.fault_hook is not None:
+                    self.fault_hook("exchange", li, m)
                 h_on_moe = self._run_exchange(h2s, regime, tel)
                 t0 = _tick("exchange", h_on_moe, t0)
                 res = [self._moe_fn(g, li, h_on_moe[g]) for g in range(self.n_moe)]

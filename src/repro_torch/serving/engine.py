@@ -27,7 +27,18 @@ disaggregated one (``executor="disagg"``), in FIFO order.
   clocks: ``step_time_fn(active slots)`` per decode step and
   ``prefill_time_fn(prompt tokens)`` per prefill call (prefill is free under
   a modeled decode clock without a prefill model), which make the schedule
-  the same on every device.
+  the same on every device;
+* faults (``fault_plan``, ``retry_policy``, ``watchdog``;
+  :mod:`repro_torch.serving.faults`): a heartbeat before each decode step
+  detects device losses and recovers from them (a lost MoE device re-plans
+  the layout onto the survivors, a lost attention device re-shards the batch
+  and rebuilds its slots by deterministic replay, a lost prefill device
+  requeues its prompts, the last device of a decode pool degrades to mono);
+  transient exchange and prefill-chunk faults retry under bounded
+  exponential backoff.  Every replayed token is checked against the
+  recorded stream;
+* admission deadlines: a request still waiting for a slot or its prefill
+  past ``Request.deadline`` is rejected (``metrics()["rejected"]``).
 
 Options of the reference that later slices port raise ``NotImplementedError``.
 """
@@ -42,15 +53,21 @@ import torch
 
 from repro_torch.core.aebs import ReplicaLayout
 from repro_torch.core.disagg import DevicePools
+from repro_torch.core.placement import layout_for_survivors
 from repro_torch.kernels.aebs.ops import aebs_schedule
 from repro_torch.models import model as model_mod
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import resolve_device, tree_to
+from repro_torch.serving.faults import DEVICE_LOSS, FaultPlan, FaultRuntime, PoolFault, RetryPolicy, Watchdog
 from repro_torch.serving.kv_cache import (
+    ACTIVE,
+    PREFILLING,
     PagedKVCache,
     SlotManager,
     make_paged_caches,
+    paginate_caches,
     scatter_prefill_chunk_caches,
     scatter_prefill_chunk_paged,
+    zero_slots,
 )
 from repro_torch.serving.disagg import DisaggExecutor
 from repro_torch.serving.prefill import PrefillEvent, PrefillWorker
@@ -68,9 +85,6 @@ _LATER = {
     "dispatch": (("grouped",), "the einsum/scatter oracles"),
     "kv_num_pages": ((None,), "preemption (an undersized page pool)"),
     "extra_builder": ((None,), "the other families"),
-    "fault_plan": ((None,), "fault recovery"),
-    "retry_policy": ((None,), "fault recovery"),
-    "watchdog": ((None,), "fault recovery"),
     "prefix_cache": ((False,), "the prefix cache"),
     "prefix_cache_pages": ((None,), "the prefix cache"),
     "draft_config": ((None,), "speculative decode"),
@@ -104,6 +118,9 @@ class ServingEngine:
         pools: Optional[DevicePools] = None,
         node_size: int = 1,
         ping_pong: bool = False,
+        fault_plan: Optional[FaultPlan] = None,
+        retry_policy: Optional[RetryPolicy] = None,
+        watchdog: Optional[Watchdog] = None,
         device="cuda",
         **later,
     ):
@@ -143,24 +160,22 @@ class ServingEngine:
         self.tokens = np.zeros((max_batch, 1), np.int64)
         self.clock = 0.0
         self.completed: List[Request] = []
+        self.rejected: List[Request] = []
         self.decode_stall_time = 0.0
-        self.steps_done = 0
+        self.steps_done = 0  # global decode-step ordinal (fault plans key off it)
         self.amax_log: List[int] = []
         self.regime_log: List[str] = []
         self.transfer_bytes_log: List[int] = []
-
-        moe_ctx = None
-        if cfg.has_moe and layout is not None and scheduler != "none":
-            moe_ctx = dict(
-                layout_tables=layout.device_tables(self.device),
-                slot_to_expert=torch.as_tensor(
-                    layout.slot_to_expert.reshape(-1), dtype=torch.int32, device=self.device
-                ),
-                num_instances=layout.num_instances,
-                scheduler=SCHEDULERS[scheduler],
-                capacity=capacity_tokens,
-            )
-        self._extra = {"moe_ctx": moe_ctx} if moe_ctx else None
+        self.executor_name = executor
+        self.kv_page_size = kv_page_size
+        self.faults: Optional[FaultRuntime] = None
+        self.degraded_reason: Optional[str] = None
+        # notified on every permanent device loss as fn(fault, clock); the
+        # AutoScaler attaches here
+        self.fault_listeners: List[Callable[[PoolFault, float], None]] = []
+        self._scheduler = SCHEDULERS[scheduler]
+        self._capacity = capacity_tokens
+        self._extra = self._mono_extra(layout)
 
         self.paged: Optional[PagedKVCache] = None
         self.disagg: Optional[DisaggExecutor] = None
@@ -202,6 +217,304 @@ class ServingEngine:
             device=self.device, cache_len=cache_len, chunk=prefill_chunk,
             capacity=prefill_capacity_tokens, batch=prefill_batch, prefill_time_fn=worker_time_fn,
         )
+        if fault_plan is not None:
+            self.arm_faults(fault_plan, policy=retry_policy, watchdog=watchdog)
+
+    def _mono_extra(self, layout: Optional[ReplicaLayout]) -> Optional[Dict]:
+        """The mono step's MoE context over ``layout``'s tables on the
+        engine's device (None without a layout or scheduler)."""
+        if not (self.cfg.has_moe and layout is not None and self._scheduler is not None):
+            return None
+        return {"moe_ctx": dict(
+            layout_tables=layout.device_tables(self.device),
+            slot_to_expert=torch.as_tensor(
+                layout.slot_to_expert.reshape(-1), dtype=torch.int32, device=self.device
+            ),
+            num_instances=layout.num_instances,
+            scheduler=self._scheduler,
+            capacity=self._capacity,
+        )}
+
+    # ------------------------------------------------------------------
+    # fault injection and recovery
+    # ------------------------------------------------------------------
+    def arm_faults(
+        self,
+        plan: FaultPlan,
+        policy: Optional[RetryPolicy] = None,
+        watchdog: Optional[Watchdog] = None,
+    ) -> FaultRuntime:
+        """Arm a fault plan: build the runtime and install its hooks on the
+        executor's exchange path and the prefill worker's chunk loop."""
+        self.faults = FaultRuntime(plan, policy=policy, watchdog=watchdog)
+        if self.disagg is not None:
+            self.disagg.fault_hook = self.faults.exchange_hook
+        self.prefill_worker.fault_hook = self.faults.prefill_hook
+        return self.faults
+
+    def _pool_sizes(self) -> Dict[str, int]:
+        sizes = {"attn": 0, "moe": 0}
+        if self.disagg is not None:
+            sizes["attn"] = len(self.disagg.pools.attn_devices)
+            sizes["moe"] = len(self.disagg.pools.moe_devices)
+        sizes["prefill"] = len(self.prefill_worker.devices)
+        return sizes
+
+    def _charge(self, dt: float) -> None:
+        """Advance the clock for fault handling (backoff, recovery) and book
+        the stall."""
+        if dt <= 0:
+            return
+        self.clock += dt
+        if self.faults is not None:
+            self.faults.stats.fault_stall_s += dt
+
+    def _fault_preflight(self) -> None:
+        """Heartbeat: fire the step-scheduled faults, then recover from every
+        device loss the health poll detects before the step runs."""
+        self.faults.advance_to_step(self.steps_done)
+        while True:
+            fault = self.faults.poll_health(self._pool_sizes())
+            if fault is None:
+                return
+            self._recover(fault)
+
+    def _recover(self, fault: PoolFault) -> None:
+        """Recover from a permanent fault and book its latency (wall time
+        across a device sync; a modeled clock is charged the policy's
+        ``recovery_charge_s`` instead)."""
+        t0 = time.perf_counter()
+        if fault.pool == "moe":
+            self._recover_moe_loss(fault)
+        elif fault.pool == "attn":
+            self._recover_attn_loss(fault)
+        elif fault.pool == "prefill":
+            self._recover_prefill_loss(fault)
+        else:
+            self._degrade_to_mono(f"unrecoverable fault: {fault}")
+        self.faults.mark_handled(fault)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        stats = self.faults.stats
+        stats.recoveries += 1
+        stats.recovery_latency_s.append(wall)
+        self._charge(self.faults.policy.recovery_charge_s if self.step_time_fn else wall)
+        if fault.kind == DEVICE_LOSS:
+            for listener in self.fault_listeners:
+                listener(fault, self.clock)
+
+    def _recover_moe_loss(self, fault: PoolFault) -> None:
+        """Re-plan expert placement onto the surviving MoE devices and rebuild
+        only the MoE pool; every expert keeps a seat."""
+        ex = self.disagg
+        if ex is None:
+            return  # already mono: there is no MoE pool to lose
+        n_moe = len(ex.pools.moe_devices)
+        if n_moe <= 1:
+            self._degrade_to_mono("lost the last MoE device")
+            return
+        ex.exclude_device("moe", fault.index)
+        self.reconfigure(n_moe=n_moe - 1, layout=layout_for_survivors(self.cfg.num_experts, n_moe - 1))
+
+    def _recover_attn_loss(self, fault: PoolFault) -> None:
+        """The dead shard's KV rows are gone: re-shard the batch over the
+        survivors and rebuild each lost slot (or degrade to mono when no
+        attention device survives, rebuilding every slot)."""
+        ex = self.disagg
+        if ex is None:
+            return
+        if len(ex.pools.attn_devices) <= 1:
+            self._degrade_to_mono("lost the last attention device", lost_rows=list(range(self.max_batch)))
+            return
+        self._rebuild_lost_slots(ex.drop_attn_device(fault.index))
+
+    def _recover_prefill_loss(self, fault: PoolFault) -> None:
+        """Drop the dead prefill device's in-flight prompts, shrink the pool
+        and requeue them from chunk 0 (chunked prefill is deterministic)."""
+        worker = self.prefill_worker
+        displaced = worker.fail_device(fault.index)
+        if self.disagg is not None and len(self.disagg.pools.prefill_devices) > 0:
+            self.disagg.exclude_device("prefill", fault.index)
+            self.reconfigure(n_prefill=len(self.disagg.pools.prefill_devices) - 1)
+        else:
+            worker.set_devices([d for i, d in enumerate(worker.devices) if i != fault.index], self.params)
+        for req in displaced:
+            self._requeue(req)
+
+    def _requeue(self, req: Request) -> None:
+        """Restart ``req``'s prompt from chunk 0 in its own slot."""
+        slot = req.slot
+        self.slots.fail(slot)
+        self.slots.requeue(slot)
+        self.slots.start_prefill(slot)
+        self._release_pages(slot)
+        self.prefill_worker.submit(req, slot, now=max(self.clock, req.arrival))
+        self.faults.stats.requeued += 1
+
+    def _rebuild_lost_slots(self, lost_rows: List[int]) -> None:
+        """ACTIVE slots whose rows died replay their whole history; PREFILLING
+        ones restart their prompt (its streamed chunks died with the rows);
+        reserved and free slots lost nothing."""
+        for slot in lost_rows:
+            state = self.slots.state[slot]
+            if state == ACTIVE:
+                self._replay_slot(slot)
+                self.faults.stats.replayed_slots += 1
+            elif state == PREFILLING:
+                req = self._withdraw(slot)
+                if req is not None:
+                    self._requeue(req)
+
+    def _replay_slot(self, slot: int) -> None:
+        """Rebuild one slot's KV: re-prefill its prompt on the worker's chunk
+        grid, then re-decode its generated tokens one step at a time with
+        every other slot parked at the scratch row (position ``cache_len -
+        1``, token 0).  Each replayed token must equal the recorded one."""
+        req = self.slots.slot_req[slot]
+        first = self.prefill_worker.run_sync(self.prefill_worker.prompt_of(req), slot, self._chunk_sink)
+        if req.tokens_out and first != req.tokens_out[0]:
+            raise RuntimeError(
+                f"recovery replay diverged at the first token of slot {slot}: {first} != {req.tokens_out[0]}"
+            )
+        for t in range(req.generated):
+            toks = np.zeros((self.max_batch, 1), np.int64)
+            toks[slot, 0] = req.tokens_out[t]
+            pos = np.full((self.max_batch,), self.cache_len - 1, np.int64)
+            pos[slot] = req.input_len + t
+            self._ensure_pages({slot: req.input_len + t})
+            toks_d, pos_d = torch.from_numpy(toks).to(self.device), torch.from_numpy(pos).to(self.device)
+            if self.disagg is not None:
+                logits, _ = self.disagg.decode_step(toks_d, pos_d)
+            else:
+                logits, self.caches = model_mod.decode_step(
+                    self.params, toks_d, self.caches, pos_d, self.cfg, extra=self._extra
+                )
+            nxt = int(model_mod.greedy_token(logits)[slot])
+            if nxt != req.tokens_out[t + 1]:
+                raise RuntimeError(
+                    f"recovery replay diverged at generated token {t} of slot {slot}: "
+                    f"{nxt} != {req.tokens_out[t + 1]}"
+                )
+
+    def _degrade_to_mono(self, reason: str, lost_rows: Optional[List[int]] = None) -> None:
+        """Last resort: collapse the disaggregated executor onto the engine's
+        device.  The surviving KV is exported (re-paginated when paged), the
+        ``lost_rows`` zeroed and rebuilt by replay after the switch, and the
+        mono step runs over the layout current at this moment."""
+        if self.faults is not None:
+            self.faults.stats.degraded += 1
+        ex = self.disagg
+        if ex is None:
+            return
+        caches = tree_to(ex.export_caches(), self.device)
+        lengths = ex.slot_lengths()
+        self.disagg = ex = None  # its KV shards are freed before the copy
+        if lost_rows:
+            zero_slots(caches, lost_rows)
+            lengths[np.asarray(lost_rows)] = 0
+        if self.kv_page_size is not None:
+            self.paged, caches = paginate_caches(caches, lengths, self.kv_page_size)
+        self.caches = caches
+        self._extra = self._mono_extra(self.layout)
+        self.executor_name = "mono"
+        self.degraded_reason = reason
+        if lost_rows:
+            self._rebuild_lost_slots(lost_rows)
+
+    def _guarded_decode(self, positions: torch.Tensor):
+        """One decode step in the fault envelope: a transient exchange fault
+        retries the (idempotent) step under exponential backoff; a spent
+        retry budget degrades to mono; injected sub-deadline delays are
+        charged to the clock."""
+        if self.faults is None:
+            return self._decode_once(positions)
+        attempt = 0
+        while True:
+            try:
+                out = self._decode_once(positions)
+            except PoolFault as fault:
+                if not fault.transient:
+                    self._recover(fault)
+                    continue
+                attempt += 1
+                self.faults.stats.retries += 1
+                if attempt > self.faults.policy.max_retries:
+                    self.faults.mark_handled(fault)
+                    self._degrade_to_mono(f"retry budget exhausted: {fault}")
+                    continue
+                self._charge(self.faults.policy.delay(attempt))
+                continue
+            self._charge(self.faults.consume_delay())
+            return out
+
+    def _decode_once(self, positions: torch.Tensor):
+        """One batched step: (next tokens on the host, telemetry or None)."""
+        tokens = torch.from_numpy(self.tokens).to(self.device)
+        tel = None
+        if self.disagg is not None:
+            logits, tel = self.disagg.decode_step(tokens, positions)
+        else:
+            logits, self.caches = model_mod.decode_step(
+                self.params, tokens, self.caches, positions, self.cfg, extra=self._extra
+            )
+        return model_mod.greedy_token(logits).cpu().numpy(), tel  # waits for the device
+
+    def _worker_poll(self) -> List[PrefillEvent]:
+        """Poll the prefill worker in the fault envelope: a transient chunk
+        fault retries (the hook fires before any compute); a spent budget
+        becomes a loss of that device."""
+        if self.faults is None:
+            return self.prefill_worker.poll(self._chunk_sink)
+        attempt = 0
+        while True:
+            try:
+                return self.prefill_worker.poll(self._chunk_sink)
+            except PoolFault as fault:
+                if not fault.transient:
+                    self._recover(fault)
+                    continue
+                attempt += 1
+                self.faults.stats.retries += 1
+                if attempt > self.faults.policy.max_retries:
+                    self.faults.mark_handled(fault)
+                    self._recover(PoolFault("prefill", fault.index, DEVICE_LOSS, transient=False,
+                                            detail="chunk retry budget exhausted"))
+                    attempt = 0
+                    continue
+                self._charge(self.faults.policy.delay(attempt))
+
+    def _reject(self, req: Request) -> None:
+        """Admission control: the deadline passed before the request was
+        served; it holds no slot and emits no tokens."""
+        req.rejected = True
+        req.finished = self.clock
+        self.rejected.append(req)
+
+    def cancel_slot(self, slot: int) -> Optional[Request]:
+        """Withdraw a reserved or prefilling request before activation: pull
+        it from the worker (or its finished event), release the slot's pages
+        and free the slot.  Returns the request, or None when the slot holds
+        nothing to cancel (free or active)."""
+        req = self._withdraw(slot)
+        if req is None:
+            held = self.slots.slot_req[slot]
+            if held is not None and self.slots.state[slot] != ACTIVE:
+                req = held
+        if req is None:
+            return None
+        self._release_pages(slot)
+        self.slots.release(slot)
+        return req
+
+    def _withdraw(self, slot: int) -> Optional[Request]:
+        """Pull a prefilling slot's request from the worker, or drop its
+        finished but not yet activated event."""
+        req = self.prefill_worker.cancel_slot(slot)
+        if req is None:
+            req = next((ev.req for ev in self._ready if ev.slot == slot), None)
+            self._ready = [ev for ev in self._ready if ev.slot != slot]
+        return req
 
     # ------------------------------------------------------------------
     def _prefill_request(self, req: Request) -> None:
@@ -213,7 +526,7 @@ class ServingEngine:
         self.prefill_worker.submit(req, slot, now=now)
         events: List[PrefillEvent] = []
         while not events:
-            events = self.prefill_worker.poll(self._chunk_sink)
+            events = self._worker_poll()
         ev = events[0]
         dt = ev.finish_t - now
         self.slots.activate(slot)
@@ -260,7 +573,7 @@ class ServingEngine:
     def _poll_prefill(self) -> None:
         """Advance the prefill pipeline and activate the finished requests
         whose completion stamp the decode clock has passed."""
-        self._ready.extend(self.prefill_worker.poll(self._chunk_sink))
+        self._ready.extend(self._worker_poll())
         still: List[PrefillEvent] = []
         for ev in self._ready:
             if ev.finish_t <= self.clock:
@@ -276,15 +589,18 @@ class ServingEngine:
     def _prefill_pending(self) -> int:
         return self.prefill_worker.num_pending + len(self._ready)
 
-    def _ensure_pages(self) -> None:
-        """Back every active slot's next write position with a page."""
+    def _ensure_pages(self, at: Optional[Dict[int, int]] = None) -> None:
+        """Back each slot's next write position with a page: every active
+        slot's, or only ``at``'s (slot -> position, as the replay asks)."""
+        if at is None:
+            at = {s: int(self.slots.positions[s]) for s in self.slots.active_slots}
         if self.paged is not None:
-            for s in self.slots.active_slots:
-                self.paged.ensure(s, int(self.slots.positions[s]))
+            for s, pos in at.items():
+                self.paged.ensure(s, pos)
             self.caches["block_tables"] = self.paged.table_device(self.device)
         elif self.disagg is not None:
-            for s in self.slots.active_slots:
-                self.disagg.ensure_slot_pages(s, int(self.slots.positions[s]))
+            for s, pos in at.items():
+                self.disagg.ensure_slot_pages(s, pos)
 
     def _release_pages(self, slot: int) -> None:
         if self.paged is not None:
@@ -293,20 +609,16 @@ class ServingEngine:
             self.disagg.release_slot(slot)
 
     def _decode_iteration(self) -> None:
+        if self.faults is not None:
+            self._fault_preflight()
         self._ensure_pages()
         positions = self.slots.positions_device(self.device)
-        tokens = torch.from_numpy(self.tokens).to(self.device)
         t0 = time.perf_counter()
-        if self.disagg is not None:
-            logits, tel = self.disagg.decode_step(tokens, positions)
+        next_tokens, tel = self._guarded_decode(positions)
+        if tel is not None:
             self.regime_log.append(tel["regime"])
             self.transfer_bytes_log.append(tel["bytes_total"])
             self.amax_log.append(tel["a_max"])
-        else:
-            logits, self.caches = model_mod.decode_step(
-                self.params, tokens, self.caches, positions, self.cfg, extra=self._extra
-            )
-        next_tokens = model_mod.greedy_token(logits).cpu().numpy()  # waits for the device
         wall = time.perf_counter() - t0
         self.clock += self.step_time_fn(self.slots.num_active) if self.step_time_fn else wall
         self.steps_done += 1
@@ -330,6 +642,23 @@ class ServingEngine:
         waiting = sorted(requests, key=lambda r: r.arrival)
         steps = 0
         while (waiting or self.slots.num_active or self._prefill_pending()) and steps < max_steps:
+            # admission control: an arrived request whose deadline passed
+            # while the engine was saturated is rejected (it held no slot)
+            if any(r.deadline is not None for r in waiting):
+                kept = []
+                for r in waiting:
+                    if r.deadline is not None and r.arrival <= self.clock and self.clock > r.deadline:
+                        self._reject(r)
+                    else:
+                        kept.append(r)
+                waiting = kept
+            # a reserved or prefilling request whose deadline passed is
+            # cancelled, and its slot and pages return to the pool
+            for slot in self.slots.pending_slots:
+                req = self.slots.slot_req[slot]
+                if req is not None and req.deadline is not None and self.clock > req.deadline:
+                    if self.cancel_slot(slot) is not None:
+                        self._reject(req)
             while (waiting and waiting[0].arrival <= self.clock and self.slots.free_slots
                    and self._admission_open()):
                 req = waiting.pop(0)
@@ -378,12 +707,17 @@ class ServingEngine:
         done = self.completed
         out: Dict = {"completed": len(done), "tokens": sum(r.generated for r in done)}
         out["truncated"] = sum(1 for r in done if r.truncated)
+        out["rejected"] = len(self.rejected)
         out["decode_stall_time"] = self.decode_stall_time
         out["prefill_chunks"] = self.prefill_worker.chunks_done
         if self.paged is not None:
             out["kv_pages"] = self.paged.stats()
         elif self.disagg is not None and self.disagg.kv_page_size is not None:
             out["kv_pages"] = self.disagg.page_stats()
+        if self.faults is not None:
+            out["faults"] = self.faults.stats.as_dict()
+            if self.degraded_reason is not None:
+                out["degraded_reason"] = self.degraded_reason
         # disaggregated-exchange telemetry: which two-phase regime served
         # each step, the bytes it moved, and the busiest instance's load
         if self.regime_log:

@@ -1,9 +1,11 @@
 """Slot manager and paged KV storage for continuous batching
 (``repro.serving.kv_cache``).
 
-Slots walk ``FREE -> RESERVED -> PREFILLING -> ACTIVE -> FREE``; inactive
-slots park their write position at ``cache_len - 1``, a scratch row no live
-context reaches, so the batched decode runs unconditionally.
+Slots walk ``FREE -> RESERVED -> PREFILLING -> ACTIVE -> FREE``; a prefill
+lost to a fault detours ``PREFILLING -> FAILED -> REQUEUED -> PREFILLING``
+(the prompt restarts at chunk 0).  Inactive slots park their write position
+at ``cache_len - 1``, a scratch row no live context reaches, so the batched
+decode runs unconditionally.
 
 Paged storage replaces the ``[L, B, S, ...]`` caches by page pools
 ``[L, P, ps, ...]`` and per-slot block tables ``[B, S / ps]``.  Page 0 is the
@@ -27,6 +29,8 @@ FREE = "free"
 RESERVED = "reserved"
 PREFILLING = "prefilling"
 ACTIVE = "active"
+FAILED = "failed"  # the slot's in-flight prefill was lost to a fault
+REQUEUED = "requeued"  # handed back to the prefill queue, restarting at chunk 0
 
 # the caches stored page-indirectly: full-attention K/V and, for int8 KV,
 # their scales (``kv_cache.py:294``); a config has the keys it needs
@@ -53,6 +57,11 @@ class SlotManager:
         return [i for i, s in enumerate(self.state) if s == ACTIVE]
 
     @property
+    def pending_slots(self) -> List[int]:
+        """Slots owned by a request whose prefill has not finished."""
+        return [i for i, s in enumerate(self.state) if s in (RESERVED, PREFILLING, FAILED, REQUEUED)]
+
+    @property
     def num_active(self) -> int:
         return len(self.active_slots)
 
@@ -68,9 +77,21 @@ class SlotManager:
         return s
 
     def start_prefill(self, slot: int) -> None:
-        if self.state[slot] != RESERVED:
-            raise RuntimeError(f"slot {slot} is {self.state[slot]}, expected {RESERVED}")
+        if self.state[slot] not in (RESERVED, REQUEUED):
+            raise RuntimeError(f"slot {slot} is {self.state[slot]}, expected {RESERVED} or {REQUEUED}")
         self.state[slot] = PREFILLING
+
+    def fail(self, slot: int) -> None:
+        """Mark a slot whose in-flight prefill was lost to a fault."""
+        if self.state[slot] not in (RESERVED, PREFILLING):
+            raise RuntimeError(f"slot {slot} is {self.state[slot]}, cannot fail")
+        self.state[slot] = FAILED
+
+    def requeue(self, slot: int) -> None:
+        """Hand a failed slot back to the prefill queue (restart at chunk 0)."""
+        if self.state[slot] != FAILED:
+            raise RuntimeError(f"slot {slot} is {self.state[slot]}, expected {FAILED}")
+        self.state[slot] = REQUEUED
 
     def activate(self, slot: int) -> None:
         if self.state[slot] not in (RESERVED, PREFILLING):
@@ -90,6 +111,31 @@ class SlotManager:
 
     def positions_device(self, device) -> torch.Tensor:
         return torch.from_numpy(self.positions.astype(np.int64)).to(device)
+
+
+def zero_slots(
+    batch_caches: Dict[str, torch.Tensor],
+    slots: List[int],
+    paged: Optional["PagedKVCache"] = None,
+) -> Dict[str, torch.Tensor]:
+    """Destroy the KV rows of ``slots`` (batch axis 1), in place: a dead
+    attention shard's rows are zeroed before re-sharding, so recovery must
+    rebuild them by replay rather than read what a real failure destroyed.
+    With a ``paged`` manager the page pools (:data:`PAGED_KEYS`) zero the
+    pages those slots own instead; the block tables survive."""
+    if not slots:
+        return batch_caches
+    idx = torch.as_tensor(np.asarray(slots, np.int64))
+    for k, v in batch_caches.items():
+        if k == "block_tables":
+            continue
+        if paged is not None and k in PAGED_KEYS:
+            pages = paged.pages_of(slots)
+            if len(pages):
+                v[:, torch.from_numpy(pages).to(v.device)] = 0
+        else:
+            v[:, idx.to(v.device)] = 0
+    return batch_caches
 
 
 def chunk_rows(cache_len: int, start: int, length: int) -> np.ndarray:
@@ -211,6 +257,10 @@ class PagedKVCache:
             raise RuntimeError(f"slot {slot} rows [{start}, {start + length}) not page-backed")
         return self.tables[slot, blocks], positions % self.page_size
 
+    def pages_of(self, slots: List[int]) -> np.ndarray:
+        """Every pool page ``slots`` own, sorted (for targeted zeroing)."""
+        return np.asarray(sorted(p for s in slots for p in self._owned[s]), np.int64)
+
     def slot_blocks(self, slot: int) -> int:
         """Pages ``slot`` owns, in block order from block 0."""
         return len(self._owned[slot])
@@ -280,3 +330,27 @@ def scatter_prefill_chunk_paged(
         batch_caches[k][:, pages_t, offs_t] = one_caches[k][:, 0, rows].to(batch_caches[k].dtype)
     batch_caches["block_tables"] = pager.table_device(dev)
     return batch_caches
+
+
+def paginate_caches(caches: Dict[str, torch.Tensor], lengths: np.ndarray, page_size: int):
+    """Re-paginate dense ``[L, B, S, ...]`` caches (a disagg export when the
+    engine degrades to mono): each slot's live ``lengths`` rows get fresh
+    pages and are copied in.  Page ids are new; the position -> value mapping
+    is exact, so replayed streams stay the same.  Returns ``(pager,
+    paged_caches)`` on the caches' device."""
+    B, S = caches["kv_k"].shape[1:3]
+    pager, out = make_paged_caches(caches, B, S, page_size)
+    dev = caches["kv_k"].device
+    for slot in range(B):
+        ln = int(lengths[slot])
+        if ln <= 0:
+            continue
+        pager.ensure(slot, ln - 1)
+        pages, offs = pager.rows_of(slot, 0, ln)
+        pages_t = torch.from_numpy(pages.astype(np.int64)).to(dev)
+        offs_t = torch.from_numpy(offs.astype(np.int64)).to(dev)
+        for k in PAGED_KEYS:
+            if k in caches:
+                out[k][:, pages_t, offs_t] = caches[k][:, slot, :ln]
+    out["block_tables"] = pager.table_device(dev)
+    return pager, out

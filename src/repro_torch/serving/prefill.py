@@ -1,5 +1,5 @@
 """Prefill pool worker: chunked prompt prefill with streamed KV hand-off
-(``repro.serving.prefill.PrefillWorker``, fault-free).
+(``repro.serving.prefill.PrefillWorker``).
 
 The worker owns the prefill pool's devices (``DevicePools.prefill_devices``;
 on one card they alias the engine's device), each with the model's
@@ -26,6 +26,12 @@ the completion stamp.  Prompts route over logical experts (no replica
 scheduling) with drop-free capacity by default: each call's own token count
 (``prefill.py:112-123``); ``capacity`` fixes it instead (the engine's
 ``prefill_capacity_tokens``).
+
+Faults: ``fault_hook(slot, device index, chunk ordinal)`` (the engine's
+:meth:`repro_torch.serving.faults.FaultRuntime.prefill_hook` when a plan is
+armed) runs before any compute of a chunk, so a retried poll is safe;
+:meth:`PrefillWorker.fail_device` drops a dead device's in-flight work and
+:meth:`PrefillWorker.run_sync` replays a prompt for recovery.
 """
 
 from __future__ import annotations
@@ -89,6 +95,8 @@ class PrefillWorker:
         self.batch = max(1, int(batch))
         self.batched = self.batch > 1 and model_mod.supports_batched_prefill(cfg)
         self.chunks_done = 0
+        # called before each chunk's compute when a fault plan is armed
+        self.fault_hook: Optional[Callable[[int, int, int], None]] = None
         self._queue: List[_InFlight] = []
         self.set_devices(devices, params)
 
@@ -120,17 +128,71 @@ class PrefillWorker:
     # admission
     # ------------------------------------------------------------------
     def submit(self, req: Request, slot: int, now: float) -> None:
-        """Queue a reserved request (FIFO); a request without a prompt gets the
-        reference's seeded synthetic one."""
-        prompt = req.prompt
-        if prompt is None:
-            rng = np.random.default_rng(req.rid)
-            prompt = rng.integers(0, self.cfg.vocab_size, size=req.input_len, dtype=np.int32)
-        self._queue.append(_InFlight(req, slot, -1, np.asarray(prompt, np.int32), ready_t=now))
+        """Queue a reserved request (FIFO)."""
+        self._queue.append(_InFlight(req, slot, -1, self.prompt_of(req), ready_t=now))
+
+    def prompt_of(self, req: Request) -> np.ndarray:
+        """The request's prompt, or the reference's seeded synthetic one."""
+        if req.prompt is not None:
+            return np.asarray(req.prompt, np.int32)
+        rng = np.random.default_rng(req.rid)
+        return rng.integers(0, self.cfg.vocab_size, size=req.input_len, dtype=np.int32)
 
     @property
     def num_pending(self) -> int:
         return len(self._queue) + sum(len(g) for g in self._current)
+
+    # ------------------------------------------------------------------
+    # fault recovery
+    # ------------------------------------------------------------------
+    def fail_device(self, dev_index: int) -> List[Request]:
+        """A prefill device died: drop its in-flight entries' partial caches
+        (they lived on the dead device) and return the displaced requests for
+        the engine to requeue from chunk 0.  The device stays in
+        ``self.devices`` until the engine resizes the pool."""
+        displaced: List[Request] = []
+        if 0 <= dev_index < len(self._current):
+            for entry in self._current[dev_index]:
+                entry.caches = None
+                entry.done = 0
+                displaced.append(entry.req)
+            self._current[dev_index] = []
+        return displaced
+
+    def cancel_slot(self, slot: int) -> Optional[Request]:
+        """Withdraw a queued or in-flight request by slot; returns it, or None
+        if the worker no longer holds it."""
+        for i, entry in enumerate(self._queue):
+            if entry.slot == slot:
+                return self._queue.pop(i).req
+        for group in self._current:
+            for entry in group:
+                if entry.slot == slot:
+                    group.remove(entry)
+                    return entry.req
+        return None
+
+    def run_sync(self, prompt: np.ndarray, slot: int, sink) -> int:
+        """Replay ``prompt`` synchronously on pool device 0, streaming every
+        chunk through ``sink``; it bypasses the queue, the pool timeline and
+        the fault hook (recovery work is not re-faulted).  The chunk grid is
+        the queued path's (fixed size from 0), so the replayed KV is what the
+        original admission streamed.  Returns the first generated token."""
+        dev, params = self.devices[0], self._params[0]
+        prompt = np.asarray(prompt, np.int32)
+        n = len(prompt)
+        if not self.chunked:
+            toks = torch.from_numpy(prompt[None, :].astype(np.int64)).to(dev)
+            logits, caches = model_mod.prefill(params, toks, self.cfg, self.cache_len, extra=self._extra(n))
+            sink(slot, 0, -1, caches)
+            return int(model_mod.greedy_token(logits)[0])
+        caches = model_mod.init_decode_caches(self.cfg, 1, self.cache_len, dev)
+        for lo in range(0, n, self.chunk):
+            hi = min(lo + self.chunk, n)
+            toks = torch.from_numpy(prompt[lo:hi][None, :].astype(np.int64)).to(dev)
+            logits, caches = model_mod.prefill_chunk(params, toks, caches, lo, self.cfg, extra=self._extra(hi - lo))
+            sink(slot, lo, hi - lo, caches)
+        return int(model_mod.greedy_token(logits)[0])
 
     # ------------------------------------------------------------------
     # the pipeline: one poll = at most ``max_chunks_per_poll`` chunks a device
@@ -178,6 +240,9 @@ class PrefillWorker:
         return {"moe_ctx": {"capacity": n_tokens if self.capacity is None else self.capacity}}
 
     def _advance(self, entry: _InFlight, sink) -> Optional[PrefillEvent]:
+        if self.fault_hook is not None:
+            # before any compute or state change: a retried poll is safe
+            self.fault_hook(entry.slot, entry.dev_index, self.chunks_done)
         dev = self.devices[entry.dev_index]
         params = self._params[entry.dev_index]
         n = len(entry.prompt)
@@ -225,6 +290,9 @@ class PrefillWorker:
         padded to the widest chunk and masked by their own (start, length).
         The device's timeline is charged once for the call."""
         group = self._current[di]
+        if self.fault_hook is not None:
+            for e in group:
+                self.fault_hook(e.slot, e.dev_index, self.chunks_done)
         dev = self.devices[di]
         for e in group:
             if e.caches is None:

@@ -16,12 +16,19 @@ class Request:
     input_len: int
     output_len: int  # target generation length
     prompt: Optional[np.ndarray] = None  # token ids
+    # admission deadline (absolute clock time): a request still waiting for a
+    # slot or for prefill past it is rejected (``metrics()["rejected"]``)
+    # instead of queuing unboundedly; None waits forever
+    deadline: Optional[float] = None
     # runtime state
     slot: int = -1
     prefill_done: float = -1.0
     generated: int = 0
     token_times: Optional[List[float]] = None
     finished: float = -1.0
+    # terminal admission rejection: the deadline passed before activation, so
+    # the request holds no slot and emitted no tokens
+    rejected: bool = False
     # context window exhausted before output_len tokens were generated
     truncated: bool = False
     # greedy token ids emitted (first from prefill, then one per decode step)

@@ -461,10 +461,12 @@ def test_executor_validation(setup):
                        bad, max_batch=B, cache_len=CACHE_LEN)
     ex = _executor(setup, 2)
     for call in (lambda: ex.decode_step_verify(None, None, None), lambda: ex.spill_slot(0),
-                 lambda: ex.splice_prefix(0, None, 0), lambda: ex.exclude_device("moe", 0),
-                 lambda: ex.drop_attn_device(0)):
+                 lambda: ex.splice_prefix(0, None, 0)):
         with pytest.raises(NotImplementedError, match="comes with"):
             call()
+    universe = list(ex._all_devices)
+    ex.exclude_device("moe", 0)  # pools alias one device: a logical loss
+    assert ex._all_devices == universe
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ relative (the same float64 arithmetic in the same order).  Both sides run at
 ``hw=TPU_V5E``, the reference's default and the port's."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -215,5 +216,8 @@ def test_autoscaler_validation_and_replan():
                           ref_ctl.replan_layout(trace, 8).slot_to_expert)
     with pytest.raises(ValueError, match="executor='disagg'"):
         ctl.actuate(object(), now=0.0)
-    with pytest.raises(NotImplementedError, match="fault recovery"):
-        ctl.attach(object())
+    engine = types.SimpleNamespace(fault_listeners=[])
+    ctl.attach(engine)
+    assert len(engine.fault_listeners) == 1
+    engine.fault_listeners[0](types.SimpleNamespace(pool="attn"), 3.0)
+    assert ctl.device_losses == [(3.0, "attn")] and ctl.scaler.n_max == ref_ctl.scaler.n_max - 1
