@@ -22,7 +22,11 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      the disaggregated executor's shapes of phase 5: K4 and K5 over a 4-row
      attention shard (K4 also over a 2-row one, phase 5c after its resize),
      K1 over a 2-row ping-pong shard with its own block table, K3 over each
-     MoE instance's 17 slots through its row of ``slot_to_expert``;
+     MoE instance's 17 slots through its row of ``slot_to_expert``; K1 also
+     over the block tables of phase 5e, built by ``PagedKVCache``'s splice,
+     spill and restore: three slots sharing 12 pages, a 200-row prefix with
+     a copied-on-write tail page, and a slot restored into another slot
+     index with its page ids out of order;
   4. reduced parity: dsv2-lite-reduced in float32 through the plain versions
      on the CPU and through the kernels on the card, same seeded weights and
      requests, for four KV layouts: paged (K1), contiguous (K4), int8
@@ -38,7 +42,14 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      prefill, an attention and a MoE device and times an exchange out twice,
      and an n_attn=1 attention loss over paged KV that degrades to mono:
      streams CPU = card = the fault-free run's, fault stats (without their
-     wall-clock latencies) and ``amax_log`` CPU = card, launches exact;
+     wall-clock latencies) and ``amax_log`` CPU = card, launches exact; then
+     the prefix cache and priority preemption: prefix hits on mono paged KV
+     (24-token chunks over pages of 16, so a hit copies on write),
+     ``sched="priority"`` preemption on mono paged KV, disagg with both, an
+     attention loss while requests are spilled (their restores replay) and a
+     two-tenant ``TraceSpec`` served: streams, ``prefix_cache``,
+     preemptions, restores, spill replays, ``slo`` and ``kv_pages`` CPU =
+     card, launches exact;
   5. full-width serving: dsv2-lite (27 layers, d 2048, 64 experts top-6 + 2
      shared, vocab 102400) with random bf16 weights drawn once on the card
      from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
@@ -67,9 +78,17 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      to an undisturbed run of its deployment (a flip only on a bf16
      near-tie), with recovery latencies, replayed tokens, fault stall and
      peak memory logged and launches exact over every served, retried and
-     replayed step; then a profiled short run of each mono layout, each
-     disagg run and each pool size the fault runs pass through (device time
-     per step, idle share);
+     replayed step; then (5e) the prefix cache and priority preemption at
+     full width: 12 requests behind a 192-token system prompt on mono paged
+     KV with the prefix cache and without (prefill chunks exact: each later
+     request runs only the chunks past its match), 8 batch and 4 chat
+     requests under ``sched="priority"`` and FIFO on a modeled clock (the
+     chat burst spills batch slots, which restore), and both together on
+     disagg against FIFO without the cache; each held to its undisturbed
+     run (a flip only on a bf16 near-tie) with launches exact; then a
+     profiled short run of each mono layout, each disagg run, each pool
+     size the fault runs pass through and 5e's prefix and preemption runs
+     (device time per step, idle share);
   6. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
@@ -93,9 +112,18 @@ SCALAR_OPS = 67e12  # fp32 / int32 outside the tensor cores
 # one bf16 rounding of an f32 result: an ulp is at most 2^-7 of the value,
 # and f32 summation-order noise is kept under 2^-12 of the largest output
 ROUNDING_REL, ROUNDING_FLOOR = 2.0**-7, 2.0**-12
+# calls of a run that phase 5b profiles (the rest run unprofiled): each
+# costs ~1-4 s of host time under the profiler, and device time a step
+# varies by under 1% across a run
+PROFILE_CALLS = {"decode": 8, "prefill": 4}
+_START = time.perf_counter()
 
 
 def log(obj):
+    """Print one line; a phase's line also gets ``t_s``, the seconds since
+    the script started, so that the phases' card time can be read."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
@@ -156,9 +184,10 @@ class StepTally:
     pools it ran at and, for a step a fault hook interrupted, the (layer,
     micro-batch) it stopped before; so the launches of a run with faults are
     held exactly; also the prefill calls (the queued path's and the
-    replay's).  Wraps the engine's executor, its replay and the mono
-    ``decode_step`` and prefill calls of ``model_mod``; ``close`` restores
-    the module."""
+    replay's).  Wraps the engine's executor (when it has one), its replay and
+    the mono ``decode_step`` and prefill calls of ``model_mod``; ``close``
+    restores the module.  A spill or a restore moves block tables only and
+    launches nothing, so a preempting run's launches are its steps'."""
 
     PREFILL = ("prefill_chunk", "prefill_chunk_batched", "prefill")
 
@@ -169,7 +198,7 @@ class StepTally:
         self._prefill = {n: getattr(model_mod, n) for n in self.PREFILL}
         self._at, self._replaying = None, False
         ex = engine.disagg
-        hook = ex.fault_hook
+        hook = ex.fault_hook if ex is not None else None
 
         def traced_hook(site, li, m):
             self._at = (li, m)
@@ -209,7 +238,8 @@ class StepTally:
                 return fn(*args, **kwargs)
             return call
 
-        ex.fault_hook, ex.decode_step = traced_hook, disagg_step
+        if ex is not None:
+            ex.fault_hook, ex.decode_step = traced_hook, disagg_step
         engine._replay_slot = replay_slot
         model_mod.decode_step = mono_step
         for n, fn in self._prefill.items():
@@ -291,7 +321,8 @@ def main():
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.faults import DEVICE_LOSS, EXCHANGE_TIMEOUT, FaultPlan, FaultSpec, RetryPolicy
     from repro_torch.serving.kv_cache import PagedKVCache
-    from repro_torch.serving.request import Request, WorkloadSpec, sample_requests
+    from repro_torch.serving.request import Request, WorkloadSpec, sample_requests, shared_prefix_spec
+    from repro_torch.serving.trace import TenantSpec, TraceSpec
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32 (parity phase)
     torch.backends.cudnn.allow_tf32 = False
@@ -388,19 +419,29 @@ def main():
     bf = torch.bfloat16
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def paged_case(nblk, lens_np, L, iters, plain_iters, shape):
+    def paged_case(nblk, lens_np, L, iters, plain_iters, shape, pager=None, cows=()):
+        """K1 over ``L`` layers' pools rotated; the block table is a random
+        permutation of the pool's pages, or ``pager``'s tables (pages shared
+        between slots, copy-on-write tails ``cows`` whose rows are copied in
+        every layer, restored slots)."""
         Bc = len(lens_np)
         P = Bc * nblk + 1  # full backing + null page
         k_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
         v_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
         q = q_all[:Bc]
-        bt_np = np.zeros((Bc, nblk), np.int32)
-        perm = rng.permutation(P - 1) + 1
-        used = 0
-        for b in range(Bc):
-            nb = -(-int(lens_np[b]) // ps)
-            bt_np[b, :nb] = perm[used: used + nb]
-            used += nb
+        if pager is None:
+            bt_np = np.zeros((Bc, nblk), np.int32)
+            perm = rng.permutation(P - 1) + 1
+            used = 0
+            for b in range(Bc):
+                nb = -(-int(lens_np[b]) // ps)
+                bt_np[b, :nb] = perm[used: used + nb]
+                used += nb
+        else:
+            bt_np = pager.tables.copy()
+            for src, dst, n_rows in cows:
+                k_pool[:, dst, :n_rows] = k_pool[:, src, :n_rows]
+                v_pool[:, dst, :n_rows] = v_pool[:, src, :n_rows]
         bt = torch.from_numpy(bt_np).to(dev)
         lens = torch.from_numpy(lens_np).to(dev)
         got = paged_decode_attention(q, k_pool[0], v_pool[0], bt, lens)
@@ -416,7 +457,10 @@ def main():
             q4, kd[l], vd[l], attn_mask=mask), L), iters)
         del kd, vd
         live = int(lens_np.sum())
-        k1_bytes = 2 * live * nkv * hd * 2 + 2 * Bc * nh * hd * 2 + Bc * nblk * 4 + Bc * 4
+        # a row shared by several slots' tables is read from memory once
+        distinct = len(np.unique(np.concatenate([bt_np[b, np.arange(n) // ps].astype(np.int64) * ps
+                                                 + np.arange(n) % ps for b, n in enumerate(lens_np)])))
+        k1_bytes = 2 * distinct * nkv * hd * 2 + 2 * Bc * nh * hd * 2 + Bc * nblk * 4 + Bc * 4
         n_split, split_rows = split_plan(Bc, nkv, S, n_sms, ps)
         record("paged_decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention/kernel.py:177", err, TOL["bf16"],
@@ -424,7 +468,7 @@ def main():
                time_ms(cycled(lambda l: paged_decode_attention_ref(q, k_pool[l], v_pool[l], bt, lens), L),
                        plain_iters),
                bound(k1_bytes, 4 * nh * hd * live, BF16_FLOPS), lib_ms, shape, excess,
-               n_split=n_split, pages_per_split=split_rows // ps)
+               n_split=n_split, pages_per_split=split_rows // ps, distinct_rows=distinct, live_rows=live)
         del k_pool, v_pool
         torch.cuda.empty_cache()
 
@@ -433,6 +477,47 @@ def main():
     paged_case(nblk, lens_np, 4, 200, 50, None)
     paged_case(2048, np.full(4, 32768, np.int32), 1, 20, 3,
                "decode_32k: B 4, S 32768, pages of 16, all rows valid")
+    # the tables of phase 5e at the serving shape, built by PagedKVCache's
+    # own splice, spill and restore: (i) a prefix hit, slots 0-2 sharing
+    # their first 12 pages (192 rows) with tails of their own; (ii) a
+    # 200-row prefix: 12 shared pages and a private page holding 8 rows
+    # copied on write, in every slot but the source; (iii) a slot spilled and
+    # restored into another slot index, its page ids in descending order
+    S_tab = nblk * ps
+    tab = PagedKVCache(B, S_tab, ps)
+    lens_t = rng.integers(1, S_tab + 1, size=B).astype(np.int32)
+    lens_t[:3] = rng.integers(193, S_tab + 1, size=3)
+    tab.ensure(0, int(lens_t[0]) - 1)
+    for s_ in range(1, B):
+        if s_ < 3:
+            tab.splice(s_, tab.slot_pages(0), 192)
+        tab.ensure(s_, int(lens_t[s_]) - 1)
+    paged_case(nblk, lens_t, 4, 200, 50, "prefix hit: slots 0-2 share 12 pages (192 rows)", pager=tab)
+    tab = PagedKVCache(B, S_tab, ps)
+    lens_t = rng.integers(201, S_tab + 1, size=B).astype(np.int32)
+    lens_t[0] = 256
+    tab.ensure(0, 255)
+    cows = []
+    for s_ in range(1, B):
+        cows.append(tab.splice(s_, tab.slot_pages(0), 200))
+        tab.ensure(s_, int(lens_t[s_]) - 1)
+    paged_case(nblk, lens_t, 4, 200, 50, "copy-on-write: a 200-row prefix, 12 shared pages + 8 copied rows",
+               pager=tab, cows=cows)
+    tab = PagedKVCache(B, S_tab, ps)
+    lens_t = rng.integers(1, S_tab + 1, size=B).astype(np.int32)
+    tab.ensure(0, S_tab - 1)
+    tab.release(0)  # pages 1-32 go back in order: the next slot draws them in reverse
+    lens_t[3] = rng.integers(4 * ps, S_tab + 1)
+    tab.ensure(3, int(lens_t[3]) - 1)
+    tab.restore(6, tab.spill(3))
+    lens_t[6] = lens_t[3]
+    restored = tab.slot_pages(6)
+    for s_ in range(B):
+        if s_ != 6:
+            tab.ensure(s_, int(lens_t[s_]) - 1)
+    paged_case(nblk, lens_t, 4, 200, 50, "restored: slot 3 spilled into slot 6, page ids out of order", pager=tab)
+    if restored != sorted(restored, reverse=True) or len(restored) < 2:
+        raise AssertionError(f"phase 3: the restored table is not out of order: {restored}")
 
     # ---- 3b. K4 / K5 decode attention over a contiguous (int8) cache ------
     # the serving path's shape (the K1 case's lengths, six layers' caches
@@ -1005,6 +1090,100 @@ def main():
             raise AssertionError(f"reduced faults ({name}): stats {f} are not the plan's")
         if name == "degrade_paged" and (f["degraded"] != 1 or not f["replayed_slots"] or out["cuda"][3] != "mono"):
             raise AssertionError(f"reduced faults ({name}): did not degrade to mono and replay: {f}")
+
+    # the prefix cache and priority preemption (tests/test_torch_prefix_cache.py,
+    # test_torch_preempt.py and test_torch_trace.py's deployments): (i) prefix
+    # hits on mono paged KV in 24-token chunks over pages of 16 (a 24-token
+    # match adopts one page and copies 8 rows on write), blocking admission;
+    # (ii) sched="priority" on mono paged KV under a modeled clock, a chat
+    # burst spilling batch slots; (iii) disagg (2 shards, 2 x 3 slots) with
+    # the prefix cache and priority together over a shared head; (iv) (iii)'s
+    # deployment losing attention device 1 while requests are spilled (their
+    # restores replay); (v) a two-tenant TraceSpec built by the port and
+    # served under priority.  Streams, prefix_cache, preemptions, restores,
+    # spill_replays, slo and kv_pages CPU = card; launches exact on the card
+    def headed(reqs, head):
+        for r in reqs:
+            r.prompt = np.concatenate([head, r.prompt])
+            r.input_len = len(r.prompt)
+        return reqs
+
+    head_rng = np.random.default_rng(21)
+    pf_head30, pf_head10 = (head_rng.integers(0, rcfg.vocab_size, size=n, dtype=np.int32) for n in (30, 10))
+
+    def contended(n_low, n_high, ttft, head=None):
+        rs = sample_requests(WorkloadSpec(mean_input=6, mean_output=24, vocab_size=rcfg.vocab_size, max_input=12,
+                                          max_output=30, seed=0), np.linspace(0, 0.001, n_low + n_high), True)
+        for r in rs[:n_low]:
+            r.priority, r.tenant, r.ttft_slo = 0, "batch", 10.0
+        for r in rs[n_low:]:
+            r.priority, r.tenant, r.ttft_slo = 5, "chat", ttft
+            r.arrival += 0.01
+        return rs if head is None else headed(rs, head)
+
+    short = dict(mean_input=6.0, max_input=12, mean_output=10.0, max_output=16)
+    served_trace = TraceSpec(duration=0.06, seed=5, tenants=[
+        TenantSpec(name="batch", klass="batch-offline", rate=60.0, priority=0, ttft_slo=1.0,
+                   workload=dict(short, mean_output=20.0, max_output=24), seed=11),
+        TenantSpec(name="chat", klass="chat", rate=60.0, arrival="bursty", epoch=0.02, priority=5, ttft_slo=0.01,
+                   tpot_slo=0.004, workload=short)])
+    clock2ms = dict(step_time_fn=lambda n: 2e-3)
+    pf_disagg = dict(max_batch=4, cache_len=64, capacity_tokens=64, executor="disagg", n_attn=2, n_prefill=1,
+                     prefill_chunk=4, kv_page_size=16, **clock2ms)
+    # (case, engine options, requests)
+    pp_cases = (
+        ("prefix_mono", dict(max_batch=3, cache_len=64, prefill_chunk=24, kv_page_size=16, prefix_cache=True),
+         lambda: headed(sample_requests(WorkloadSpec(mean_input=6, mean_output=6, vocab_size=rcfg.vocab_size,
+                                                     max_input=8, max_output=8, seed=5), np.zeros(6), True),
+                        pf_head30)),
+        ("priority_mono", dict(max_batch=2, cache_len=64, kv_page_size=16, sched="priority", **clock2ms),
+         lambda: contended(2, 2, 0.012)),
+        # spilled records and the index's pins hold pages beside the slots':
+        # a pool above full backing (20 allocatable a shard, not 8)
+        ("prefix_priority_disagg", dict(pf_disagg, prefix_cache=True, sched="priority", kv_num_pages=41),
+         lambda: contended(4, 2, 0.015, pf_head10)),
+        ("attn_loss_spilled", dict(pf_disagg, sched="priority", fault_plan=FaultPlan(
+            [FaultSpec(DEVICE_LOSS, pool="attn", index=1, at_step=12)]),
+            retry_policy=RetryPolicy(recovery_charge_s=0.01)), lambda: contended(4, 2, 0.015)),
+        ("trace_two_tenants", dict(max_batch=2, cache_len=64, kv_page_size=16, sched="priority", **clock2ms),
+         lambda: served_trace.build(vocab_size=rcfg.vocab_size, with_prompts=True)),
+    )
+    pp_keys = ("completed", "rejected", "preemptions", "restores", "spill_replays", "slo", "kv_pages",
+               "prefix_cache", "prefill_chunks")
+    for name, engine_kw, make in pp_cases:
+        out = {}
+        for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+            eng = ServingEngine(rcfg, params, layout=flayout, scheduler="aebs", device=where, **engine_kw)
+            if eng.disagg is not None:
+                eng.disagg.scheduler = counted_scheduler(eng.disagg.scheduler)
+            tally = StepTally(eng, model_mod)
+            cuda.reset_launch_counts()
+            scheduled["calls"] = 0
+            try:
+                m = eng.run(make(), max_steps=4000)
+            finally:
+                tally.close()
+            launches = dict(cuda.LAUNCHES)
+            got = {k: m.get(k) for k in pp_keys}
+            got["faults"] = {k: v for k, v in m.get("faults", {}).items() if not k.startswith("recovery_latency")}
+            got["streams"] = {r.rid: r.tokens_out for r in eng.completed}
+            out[where] = got
+        want = tally.expected(rcfg.layer_kinds(), "paged_decode_attention")
+        wrong = {n: launches[n] for n in want if launches[n] != want[n]}
+        stray = {n: launches[n] for n in attn_kernels if n != "paged_decode_attention" and launches[n]}
+        same = out["cpu"] == out["cuda"]
+        got = out["cuda"]
+        log({"phase": "reduced_parity_prefix_preempt", "case": name, "dtype": "float32", "cpu_equal_card": same,
+             **{k: got[k] for k in pp_keys}, "faults": got["faults"], "steps": tally.counts(),
+             "prefill_calls": tally.prefill_calls, "launches": launches, "launches_exact": want, "card": card})
+        if not same or wrong or stray or scheduled["calls"] != want["aebs_schedule"]:
+            raise AssertionError(f"reduced {name}: CPU = card {same}; launches {wrong} not {want}, off the path "
+                                 f"{stray}, or {scheduled['calls']} scheduler calls")
+        hits = (got["prefix_cache"] or {}).get("hits", 0)
+        if (("prefix" in name and hits < 2) or (name != "prefix_mono" and not got["preemptions"])
+                or got["restores"] != got["preemptions"]
+                or (name == "attn_loss_spilled" and not got["spill_replays"])):
+            raise AssertionError(f"reduced {name}: the case did not run its path: {got}")
     del p_gpu
 
     # ---- 5. full-width serving ------------------------------------------
@@ -1472,12 +1651,187 @@ def main():
                 raise AssertionError(f"{what}: did not degrade to mono and replay every slot there: {f}, {steps}")
             fault_logs[(run, plan is not None)] = info
             del engine, tally, recover, traced_recover
+
+    # ---- 5e. the prefix cache and priority preemption at full width ------
+    # 8 slots x 512 rows, pages of 16, 64-token chunks, AEBS over the 4 x 17
+    # layout, decode capacity 8 (drop-free, so each stream is the request's
+    # own).  (a) mono paged (K1), blocking: 12 requests of
+    # shared_prefix_spec with a 192-token system prompt, all at 0, with the
+    # prefix cache and without; the first request runs every chunk, each
+    # later one only the chunks past its 192-token match.  (b) mono paged
+    # under a modeled 50 ms decode step: 8 batch requests (priority 0,
+    # outputs 48-64) at 0 and 4 chat requests (priority 1, prompts 16-48,
+    # outputs 16-32, TTFT SLO 100 ms, TPOT SLO 75 ms) at the clock of decode
+    # step 8, under sched="priority" (the chat burst spills 4 batch slots)
+    # and "fifo".  (c) disagg (2 attention shards of 4 slots, 4 MoE
+    # instances, paged) with the prefix cache and priority together on (b)'s
+    # traffic behind (a)'s system prompt, against FIFO without the cache.
+    # Streams are held to the undisturbed run (a flip only on a bf16
+    # near-tie) and launches exactly to the steps and prefill calls run
+    PREFIX, STEP = 192, 0.05
+    TTFT_SLO, TPOT_SLO = 2 * STEP, 1.5 * STEP
+    step8 = 0.0
+    for _ in range(8):
+        step8 += STEP  # the modeled clock after decode step 8, summed as the engine sums it
+    pkw = dict(kw, capacity_tokens=8, kv_page_size=16)
+    pspec = shared_prefix_spec(vocab_size=cfg.vocab_size, shared_prefix_len=PREFIX, mean_input=16, max_input=48,
+                               mean_output=24, max_output=32)
+
+    def prefix_requests():
+        return sample_requests(pspec, np.zeros(12), with_prompts=True)
+
+    def priority_requests(head=None):
+        batch, chat = make_requests(4, 8, 16, 48, 48, 64), make_requests(5, 4, 16, 48, 16, 32, rid0=8)
+        for r in batch:
+            r.priority, r.tenant, r.klass, r.ttft_slo = 0, "batch", "batch-offline", 60.0
+        for r in chat:
+            r.priority, r.tenant, r.ttft_slo, r.tpot_slo, r.arrival = 1, "chat", TTFT_SLO, TPOT_SLO, step8
+        reqs = batch + chat
+        if head is not None:
+            for r in reqs:
+                r.prompt = np.concatenate([head, r.prompt])
+                r.input_len = len(r.prompt)
+        return reqs
+
+    def expected_chunks(reqs, c=64):
+        """Prefill chunks of a blocking run in admission order: the first
+        request publishes its chunk-aligned prompt; a later one's match is
+        capped below its own prompt length and at the shared head."""
+        depth = (reqs[0].input_len // c) * c
+        return sum(-(-(r.input_len - (0 if i == 0 else min((PREFIX // c) * c, depth,
+                                                                ((r.input_len - 1) // c) * c))) // c)
+                   for i, r in enumerate(reqs))
+
+    def serve_5e(what, engine_kw, reqs):
+        """Serve with launches zeroed before and read after, every step and
+        prefill call tallied and every decode step timed on the host; raise
+        unless the launches are exact, every request completes in full and
+        no logit is non-finite."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = ServingEngine(cfg, params, **engine_kw)
+        if engine.disagg is not None:
+            engine.disagg.scheduler = counted_scheduler(engine.disagg.scheduler)
+        margins = record_margins(engine)
+        step_ms, restore_ms = [], []
+        dec, restore = engine._decode_iteration, engine._restore_record
+
+        def timed_decode():
+            t = time.perf_counter()
+            dec()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+
+        def timed_restore(rec, slot):
+            t = time.perf_counter()
+            restore(rec, slot)
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t) * 1e3)
+
+        engine._decode_iteration, engine._restore_record = timed_decode, timed_restore
+        tally = StepTally(engine, model_mod)
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        scheduled["calls"] = 0
+        nonfinite["n"] = 0
+        t0 = time.perf_counter()
+        try:
+            m = engine.run(reqs)
+        finally:
+            tally.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        want = tally.expected(cfg.layer_kinds(), "paged_decode_attention")
+        wrong = {n: launches[n] for n in want if launches[n] != want[n]}
+        stray = {n: launches[n] for n in attn_kernels if n != "paged_decode_attention" and launches[n]}
+        if m["completed"] != len(reqs) or m["truncated"] or any(r.generated != r.output_len for r in engine.completed):
+            raise AssertionError(f"{what}: {m['completed']} of {len(reqs)} requests completed in full")
+        if nonfinite["n"]:
+            raise AssertionError(f"{what}: {nonfinite['n']} non-finite logits")
+        if wrong or stray or scheduled["calls"] != want["aebs_schedule"]:
+            raise AssertionError(f"{what}: launches {wrong} not the exact {want}, off the path {stray}, "
+                                 f"or {scheduled['calls']} scheduler calls")
+        ttft = {r.rid: r.ttft() for r in engine.completed}
+        info = {"decode_steps": engine.steps_done, "steps": tally.counts(), "prefill_calls": tally.prefill_calls,
+                "prefill_chunks": m["prefill_chunks"], "wall_s": wall, "tokens": m["tokens"],
+                "decode_step_ms_mean": float(np.mean(step_ms)), "ttft_mean": m["ttft_mean"],
+                "ttft_p99": m["ttft_p99"], "tpot_mean": m["tpot_mean"], "tpot_p99": m["tpot_p99"],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "prefix_cache": m.get("prefix_cache"),
+                "kv_pages": m.get("kv_pages"), "preemptions": m["preemptions"], "restores": m["restores"],
+                "restore_ms": restore_ms, "slo": m.get("slo"), "launches": launches, "launches_exact": want}
+        streams = {r.rid: r.tokens_out for r in engine.completed}
+        del engine, tally
+        return info, streams, margins, ttft
+
+    def held(what, runs, base, test):
+        """Hold ``test``'s streams to ``base``'s: a flip only on a near-tie."""
+        flips = first_flips(runs[test][1], runs[base][1], runs[test][2], runs[base][2])
+        if wide_flips(flips, NEAR_TIE):
+            raise AssertionError(f"{what}: streams part from the {base} run off a near-tie: {flips}")
+        return {"streams_equal": not flips, "flips": flips,
+                "tokens_equal": sum(a == b for rid, st in runs[test][1].items()
+                                    for a, b in zip(st, runs[base][1][rid]))}
+
+    model_mod.greedy_token = checked_greedy
+    pp_logs = {}
+    # (a) the prefix cache on mono paged
+    runs = {name: serve_5e(f"phase 5e (a, {name})", dict(pkw, prefix_cache=on), prefix_requests())
+            for name, on in (("prefix_off", False), ("prefix_on", True))}
+    reqs_a = prefix_requests()
+    chunks = {"prefix_off": sum(-(-r.input_len // 64) for r in reqs_a), "prefix_on": expected_chunks(reqs_a)}
+    for name, (info, *_rest) in runs.items():
+        if info["prefill_chunks"] != chunks[name] or info["prefill_calls"] != chunks[name]:
+            raise AssertionError(f"phase 5e (a, {name}): {info['prefill_chunks']} chunks in {info['prefill_calls']} "
+                                 f"calls, not the {chunks[name]} the prompt lengths give")
+    pc = runs["prefix_on"][0]["prefix_cache"]
+    if pc["hits"] != 11 or pc["saved_tokens"] != 11 * PREFIX:
+        raise AssertionError(f"phase 5e (a): the prefix cache did not serve the system prompt: {pc}")
+    pp_logs["a"] = {name: info for name, (info, *_rest) in runs.items()}
+    log({"phase": "serve_prefix", "card": card, "model": cfg.name, "requests": 12, "shared_prefix": PREFIX,
+         "prompt_lens": [r.input_len for r in reqs_a], "prefill_chunks_expected": chunks,
+         **{name: {k: v for k, v in info.items() if k != "launches"} for name, (info, *_r) in runs.items()},
+         **held("phase 5e (a)", runs, "prefix_off", "prefix_on")})
+    served["prefix_mono_paged"] = {"step_ms": runs["prefix_on"][0]["decode_step_ms_mean"],
+                                   "ttft_ms": runs["prefix_on"][0]["ttft_mean"] * 1e3}
+    # (b) priority preemption on mono paged, modeled clock
+    bkw = dict(pkw, step_time_fn=lambda n: STEP)
+    runs = {sched: serve_5e(f"phase 5e (b, {sched})", dict(bkw, sched=sched), priority_requests())
+            for sched in ("fifo", "priority")}
+    chat_ttft = {sched: [t for rid, t in runs[sched][3].items() if rid >= 8] for sched in runs}
+    pb = runs["priority"][0]
+    if not (1 <= pb["preemptions"] == pb["restores"]) or runs["fifo"][0]["preemptions"]:
+        raise AssertionError(f"phase 5e (b): preemptions {pb['preemptions']}, restores {pb['restores']}")
+    pp_logs["b"] = {sched: info for sched, (info, *_rest) in runs.items()}
+    log({"phase": "serve_preempt", "card": card, "model": cfg.name, "requests": 12, "step_model_s": STEP,
+         "slo_s": {"chat_ttft": TTFT_SLO, "chat_tpot": TPOT_SLO},
+         "chat_ttft_s": chat_ttft, **{sched: {k: v for k, v in info.items() if k != "launches"}
+                                       for sched, (info, *_r) in runs.items()},
+         **held("phase 5e (b)", runs, "fifo", "priority")})
+    served["priority_mono_paged"] = {"step_ms": pb["decode_step_ms_mean"], "ttft_ms": pb["ttft_mean"] * 1e3}
+    # (c) disagg with the prefix cache and priority together
+    head = prefix_requests()[0].prompt[:PREFIX]
+    ckw = dict(bkw, executor="disagg", n_attn=2)
+    runs = {"fifo_cold": serve_5e("phase 5e (c, fifo, no prefix cache)", dict(ckw, sched="fifo"),
+                                  priority_requests(head)),
+            "priority_prefix": serve_5e("phase 5e (c, priority + prefix cache)",
+                                        dict(ckw, sched="priority", prefix_cache=True), priority_requests(head))}
+    pcc = runs["priority_prefix"][0]
+    if not (1 <= pcc["preemptions"] == pcc["restores"]) or pcc["prefix_cache"]["hits"] < 8:
+        raise AssertionError(f"phase 5e (c): preemptions {pcc['preemptions']}, restores {pcc['restores']}, "
+                             f"prefix cache {pcc['prefix_cache']}")
+    pp_logs["c"] = {name: info for name, (info, *_rest) in runs.items()}
+    log({"phase": "serve_prefix_preempt_disagg", "card": card, "model": cfg.name, "requests": 12,
+         "n_attn": 2, "n_moe": layout.num_instances,
+         **{name: {k: v for k, v in info.items() if k != "launches"} for name, (info, *_r) in runs.items()},
+         **held("phase 5e (c)", runs, "fifo_cold", "priority_prefix")})
+    del runs
     model_mod.greedy_token = greedy
 
-    # ---- 5b. where the time goes: device time of each decode step and
-    # prefill chunk of a short run (8 requests, 16 in, 16 out) per layout,
-    # profiled one call at a time with CUDA activity only (kernels, no double
-    # counting)
+    # ---- 5b. where the time goes: device time of the first decode steps and
+    # prefill calls (PROFILE_CALLS) of a short run (8 requests, 16 in, 16
+    # out) per layout, profiled one call at a time with CUDA activity only
+    # (kernels, no double counting)
     from torch.profiler import ProfilerActivity, profile
 
     # (run, its config, engine options, the mono run it is set beside)
@@ -1497,6 +1851,13 @@ def main():
                      ("fault_1a3e", cfg, dict(as_kw, n_attn=1, layout=layout_for_survivors(E, 3)), None),
                      ("fault_1a4e_paged", cfg, dict(as_kw, n_attn=1, kv_page_size=16), None),
                      ("fault_mono_paged", cfg, dict(kw, capacity_tokens=8, kv_page_size=16), None)]
+    # phase 5e's (a) with the prefix cache and (b) with preemption, on their
+    # own traffic ((b) over its first 16 decode steps: the spill comes at
+    # step 8)
+    profile_runs += [("prefix_mono_paged", cfg, dict(pkw, prefix_cache=True), None),
+                     ("priority_mono_paged", cfg, dict(bkw, sched="priority"), None)]
+    profile_reqs = {"prefix_mono_paged": prefix_requests, "priority_mono_paged": priority_requests}
+    profile_decode_steps = {"priority_mono_paged": 16}
     served["autoscaled_before"] = {"step_ms": wall_ms["before"], "ttft_ms": half_metrics(first)["ttft_ms_mean"]}
     served["autoscaled_after"] = {"step_ms": wall_ms["after"], "ttft_ms": half_metrics(second)["ttft_ms_mean"]}
     profiled_ms = {}
@@ -1514,9 +1875,12 @@ def main():
         device_ops = {"decode": [], "prefill": []}  # kernels, copies and fills on the card
         kernel_n = {"decode": {}, "prefill": {}}
         kernel_ms = {"decode": {}, "prefill": {}}
+        cap = dict(PROFILE_CALLS, decode=profile_decode_steps.get(name, PROFILE_CALLS["decode"]))
 
         def profiled(fn, kind):
             def call(*args, **kwargs):
+                if len(device_ms[kind]) >= cap[kind]:
+                    return fn(*args, **kwargs)
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     out = fn(*args, **kwargs)
                     torch.cuda.synchronize()
@@ -1539,7 +1903,7 @@ def main():
             model_mod.decode_step = profiled(decode_step, "decode")
         model_mod.prefill_chunk = profiled(prefill_chunk, "prefill")
         model_mod.prefill_chunk_batched = profiled(prefill_chunk_batched, "prefill")
-        engine.run(make_requests(3, 8, 16, 16, 16, 16, rid0=100))
+        engine.run(profile_reqs.get(name, lambda: make_requests(3, 8, 16, 16, 16, 16, rid0=100))())
         model_mod.decode_step, model_mod.prefill_chunk = decode_step, prefill_chunk
         model_mod.prefill_chunk_batched = prefill_chunk_batched
         DisaggExecutor.decode_step = disagg_step

@@ -38,6 +38,14 @@ requests continue undisturbed.  The prefill pool (``pools.prefill_devices``)
 is the engine's :class:`repro_torch.serving.prefill.PrefillWorker`'s; the
 executor keeps its place in the device split and reports when it moves.
 
+Paged KV (``kv_page_size``; ``kv_num_pages`` split over the shards by rows)
+gives each shard its own pools and :class:`PagedKVCache`.  Preemption
+(:meth:`DisaggExecutor.spill_slot`, ``restore_slot``, ``drop_spilled``) and
+the prefix cache (``splice_prefix``, ``publish_prefix``; one
+:class:`PrefixIndex` per shard) are shard-affine: page ids are pool-local.
+A re-shard re-paginates every slot into pages of its own, so sharing and
+spilled pages dissolve (the indexes restart empty, their counters carry).
+
 Faults: ``fault_hook("exchange", layer, micro_batch)`` (the engine's
 :meth:`repro_torch.serving.faults.FaultRuntime.exchange_hook` when a plan is
 armed) runs before each cross-pool exchange; a step it interrupts is retried
@@ -66,10 +74,23 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer
 from repro_torch.models.common import tree_to
 from repro_torch.models.ffn import ffn
-from repro_torch.serving.kv_cache import PagedKVCache, chunk_rows
+from repro_torch.serving.kv_cache import PagedKVCache, PrefixIndex, SpilledKV, chunk_rows
 
 # layer-cache key (what attention_stage reads) -> engine-format cache name
 _KV_KEYS = {"k": "kv_k", "v": "kv_v", "k_scale": "kv_k_scale", "v_scale": "kv_v_scale"}
+# a PrefixIndex's cumulative counters
+_PREFIX_COUNTERS = ("hits", "misses", "saved_tokens", "lookup_tokens", "evicted_pages")
+
+
+@dataclasses.dataclass
+class SpilledSlotKV:
+    """A preempted slot's detached KV on a disagg executor: the shard's
+    :class:`SpilledKV` record, the shard holding the pages (a restore goes
+    back there), and the live length to restore."""
+
+    shard: int
+    rec: SpilledKV
+    tokens: int
 
 
 @dataclasses.dataclass
@@ -106,10 +127,6 @@ def _sync(tensors: Sequence[torch.Tensor]) -> None:
             torch.cuda.synchronize(dev)
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not ported yet (comes with {slice_name})")
-
-
 class DisaggExecutor:
     """Placement + per-layer cross-pool exchange for one decode deployment."""
 
@@ -128,6 +145,10 @@ class DisaggExecutor:
         hw: HardwareSpec = H100,
         devices: Optional[Sequence[torch.device]] = None,
         kv_page_size: Optional[int] = None,
+        kv_num_pages: Optional[int] = None,
+        prefix_cache: bool = False,
+        prefix_cache_pages: Optional[int] = None,
+        prefix_chunk: int = 64,
     ):
         if not cfg.has_moe:
             raise ValueError("disagg executor requires an MoE architecture")
@@ -151,8 +172,16 @@ class DisaggExecutor:
         self.max_batch = max_batch
         self.cache_len = cache_len
         self.kv_page_size = kv_page_size
+        self.kv_num_pages = kv_num_pages
         # per-shard page managers (local-row block tables); None = contiguous
         self._pagers: Optional[List[PagedKVCache]] = None
+        # one prefix index per shard (page ids are pool-local); the counters
+        # of indexes a re-shard dropped carry over
+        self.prefix_cache = bool(prefix_cache) and kv_page_size is not None
+        self.prefix_cache_pages = prefix_cache_pages
+        self.prefix_chunk = max(1, int(prefix_chunk))
+        self._indexes: Optional[List[PrefixIndex]] = None
+        self._prefix_carry = dict.fromkeys(_PREFIX_COUNTERS, 0)
         # per-slot live KV length, executor-level so it survives re-sharding
         self._slot_len = np.zeros(max_batch, np.int64)
         combo = list(pools.attn_devices) + list(pools.prefill_devices) + list(pools.moe_devices)
@@ -227,7 +256,11 @@ class DisaggExecutor:
             dev = pools.attn_devices[s.dev_index]
             pager = None
             if self._pagers is not None:
-                pager = PagedKVCache(s.rows, self.cache_len, self.kv_page_size)
+                shard_pages = None  # full backing of the shard's rows
+                if self.kv_num_pages is not None:
+                    # the operator's pool split by rows; each shard has its null page
+                    shard_pages = 1 + max(1, round((self.kv_num_pages - 1) * s.rows / self.max_batch))
+                pager = PagedKVCache(s.rows, self.cache_len, self.kv_page_size, shard_pages)
                 # every live (global row, position) and the (page, offset) it lands in
                 rows, pos, pages, offs = [], [], [], []
                 for r in range(s.rows):
@@ -262,6 +295,20 @@ class DisaggExecutor:
                     layer["bt"] = bt
                 per_layer.append(layer)
             self._kv.append(per_layer)
+
+        # the re-paginated pools share nothing: the indexes restart empty
+        for ix in self._indexes or []:
+            for c in _PREFIX_COUNTERS:
+                self._prefix_carry[c] += getattr(ix, c)
+        self._indexes = None
+        if self.prefix_cache:
+            self._indexes = []
+            for s, pager in zip(self.shards, self._pagers):
+                budget = None
+                if self.prefix_cache_pages is not None:
+                    # the operator's pin budget split by rows
+                    budget = max(1, round(self.prefix_cache_pages * s.rows / self.max_batch))
+                self._indexes.append(PrefixIndex(self.prefix_chunk, pager, max_pages=budget))
 
         # exchange schedule (regime chosen per step; both plans precomputed)
         self._plans = {r: plan_exchange(self.pools, r) for r in ("case1", "case2")}
@@ -364,6 +411,7 @@ class DisaggExecutor:
         if self._pagers is not None:
             pager = self._pagers[si]
             pager.ensure(local, start + length - 1)
+            pager.check_exclusive(local, start, length)
             pages, offs = pager.rows_of(local, start, length)
             pages_t = torch.from_numpy(pages.astype(np.int64)).to(dev)
             offs_t = torch.from_numpy(offs.astype(np.int64)).to(dev)
@@ -484,21 +532,93 @@ class DisaggExecutor:
             "fragmentation": 1.0 - used_rows / alloc_rows if alloc_rows else 0.0,
         }
 
-    # engine features of later slices
-    def spill_slot(self, slot: int):
-        raise _later("spill", "priority preemption")
+    # ------------------------------------------------------------------
+    # preemption: shard-affine spill / restore
+    # ------------------------------------------------------------------
+    def spill_slot(self, slot: int) -> Tuple[SpilledSlotKV, int]:
+        """Detach ``slot``'s pages into a record (no copy) and forget its
+        live length.  Returns the record and the shard a restore must
+        target.  The record lives as long as the shard's pools: a re-shard
+        dissolves it (the engine then restores by replay)."""
+        if self._pagers is None:
+            raise RuntimeError("spill requires paged KV (kv_page_size)")
+        si = self.shard_of(slot)
+        rec = self._pagers[si].spill(slot - self.shards[si].lo)
+        payload = SpilledSlotKV(shard=si, rec=rec, tokens=int(self._slot_len[slot]))
+        self._slot_len[slot] = 0
+        return payload, si
 
-    def restore_slot(self, slot: int, payload) -> None:
-        raise _later("restore", "priority preemption")
+    def restore_slot(self, slot: int, payload: SpilledSlotKV) -> None:
+        """Re-attach a spilled record to the empty ``slot`` on its shard."""
+        si = self.shard_of(slot)
+        if si != payload.shard:
+            raise RuntimeError(f"slot {slot} lives on shard {si}, spilled KV belongs to shard {payload.shard}")
+        self._pagers[si].restore(slot - self.shards[si].lo, payload.rec)
+        self._slot_len[slot] = payload.tokens
 
-    def drop_spilled(self, payload) -> None:
-        raise _later("drop_spilled", "priority preemption")
+    def drop_spilled(self, payload: SpilledSlotKV) -> None:
+        """Abandon a spilled record: its page references return to the pool."""
+        self._pagers[payload.shard].drop_spilled(payload.rec)
 
+    # ------------------------------------------------------------------
+    # prefix cache: one index per shard
+    # ------------------------------------------------------------------
     def splice_prefix(self, slot: int, tokens: np.ndarray, limit: int):
-        raise _later("splice_prefix", "the prefix cache")
+        """Serve the longest cached prefix of ``tokens`` from ``slot``'s
+        shard: splice the shared pages into its table, copy a partial tail
+        page's rows in every layer, and gather the matched rows (``kv name
+        -> [L, match, ...]``) to seed the worker.  Returns ``(match,
+        seed_caches)``, ``(0, None)`` on a miss."""
+        if self._indexes is None:
+            return 0, None
+        si = self.shard_of(slot)
+        local = slot - self.shards[si].lo
+        match, pages = self._indexes[si].lookup(tokens, limit)
+        if not match:
+            return 0, None
+        pager = self._pagers[si]
+        cow = pager.splice(local, pages, match)
+        if cow is not None:
+            src, dst, rows = cow
+            for layer_kv in self._kv[si]:
+                for short in _KV_KEYS:
+                    if short in layer_kv:
+                        layer_kv[short][dst, :rows] = layer_kv[short][src, :rows]
+        # the spliced rows are live: a re-shard carries them (as exclusive pages)
+        self._slot_len[slot] = max(int(self._slot_len[slot]), match)
+        dev = self.pools.attn_devices[self.shards[si].dev_index]
+        pgs, offs = (torch.from_numpy(a.astype(np.int64)).to(dev) for a in pager.rows_of(local, 0, match))
+        return match, {name: torch.stack([layer_kv[short][pgs, offs] for layer_kv in self._kv[si]])
+                       for short, name in _KV_KEYS.items() if short in self._kv[si][0]}
 
     def publish_prefix(self, slot: int, tokens: np.ndarray, upto: int) -> None:
-        raise _later("publish_prefix", "the prefix cache")
+        """Index the chunk-aligned prefix ``slot`` has prefilled, pinning its
+        pages in its shard's index."""
+        if self._indexes is None:
+            return
+        si = self.shard_of(slot)
+        self._indexes[si].publish(tokens, upto, slot - self.shards[si].lo)
+
+    def prefix_stats(self) -> Optional[Dict[str, float]]:
+        """The prefix cache's telemetry over the shards' indexes, plus the
+        counters of indexes a re-shard dropped."""
+        if self._indexes is None:
+            return None
+        c = dict(self._prefix_carry)
+        for ix in self._indexes:
+            for k in _PREFIX_COUNTERS:
+                c[k] += getattr(ix, k)
+        total = c["hits"] + c["misses"]
+        return {
+            "hits": c["hits"],
+            "misses": c["misses"],
+            "hit_rate": c["hits"] / total if total else 0.0,
+            "saved_tokens": c["saved_tokens"],
+            "saved_frac": c["saved_tokens"] / c["lookup_tokens"] if c["lookup_tokens"] else 0.0,
+            "shared_pages": sum(ix.held_pages for ix in self._indexes),
+            "evicted_pages": c["evicted_pages"],
+            "nodes": sum(len(ix._nodes) for ix in self._indexes),
+        }
 
     # ------------------------------------------------------------------
     # reconfigure (§3.5): rebuild only the affected pool
@@ -663,7 +783,7 @@ class DisaggExecutor:
         return self._decode_impl(tokens, positions, collect_stage_times)
 
     def decode_step_verify(self, tokens, positions, widths, collect_stage_times: bool = False):
-        raise _later("decode_step_verify", "speculative decode")
+        raise NotImplementedError("decode_step_verify: not ported yet (comes with speculative decode)")
 
     def _decode_impl(self, tokens, positions, collect_stage_times: bool = False) -> Tuple[torch.Tensor, Dict]:
         self._sync_tables()

@@ -1,9 +1,15 @@
 """Continuous-batching decode engine with the Janus scheduled-MoE path
 (``repro.serving.engine.ServingEngine``): the monolithic executor or the
-disaggregated one (``executor="disagg"``), in FIFO order.
+disaggregated one (``executor="disagg"``).
 
 * admission: an arrived request takes the lowest free slot and its prompt
-  goes through the chunked :class:`PrefillWorker`.  ``"blocking"`` drains it
+  goes through the chunked :class:`PrefillWorker`; ``sched="fifo"`` admits
+  in arrival order, ``sched="priority"`` by ``Request.priority`` (then
+  arrival), and with paged KV spills the KV of a strictly lower-priority
+  active slot to free one (preemption: the slot's page list moves into a
+  spill record, nothing is copied; the request later resumes where it
+  stopped, or replays its history if a re-shard dissolved the record).
+  ``"blocking"`` drains a prompt
   before the next decode iteration (the decode clock is charged);
   ``"pipelined"`` (the default with ``n_prefill``) queues it for the prefill
   pool, whose timeline runs beside the decode clock, and activates the slot
@@ -37,16 +43,25 @@ disaggregated one (``executor="disagg"``), in FIFO order.
   transient exchange and prefill-chunk faults retry under bounded
   exponential backoff.  Every replayed token is checked against the
   recorded stream;
-* admission deadlines: a request still waiting for a slot or its prefill
-  past ``Request.deadline`` is rejected (``metrics()["rejected"]``).
+* admission deadlines: a request still waiting for a slot, its prefill or
+  its restore past ``Request.deadline`` is rejected
+  (``metrics()["rejected"]``); SLO attainment per tenant is
+  ``metrics()["slo"]``;
+* prefix cache (``prefix_cache``, paged KV only): a :class:`PrefixIndex`
+  over published prompts' chunk-aligned prefixes; a hit splices the shared
+  pages into the new slot's block table (copy-on-write for a partial tail
+  page) and the prefill starts at the first cold chunk, seeded with the
+  matched rows.  A prompt is published at activation, when every row is
+  written.  ``kv_num_pages`` sizes the page pool (default: full backing).
 
 Options of the reference that later slices port raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -60,8 +75,10 @@ from repro_torch.models.common import resolve_device, tree_to
 from repro_torch.serving.faults import DEVICE_LOSS, FaultPlan, FaultRuntime, PoolFault, RetryPolicy, Watchdog
 from repro_torch.serving.kv_cache import (
     ACTIVE,
+    PAGED_KEYS,
     PREFILLING,
     PagedKVCache,
+    PrefixIndex,
     SlotManager,
     make_paged_caches,
     paginate_caches,
@@ -78,19 +95,32 @@ from repro_torch.serving.request import Request
 # aebs_assign on the CPU.
 SCHEDULERS = {"aebs": aebs_schedule, "aebs_kernel": aebs_schedule, "none": None}
 
+# request admission orders (``sched=``): fifo = arrival order, priority =
+# higher ``Request.priority`` first, preempting through KV spill/restore
+ADMISSION_SCHEDS = ("fifo", "priority")
+
 # reference options this slice does not run: name -> (values it accepts,
 # which later slice ports the rest)
 _LATER = {
-    "sched": (("fifo",), "priority preemption"),
     "dispatch": (("grouped",), "the einsum/scatter oracles"),
-    "kv_num_pages": ((None,), "preemption (an undersized page pool)"),
     "extra_builder": ((None,), "the other families"),
-    "prefix_cache": ((False,), "the prefix cache"),
-    "prefix_cache_pages": ((None,), "the prefix cache"),
     "draft_config": ((None,), "speculative decode"),
     "draft_params": ((None,), "speculative decode"),
     "spec_k": ((0,), "speculative decode"),
 }
+
+
+@dataclasses.dataclass
+class _SpillRecord:
+    """A preempted request waiting off-batch: its detached KV (a mono
+    ``SpilledKV`` or a disagg ``SpilledSlotKV``) and, on disagg, the shard
+    its pages live on.  ``payload=None``: a re-shard dissolved the pages,
+    and the restore replays the request's history."""
+
+    req: Request
+    payload: Optional[Any]
+    shard: Optional[int] = None
+    spilled_at: float = 0.0  # engine clock at preemption (TPOT leaves the wait out)
 
 
 class ServingEngine:
@@ -105,6 +135,10 @@ class ServingEngine:
         scheduler: str = "aebs",
         prefill_chunk: int = 64,
         kv_page_size: Optional[int] = None,
+        kv_num_pages: Optional[int] = None,  # pool size (default: full backing + null)
+        prefix_cache: bool = False,  # page-granular prefix reuse (needs paging)
+        prefix_cache_pages: Optional[int] = None,  # the index's pin budget (None: unbounded)
+        sched: str = "fifo",  # request admission: fifo | priority (preemptive)
         capacity_tokens: Optional[int] = None,
         prefill_capacity_tokens: Optional[int] = None,
         executor: str = "mono",
@@ -140,6 +174,20 @@ class ServingEngine:
                 f"max_prefill_queue must be ≥ 1, got {max_prefill_queue} "
                 "(a zero bound would close admission permanently)"
             )
+        if sched not in ADMISSION_SCHEDS:
+            raise ValueError(f"unknown admission scheduler {sched!r}; choose from {ADMISSION_SCHEDS}")
+        if prefix_cache:
+            if kv_page_size is None:
+                raise ValueError(
+                    "prefix_cache requires paged KV storage (set kv_page_size) "
+                    "— a hit is served by block-table page sharing"
+                )
+            if not model_mod.supports_batched_prefill(cfg):
+                raise ValueError(
+                    "prefix_cache requires an architecture whose decode caches "
+                    "are all full-attention (dense/moe periods) — rolling-"
+                    "window / recurrent state cannot be seeded positionally"
+                )
         if admission is None:
             admission = "pipelined" if n_prefill else "blocking"
         if admission not in ("blocking", "pipelined"):
@@ -168,6 +216,15 @@ class ServingEngine:
         self.transfer_bytes_log: List[int] = []
         self.executor_name = executor
         self.kv_page_size = kv_page_size
+        self.kv_num_pages = kv_num_pages
+        self.sched = sched
+        self._spilled: List[_SpillRecord] = []  # preempted, awaiting restore
+        self.preempt_count = 0
+        self.restore_count = 0
+        self.spill_replay_count = 0  # restores that replayed (their pages dissolved)
+        self.prefix_cache = bool(prefix_cache)
+        self.prefix_cache_pages = prefix_cache_pages
+        self.prefix: Optional[PrefixIndex] = None  # the mono executor's index
         self.faults: Optional[FaultRuntime] = None
         self.degraded_reason: Optional[str] = None
         # notified on every permanent device loss as fn(fault, clock); the
@@ -194,6 +251,8 @@ class ServingEngine:
                 cfg, params, pools, layout, max_batch=max_batch, cache_len=cache_len,
                 scheduler=SCHEDULERS[scheduler], capacity=capacity_tokens,
                 ping_pong=ping_pong, devices=devices, kv_page_size=kv_page_size,
+                kv_num_pages=kv_num_pages, prefix_cache=self.prefix_cache,
+                prefix_cache_pages=prefix_cache_pages, prefix_chunk=max(1, int(prefill_chunk)),
             )
             self.caches = None  # the executor's attention shards hold the KV
         elif executor == "mono":
@@ -202,7 +261,7 @@ class ServingEngine:
             self.caches = model_mod.init_decode_caches(cfg, max_batch, cache_len, self.device)
             if kv_page_size is not None:
                 self.paged, self.caches = make_paged_caches(
-                    self.caches, max_batch, cache_len, kv_page_size
+                    self.caches, max_batch, cache_len, kv_page_size, kv_num_pages
                 )
         else:
             raise ValueError(f"unknown executor: {executor}")
@@ -217,6 +276,8 @@ class ServingEngine:
             device=self.device, cache_len=cache_len, chunk=prefill_chunk,
             capacity=prefill_capacity_tokens, batch=prefill_batch, prefill_time_fn=worker_time_fn,
         )
+        if self.prefix_cache and self.paged is not None:
+            self.prefix = PrefixIndex(self.prefill_worker.chunk, self.paged, max_pages=prefix_cache_pages)
         if fault_plan is not None:
             self.arm_faults(fault_plan, policy=retry_policy, watchdog=watchdog)
 
@@ -327,7 +388,11 @@ class ServingEngine:
         if len(ex.pools.attn_devices) <= 1:
             self._degrade_to_mono("lost the last attention device", lost_rows=list(range(self.max_batch)))
             return
-        self._rebuild_lost_slots(ex.drop_attn_device(fault.index))
+        lost = ex.drop_attn_device(fault.index)
+        # the re-shard rebuilt the page pools from slot-owned pages: spilled
+        # KV dissolved with the old ones
+        self._invalidate_spills()
+        self._rebuild_lost_slots(lost)
 
     def _recover_prefill_loss(self, fault: PoolFault) -> None:
         """Drop the dead prefill device's in-flight prompts, shrink the pool
@@ -343,13 +408,16 @@ class ServingEngine:
             self._requeue(req)
 
     def _requeue(self, req: Request) -> None:
-        """Restart ``req``'s prompt from chunk 0 in its own slot."""
+        """Restart ``req``'s prompt in its own slot: its pages (prefix pins
+        too) are released and the prefix cache spliced afresh, so the restart
+        writes only pages of its own."""
         slot = req.slot
         self.slots.fail(slot)
         self.slots.requeue(slot)
         self.slots.start_prefill(slot)
         self._release_pages(slot)
-        self.prefill_worker.submit(req, slot, now=max(self.clock, req.arrival))
+        start, seed = self._prefix_splice(req, slot)
+        self.prefill_worker.submit(req, slot, now=max(self.clock, req.arrival), start=start, seed_caches=seed)
         self.faults.stats.requeued += 1
 
     def _rebuild_lost_slots(self, lost_rows: List[int]) -> None:
@@ -414,11 +482,16 @@ class ServingEngine:
             zero_slots(caches, lost_rows)
             lengths[np.asarray(lost_rows)] = 0
         if self.kv_page_size is not None:
-            self.paged, caches = paginate_caches(caches, lengths, self.kv_page_size)
+            self.paged, caches = paginate_caches(caches, lengths, self.kv_page_size, self.kv_num_pages)
+            if self.prefix_cache:
+                # sharing dissolved with the shards' pools: a fresh index
+                self.prefix = PrefixIndex(self.prefill_worker.chunk, self.paged,
+                                          max_pages=self.prefix_cache_pages)
         self.caches = caches
         self._extra = self._mono_extra(self.layout)
         self.executor_name = "mono"
         self.degraded_reason = reason
+        self._invalidate_spills()  # the shards' pools died with the executor
         if lost_rows:
             self._rebuild_lost_slots(lost_rows)
 
@@ -517,13 +590,197 @@ class ServingEngine:
         return req
 
     # ------------------------------------------------------------------
+    # prefix cache
+    # ------------------------------------------------------------------
+    def _prefix_splice(self, req: Request, slot: int):
+        """Serve the longest cached prefix of ``req``'s prompt into the empty
+        ``slot``: splice the shared pages into its block table, copy the
+        first ``rows`` rows of a partial tail page (every pool array of every
+        layer), and gather the matched rows on the device to seed the
+        worker.  Returns ``(start, seed_caches)``, ``(0, None)`` on a miss.
+        The match stays below the prompt length, so at least one token
+        prefills (activation needs its logits)."""
+        if not self.prefix_cache:
+            return 0, None
+        tokens = self.prefill_worker.prompt_of(req)
+        chunk = self.prefill_worker.chunk
+        limit = ((len(tokens) - 1) // chunk) * chunk
+        if limit <= 0:
+            return 0, None
+        if self.disagg is not None:
+            return self.disagg.splice_prefix(slot, tokens, limit)
+        match, pages = self.prefix.lookup(tokens, limit)
+        if not match:
+            return 0, None
+        cow = self.paged.splice(slot, pages, match)
+        keys = [k for k in PAGED_KEYS if k in self.caches]
+        if cow is not None:
+            src, dst, rows = cow
+            for k in keys:
+                self.caches[k][:, dst, :rows] = self.caches[k][:, src, :rows]
+        pgs, offs = (torch.from_numpy(a.astype(np.int64)).to(self.device)
+                     for a in self.paged.rows_of(slot, 0, match))
+        self.caches["block_tables"] = self.paged.table_device(self.device)
+        return match, {k: self.caches[k][:, pgs, offs] for k in keys}
+
+    def _prefix_publish(self, req: Request, slot: int) -> None:
+        """Index the chunk-aligned span of the prompt ``slot`` has prefilled
+        (at activation, once every row is written)."""
+        if not self.prefix_cache:
+            return
+        tokens = self.prefill_worker.prompt_of(req)
+        upto = (len(tokens) // self.prefill_worker.chunk) * self.prefill_worker.chunk
+        if upto <= 0:
+            return
+        if self.disagg is not None:
+            self.disagg.publish_prefix(slot, tokens, upto)
+        else:
+            self.prefix.publish(tokens, upto, slot)
+
+    # ------------------------------------------------------------------
+    # priority scheduling: preemption through KV spill/restore
+    # ------------------------------------------------------------------
+    def _preempt_capable(self) -> bool:
+        """Preemption needs paged KV: a spill detaches a block table."""
+        return self.paged is not None or (self.disagg is not None and self.disagg._pagers is not None)
+
+    def _find_slot(self, shard: Optional[int]) -> Optional[int]:
+        """The lowest free slot, on disagg shard ``shard`` when a spilled
+        record must go back where its pages live."""
+        free = self.slots.free_slots
+        if shard is None or self.disagg is None:
+            return free[0] if free else None
+        return next((s for s in free if self.disagg.shard_of(s) == shard), None)
+
+    def _pick_victim(self, priority: int, shard: Optional[int]) -> Optional[int]:
+        """The active slot to preempt for a candidate of ``priority``: a
+        strictly lower priority only, the least generated first, the slot
+        index breaking ties."""
+        best = None
+        for s in self.slots.active_slots:
+            if shard is not None and self.disagg is not None and self.disagg.shard_of(s) != shard:
+                continue
+            req = self.slots.slot_req[s]
+            if req.priority >= priority:
+                continue
+            key = (req.priority, req.generated, s)
+            if best is None or key < best[0]:
+                best = (key, s)
+        return None if best is None else best[1]
+
+    def preempt_slot(self, slot: int) -> Request:
+        """Preempt an ACTIVE slot: its page list moves into a spill record
+        (prefix pins ride along in the refcounts) and the slot frees.  The
+        request keeps its stream state and resumes where it stopped."""
+        if self.slots.state[slot] != ACTIVE:
+            raise RuntimeError(f"slot {slot} is {self.slots.state[slot]}, cannot preempt")
+        if self.paged is not None:
+            payload, shard = self.paged.spill(slot), None
+        elif self.disagg is not None and self.disagg._pagers is not None:
+            payload, shard = self.disagg.spill_slot(slot)
+        else:
+            raise RuntimeError("preemption requires paged KV (set kv_page_size)")
+        req = self.slots.release(slot)
+        req.preemptions += 1
+        self._spilled.append(_SpillRecord(req=req, payload=payload, shard=shard, spilled_at=self.clock))
+        self.preempt_count += 1
+        return req
+
+    def _restore_record(self, rec: _SpillRecord, slot: int) -> None:
+        """Re-admit a spilled request into the free ``slot``: re-attach its
+        pages (or replay its history when a re-shard dissolved them) and
+        resume at ``input_len + generated`` with its last token as input."""
+        req = rec.req
+        self.slots.reserve(req, slot=slot)
+        if rec.payload is None:
+            self.slots.resume(slot)
+            self._replay_slot(slot)
+            self.spill_replay_count += 1
+        else:
+            if self.paged is not None:
+                self.paged.restore(slot, rec.payload)
+            else:
+                self.disagg.restore_slot(slot, rec.payload)
+            self.slots.resume(slot)
+        self.tokens[slot, 0] = req.tokens_out[-1]
+        # the wait between two of its tokens is scheduling, not decode
+        if req.wait_spans is None:
+            req.wait_spans = []
+        req.wait_spans.append((rec.spilled_at, self.clock))
+        self.restore_count += 1
+
+    def _drop_spill(self, rec: _SpillRecord) -> None:
+        """Abandon a spill record (its deadline passed): free its pages."""
+        if rec.payload is None:
+            return
+        if self.paged is not None:
+            self.paged.drop_spilled(rec.payload)
+        elif self.disagg is not None:
+            self.disagg.drop_spilled(rec.payload)
+
+    def _invalidate_spills(self) -> None:
+        """An attention re-shard (device loss, reconfigure, degrade) rebuilt
+        the page pools from slot-owned pages: every spill record restores by
+        replay."""
+        for rec in self._spilled:
+            rec.payload = None
+            rec.shard = None
+
+    def _admit(self, req: Request) -> None:
+        if self.admission == "pipelined":
+            self._submit_request(req)
+        else:
+            self._prefill_request(req)
+
+    def _schedule_admission(self, waiting: List[Request]) -> List[Request]:
+        """Place arrived work into slots.  ``fifo``: strict arrival order.
+        ``priority``: spilled and new requests in one order (priority,
+        restores before admits, arrival, rid); with no free slot, the
+        lowest-priority active slot is spilled for a strictly higher-priority
+        candidate."""
+        if self.sched == "fifo":
+            while waiting and waiting[0].arrival <= self.clock and self.slots.free_slots and self._admission_open():
+                self._admit(waiting.pop(0))
+            return waiting
+        while True:
+            cands = [(-rec.req.priority, 0, rec.req.arrival, rec.req.rid, rec) for rec in self._spilled]
+            cands += [(-r.priority, 1, r.arrival, r.rid, r) for r in waiting if r.arrival <= self.clock]
+            cands.sort(key=lambda c: c[:4])
+            progressed = False
+            for *_, item in cands:
+                is_restore = isinstance(item, _SpillRecord)
+                # a restore needs no prefill, so backpressure does not hold it
+                if not is_restore and not self._admission_open():
+                    continue
+                shard = item.shard if is_restore else None
+                slot = self._find_slot(shard)
+                if slot is None and self._preempt_capable():
+                    victim = self._pick_victim(item.req.priority if is_restore else item.priority, shard)
+                    if victim is not None:
+                        self.preempt_slot(victim)
+                        slot = self._find_slot(shard)
+                if slot is None:
+                    continue
+                if is_restore:
+                    self._spilled.remove(item)
+                    self._restore_record(item, slot)
+                else:
+                    waiting.remove(item)
+                    self._admit(item)
+                progressed = True
+                break
+            if not progressed:
+                return waiting
+
+    # ------------------------------------------------------------------
     def _prefill_request(self, req: Request) -> None:
         """Blocking admission: drain the worker for this one request."""
         stalled = self.slots.num_active > 0
         slot = self.slots.reserve(req)
         self.slots.start_prefill(slot)
         now = max(self.clock, req.arrival)
-        self.prefill_worker.submit(req, slot, now=now)
+        start, seed = self._prefix_splice(req, slot)
+        self.prefill_worker.submit(req, slot, now=now, start=start, seed_caches=seed)
         events: List[PrefillEvent] = []
         while not events:
             events = self._worker_poll()
@@ -537,13 +794,15 @@ class ServingEngine:
         req.prefill_done = self.clock
         req.token_times.append(self.clock)
         req.tokens_out = [ev.first_token]
+        self._prefix_publish(req, slot)
 
     def _submit_request(self, req: Request) -> None:
         """Pipelined admission: reserve the slot and queue the prompt for the
         prefill pool; the decode clock is never charged."""
         slot = self.slots.reserve(req)
         self.slots.start_prefill(slot)
-        self.prefill_worker.submit(req, slot, now=max(self.clock, req.arrival))
+        start, seed = self._prefix_splice(req, slot)
+        self.prefill_worker.submit(req, slot, now=max(self.clock, req.arrival), start=start, seed_caches=seed)
 
     def _admission_open(self) -> bool:
         """Backpressure: stop admitting when the prefill queue is full."""
@@ -582,6 +841,7 @@ class ServingEngine:
                 ev.req.prefill_done = ev.finish_t
                 ev.req.token_times.append(ev.finish_t)
                 ev.req.tokens_out = [ev.first_token]
+                self._prefix_publish(ev.req, ev.slot)
             else:
                 still.append(ev)
         self._ready = still
@@ -641,7 +901,7 @@ class ServingEngine:
         """Serve all requests (arrivals gated by the engine clock)."""
         waiting = sorted(requests, key=lambda r: r.arrival)
         steps = 0
-        while (waiting or self.slots.num_active or self._prefill_pending()) and steps < max_steps:
+        while (waiting or self._spilled or self.slots.num_active or self._prefill_pending()) and steps < max_steps:
             # admission control: an arrived request whose deadline passed
             # while the engine was saturated is rejected (it held no slot)
             if any(r.deadline is not None for r in waiting):
@@ -659,13 +919,14 @@ class ServingEngine:
                 if req is not None and req.deadline is not None and self.clock > req.deadline:
                     if self.cancel_slot(slot) is not None:
                         self._reject(req)
-            while (waiting and waiting[0].arrival <= self.clock and self.slots.free_slots
-                   and self._admission_open()):
-                req = waiting.pop(0)
-                if self.admission == "pipelined":
-                    self._submit_request(req)
-                else:
-                    self._prefill_request(req)
+            # a spilled request whose deadline passed off-batch is dropped,
+            # and its pages return to the pool
+            for rec in list(self._spilled):
+                if rec.req.deadline is not None and self.clock > rec.req.deadline:
+                    self._spilled.remove(rec)
+                    self._drop_spill(rec)
+                    self._reject(rec.req)
+            waiting = self._schedule_admission(waiting)
             self._poll_prefill()
             if self.slots.num_active == 0:
                 if self._ready:  # idle: jump to the next prefill completion
@@ -698,6 +959,8 @@ class ServingEngine:
                 "engine re-lowers wholesale — rebuild the engine instead)"
             )
         relower = self.disagg.reconfigure(n_attn=n_attn, n_moe=n_moe, layout=layout, n_prefill=n_prefill)
+        if relower.get("attn"):
+            self._invalidate_spills()  # the re-shard rebuilt the page pools
         self.layout = self.disagg.layout
         if relower.get("prefill"):
             self.prefill_worker.set_devices(self.disagg.pools.prefill_devices, self.params)
@@ -708,12 +971,34 @@ class ServingEngine:
         out: Dict = {"completed": len(done), "tokens": sum(r.generated for r in done)}
         out["truncated"] = sum(1 for r in done if r.truncated)
         out["rejected"] = len(self.rejected)
+        out["preemptions"] = self.preempt_count
+        out["restores"] = self.restore_count
+        if self.spill_replay_count:
+            out["spill_replays"] = self.spill_replay_count
+        # SLO attainment over every request with a TTFT or TPOT target;
+        # rejected and unserved ones count as misses
+        measured = [r for r in done + self.rejected if r.slo_ok() is not None]
+        if measured:
+            per_tenant: Dict[str, List[bool]] = {}
+            for r in measured:
+                per_tenant.setdefault(r.tenant, []).append(bool(r.slo_ok()))
+            attained = sum(1 for r in measured if r.slo_ok())
+            out["slo"] = {
+                "measured": len(measured),
+                "attained": attained,
+                "attainment": attained / len(measured),
+                "per_tenant": {t: sum(v) / len(v) for t, v in sorted(per_tenant.items())},
+            }
         out["decode_stall_time"] = self.decode_stall_time
         out["prefill_chunks"] = self.prefill_worker.chunks_done
         if self.paged is not None:
             out["kv_pages"] = self.paged.stats()
         elif self.disagg is not None and self.disagg.kv_page_size is not None:
             out["kv_pages"] = self.disagg.page_stats()
+        if self.prefix is not None:
+            out["prefix_cache"] = self.prefix.stats()
+        elif self.disagg is not None and self.disagg.prefix_stats() is not None:
+            out["prefix_cache"] = self.disagg.prefix_stats()
         if self.faults is not None:
             out["faults"] = self.faults.stats.as_dict()
             if self.degraded_reason is not None:

@@ -13,12 +13,23 @@ null page: unbacked table entries and parked writes land there, and every
 row read through it is masked by the position-bounded attention mask.  The
 block tables and allocator are host (numpy) state; :meth:`table_device`
 uploads the tables when they changed.  Pool writes are in place.
+
+Pages are refcounted, so one page can back several block tables and the
+prefix index at once.  :class:`PrefixIndex` is a trie over chained hashes of
+chunk-aligned prompt prefixes whose nodes pin the pages holding those rows;
+a hit is block-table surgery (:meth:`PagedKVCache.splice`: full pages
+adopted by reference, a trailing partial page copied on write).  Preemption
+moves a slot's page list, refcounts and all, into a :class:`SpilledKV`
+record (:meth:`PagedKVCache.spill`) and back (:meth:`PagedKVCache.restore`).
+A page returns to the free list when its last holder drops it; the index
+evicts least-recently-used leaves under its page budget.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import hashlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,12 +76,18 @@ class SlotManager:
     def num_active(self) -> int:
         return len(self.active_slots)
 
-    def reserve(self, req: Request) -> int:
-        """Reserve the lowest free slot for ``req``."""
+    def reserve(self, req: Request, slot: Optional[int] = None) -> int:
+        """Reserve the lowest free slot for ``req``, or the free ``slot``
+        (a restore on disagg must land on the shard holding its pages)."""
         free = self.free_slots
         if not free:
             raise RuntimeError("no free slot")
-        s = free[0]
+        if slot is None:
+            s = free[0]
+        elif slot in free:
+            s = slot
+        else:
+            raise RuntimeError(f"slot {slot} is {self.state[slot]}, not free")
         self.slot_req[s] = req
         self.state[s] = RESERVED
         req.slot = s
@@ -98,6 +115,15 @@ class SlotManager:
             raise RuntimeError(f"slot {slot} is {self.state[slot]}, cannot activate")
         self.state[slot] = ACTIVE
         self.positions[slot] = self.slot_req[slot].input_len
+
+    def resume(self, slot: int) -> None:
+        """RESERVED -> ACTIVE for a restored request: decode continues at
+        ``input_len + generated``, where the spill interrupted it."""
+        if self.state[slot] != RESERVED:
+            raise RuntimeError(f"slot {slot} is {self.state[slot]}, cannot resume")
+        req = self.slot_req[slot]
+        self.state[slot] = ACTIVE
+        self.positions[slot] = req.input_len + req.generated
 
     def advance(self, slot: int) -> None:
         self.positions[slot] += 1
@@ -163,8 +189,10 @@ def scatter_prefill_chunk_caches(
 
 
 class PageAllocator:
-    """Free list over pages ``1 .. num_pages - 1`` (page 0 is the null page);
-    low ids are handed out first, so allocation order is deterministic."""
+    """Refcounted free list over pages ``1 .. num_pages - 1`` (page 0 is the
+    null page); low ids are handed out first, so allocation order is
+    deterministic.  ``alloc`` hands a page out at refcount 1, ``ref`` pins it
+    for another holder and ``free`` drops one pin; the last one returns it."""
 
     def __init__(self, num_pages: int):
         if num_pages < 2:
@@ -185,13 +213,23 @@ class PageAllocator:
     def alloc(self) -> int:
         if not self._free:
             raise RuntimeError(
-                f"out of KV pages ({self.num_pages - 1} allocatable, all in use) -- "
-                "raise kv_num_pages or lower the admitted batch"
+                f"out of KV pages ({self.num_pages - 1} allocatable, all in "
+                "use) — raise kv_num_pages or lower the admitted batch"
             )
         p = self._free.pop()
         self._refs[p] = 1
         self.peak_in_use = max(self.peak_in_use, len(self._refs))
         return p
+
+    def ref(self, page: int) -> int:
+        """Pin an allocated page for one more holder."""
+        if page not in self._refs:
+            raise RuntimeError(f"ref of unallocated page {page}")
+        self._refs[page] += 1
+        return page
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
 
     def free(self, page: int) -> None:
         if page not in self._refs:
@@ -200,6 +238,17 @@ class PageAllocator:
         if self._refs[page] == 0:
             del self._refs[page]
             self._free.append(page)
+
+
+@dataclasses.dataclass
+class SpilledKV:
+    """A preempted slot's detached KV: its page list in block order and the
+    rows written.  The record holds the slot's refcounts (a spill moves
+    ownership, it copies nothing), so pages shared with the prefix index or
+    another slot stay pinned by their other holders meanwhile."""
+
+    pages: List[int]
+    tokens: int
 
 
 class PagedKVCache:
@@ -227,7 +276,8 @@ class PagedKVCache:
         self._dev: Optional[torch.Tensor] = None
 
     def ensure(self, slot: int, upto_pos: int) -> None:
-        """Back positions ``[0, upto_pos]`` of ``slot`` with pages."""
+        """Back positions ``[0, upto_pos]`` of ``slot`` with pages (fresh
+        ones, allocated on demand)."""
         if not 0 <= upto_pos < self.cache_len:
             raise ValueError(f"position {upto_pos} outside cache_len {self.cache_len}")
         need = upto_pos // self.page_size + 1
@@ -249,6 +299,64 @@ class PagedKVCache:
         self.tables[slot, :] = NULL_PAGE
         self.hiwater[slot] = 0
 
+    def spill(self, slot: int) -> SpilledKV:
+        """Detach ``slot``'s pages, in block order, into a record: no page is
+        copied and no refcount changes.  The slot is left empty."""
+        rec = SpilledKV(pages=list(self._owned[slot]), tokens=int(self.hiwater[slot]))
+        if self._owned[slot]:
+            self._dirty = True
+        self._owned[slot] = []
+        self.tables[slot, :] = NULL_PAGE
+        self.hiwater[slot] = 0
+        return rec
+
+    def restore(self, slot: int, rec: SpilledKV) -> None:
+        """Re-attach a spilled record to an empty ``slot`` (any slot index):
+        block ``b`` maps back to ``rec.pages[b]``; ownership moves back."""
+        if self._owned[slot]:
+            raise RuntimeError(f"slot {slot} already holds pages — restore needs a fresh slot")
+        self.tables[slot, : len(rec.pages)] = rec.pages
+        self._owned[slot] = list(rec.pages)
+        self.hiwater[slot] = rec.tokens
+        if rec.pages:
+            self._dirty = True
+
+    def drop_spilled(self, rec: SpilledKV) -> None:
+        """Abandon a spilled record: release its page references."""
+        for page in rec.pages:
+            self.allocator.free(page)
+        rec.pages = []
+        rec.tokens = 0
+
+    def splice(self, slot: int, pages: List[int], tokens: int) -> Optional[Tuple[int, int, int]]:
+        """Map positions ``[0, tokens)`` of an empty ``slot`` onto ``pages``
+        (a prefix hit): full pages are adopted by reference; a trailing
+        partial page gets a fresh page, and the caller copies its first
+        ``rows`` rows of every pool array.  Returns that copy-on-write as
+        ``(src_page, dst_page, rows)``, or None when ``tokens`` is
+        page-aligned."""
+        if self._owned[slot]:
+            raise RuntimeError(f"slot {slot} already holds pages — splice needs a fresh slot")
+        if tokens <= 0:
+            return None
+        nb = (tokens + self.page_size - 1) // self.page_size
+        if nb > len(pages):
+            raise ValueError(f"{tokens} tokens need {nb} pages, got {len(pages)}")
+        full = tokens // self.page_size
+        for i in range(full):
+            self.tables[slot, i] = self.allocator.ref(pages[i])
+            self._owned[slot].append(pages[i])
+        cow = None
+        rem = tokens - full * self.page_size
+        if rem:
+            dst = self.allocator.alloc()
+            self.tables[slot, full] = dst
+            self._owned[slot].append(dst)
+            cow = (pages[full], dst, rem)
+        self.hiwater[slot] = tokens
+        self._dirty = True
+        return cow
+
     def rows_of(self, slot: int, start: int, length: int):
         """(pages, offsets) of positions ``[start, start + length)``."""
         positions = start + np.arange(length)
@@ -264,6 +372,20 @@ class PagedKVCache:
     def slot_blocks(self, slot: int) -> int:
         """Pages ``slot`` owns, in block order from block 0."""
         return len(self._owned[slot])
+
+    def slot_pages(self, slot: int) -> List[int]:
+        """``slot``'s page list in block order (block b -> ``pages[b]``)."""
+        return list(self._owned[slot])
+
+    def check_exclusive(self, slot: int, start: int, length: int) -> None:
+        """Raise if rows ``[start, start + length)`` of ``slot`` lie in a page
+        another holder shares: prefill writes only exclusive pages (a
+        prefix hit's shared span is never re-prefilled)."""
+        blocks = range(start // self.page_size, (start + length - 1) // self.page_size + 1)
+        shared = [int(self.tables[slot, b]) for b in blocks
+                  if self.allocator.refcount(int(self.tables[slot, b])) > 1]
+        if shared:
+            raise RuntimeError(f"slot {slot} rows [{start}, {start + length}) would overwrite shared pages {shared}")
 
     @property
     def dirty(self) -> bool:
@@ -292,6 +414,155 @@ class PagedKVCache:
         }
 
 
+def _chunk_key(parent: bytes, tokens: np.ndarray) -> bytes:
+    """Chained digest of one prompt chunk: a node's key commits to the whole
+    prefix (the parent's digest and this chunk's tokens), so equal keys mean
+    equal token prefixes."""
+    h = hashlib.blake2b(parent, digest_size=16)
+    h.update(np.ascontiguousarray(tokens, np.int32).tobytes())
+    return h.digest()
+
+
+@dataclasses.dataclass
+class _PrefixNode:
+    key: bytes
+    parent: Optional["_PrefixNode"]
+    block0: int  # first cache block this node's pages cover
+    pages: List[int]
+    children: Dict[bytes, "_PrefixNode"] = dataclasses.field(default_factory=dict)
+    last_used: int = 0
+
+
+class PrefixIndex:
+    """Trie over ``chunk``-token prompt prefixes -> the pool pages holding
+    their KV rows (``repro.serving.kv_cache.PrefixIndex``).
+
+    A node exists iff some published prompt had that token prefix, and pins
+    the pages of its chunk's rows.  Prefill is deterministic on its chunk
+    grid, so any prompt with the prefix would write the same rows: a hit
+    spliced through :meth:`PagedKVCache.splice` is exact.  ``max_pages``
+    bounds the pins; inserts beyond it evict least-recently-used leaves, which
+    drops only the index's pin (a page spliced into a live table stays)."""
+
+    def __init__(self, chunk: int, pager: PagedKVCache, max_pages: Optional[int] = None):
+        if chunk < 1:
+            raise ValueError(f"chunk must be ≥ 1, got {chunk}")
+        self.chunk = chunk
+        self.pager = pager
+        self.max_pages = max_pages
+        self.root = _PrefixNode(key=b"", parent=None, block0=0, pages=[])
+        self._nodes: List[_PrefixNode] = []
+        self._clock = 0
+        self.held_pages = 0
+        # cumulative telemetry
+        self.hits = 0
+        self.misses = 0
+        self.saved_tokens = 0
+        self.lookup_tokens = 0
+        self.evicted_pages = 0
+
+    def _touch(self, node: _PrefixNode) -> None:
+        self._clock += 1
+        node.last_used = self._clock
+
+    def lookup(self, tokens: np.ndarray, limit: Optional[int] = None) -> Tuple[int, List[int]]:
+        """Longest cached chunk-aligned prefix of ``tokens`` (at most
+        ``limit`` tokens): ``(matched tokens, pages)`` with ``pages[b]``
+        backing block ``b`` of the match.  Matched nodes are touched."""
+        n = len(tokens) if limit is None else min(int(limit), len(tokens))
+        self.lookup_tokens += len(tokens)
+        node, key = self.root, self.root.key
+        run: Dict[int, int] = {}
+        matched = 0
+        for c in range(n // self.chunk):
+            key = _chunk_key(key, tokens[c * self.chunk : (c + 1) * self.chunk])
+            child = node.children.get(key)
+            if child is None:
+                break
+            node = child
+            self._touch(node)
+            # a deeper node's page holds a shared boundary block's full rows
+            for i, p in enumerate(node.pages):
+                run[node.block0 + i] = p
+            matched = (c + 1) * self.chunk
+        if not matched:
+            self.misses += 1
+            return 0, []
+        self.hits += 1
+        self.saved_tokens += matched
+        nb = (matched + self.pager.page_size - 1) // self.pager.page_size
+        return matched, [run[b] for b in range(nb)]
+
+    def publish(self, tokens: np.ndarray, upto: int, slot: int) -> int:
+        """Index the chunk-aligned prefix ``tokens[:upto]`` that ``slot`` has
+        prefilled, pinning the slot's pages under each new chunk's node.
+        Returns the number of nodes added."""
+        owned = self.pager.slot_pages(slot)
+        node, key = self.root, self.root.key
+        added = 0
+        for c in range(int(upto) // self.chunk):
+            lo, hi = c * self.chunk, (c + 1) * self.chunk
+            key = _chunk_key(key, tokens[lo:hi])
+            child = node.children.get(key)
+            if child is None:
+                b0, b1 = lo // self.pager.page_size, (hi - 1) // self.pager.page_size
+                if b1 >= len(owned):
+                    break  # the slot's rows are not page-backed that far
+                pages = owned[b0 : b1 + 1]
+                for p in pages:
+                    self.pager.allocator.ref(p)
+                child = _PrefixNode(key=key, parent=node, block0=b0, pages=pages)
+                node.children[key] = child
+                self._nodes.append(child)
+                self.held_pages += len(pages)
+                added += 1
+            node = child
+            self._touch(node)
+        self._evict()
+        return added
+
+    def _evict(self) -> None:
+        """LRU leaf eviction down to the page budget."""
+        if self.max_pages is None:
+            return
+        while self.held_pages > self.max_pages:
+            leaves = [n for n in self._nodes if not n.children]
+            if not leaves:
+                break
+            self._drop_node(min(leaves, key=lambda n: n.last_used))
+
+    def _drop_node(self, node: _PrefixNode) -> None:
+        if node.parent is not None:
+            node.parent.children.pop(node.key, None)
+        self._nodes.remove(node)
+        for p in node.pages:
+            self.pager.allocator.free(p)
+        self.held_pages -= len(node.pages)
+        self.evicted_pages += len(node.pages)
+
+    def drop_all(self) -> None:
+        """Release every pin and forget the trie; the counters stay."""
+        for node in self._nodes:
+            for p in node.pages:
+                self.pager.allocator.free(p)
+        self._nodes = []
+        self.root = _PrefixNode(key=b"", parent=None, block0=0, pages=[])
+        self.held_pages = 0
+
+    def stats(self) -> Dict[str, float]:
+        total = self.hits + self.misses
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_rate": self.hits / total if total else 0.0,
+            "saved_tokens": self.saved_tokens,
+            "saved_frac": self.saved_tokens / self.lookup_tokens if self.lookup_tokens else 0.0,
+            "shared_pages": self.held_pages,
+            "evicted_pages": self.evicted_pages,
+            "nodes": len(self._nodes),
+        }
+
+
 def make_paged_caches(caches: Dict[str, torch.Tensor], max_batch: int, cache_len: int,
                       page_size: int, num_pages: Optional[int] = None):
     """Replace freshly initialised ``[L, B, S, ...]`` caches by zero page pools
@@ -317,8 +588,10 @@ def scatter_prefill_chunk_paged(
     pager: PagedKVCache,
 ) -> Dict[str, torch.Tensor]:
     """Paged analogue of :func:`scatter_prefill_chunk_caches`: the chunk's
-    rows land in ``slot``'s pages (allocated on demand), in place."""
+    rows land in ``slot``'s pages (allocated on demand), in place; a page
+    another holder shares is never written."""
     pager.ensure(slot, start + length - 1)
+    pager.check_exclusive(slot, start, length)
     pages, offs = pager.rows_of(slot, start, length)
     dev = batch_caches["kv_k"].device
     pages_t = torch.from_numpy(pages.astype(np.int64)).to(dev)
@@ -332,14 +605,16 @@ def scatter_prefill_chunk_paged(
     return batch_caches
 
 
-def paginate_caches(caches: Dict[str, torch.Tensor], lengths: np.ndarray, page_size: int):
+def paginate_caches(caches: Dict[str, torch.Tensor], lengths: np.ndarray, page_size: int,
+                    num_pages: Optional[int] = None):
     """Re-paginate dense ``[L, B, S, ...]`` caches (a disagg export when the
-    engine degrades to mono): each slot's live ``lengths`` rows get fresh
-    pages and are copied in.  Page ids are new; the position -> value mapping
-    is exact, so replayed streams stay the same.  Returns ``(pager,
-    paged_caches)`` on the caches' device."""
+    engine degrades to mono) into a pool of ``num_pages`` pages (default:
+    full backing): each slot's live ``lengths`` rows get fresh pages and are
+    copied in.  Page ids are new; the position -> value mapping is exact, so
+    replayed streams stay the same.  Returns ``(pager, paged_caches)`` on the
+    caches' device."""
     B, S = caches["kv_k"].shape[1:3]
-    pager, out = make_paged_caches(caches, B, S, page_size)
+    pager, out = make_paged_caches(caches, B, S, page_size, num_pages)
     dev = caches["kv_k"].device
     for slot in range(B):
         ln = int(lengths[slot])

@@ -16,7 +16,11 @@ parameters, and drives an admission pipeline beside the decode loop:
   in the decode caches; a stack that cannot chunk (``chunked`` false) takes
   one whole-prompt :func:`repro_torch.models.model.prefill` call and hands
   the whole cache over (``length == -1``);
-* the last chunk's last-position logits give the request's first token.
+* the last chunk's last-position logits give the request's first token;
+* a prefix-cache hit submits with ``start`` (the chunk-aligned tokens its
+  shared pages already hold) and ``seed_caches`` (those rows' KV): the
+  per-request cache is seeded with rows ``[0, start)`` and prefill begins at
+  the first cold chunk.
 
 Calls are timed by the wall clock around work that ends in a device read
 (or by ``prefill_time_fn(prompt tokens)`` under a modeled clock), on a
@@ -63,8 +67,10 @@ class _InFlight:
     dev_index: int
     prompt: np.ndarray
     caches: Optional[Dict[str, torch.Tensor]] = None
-    done: int = 0  # prompt tokens already prefilled
+    done: int = 0  # prompt tokens already prefilled (or served from the prefix cache)
     ready_t: float = 0.0  # timeline moment the next chunk may start
+    prefix: int = 0  # leading tokens served by the prefix cache
+    seed: Optional[Dict[str, torch.Tensor]] = None  # their KV rows, [L, prefix, ...] per key
 
 
 class PrefillWorker:
@@ -127,9 +133,13 @@ class PrefillWorker:
     # ------------------------------------------------------------------
     # admission
     # ------------------------------------------------------------------
-    def submit(self, req: Request, slot: int, now: float) -> None:
-        """Queue a reserved request (FIFO)."""
-        self._queue.append(_InFlight(req, slot, -1, self.prompt_of(req), ready_t=now))
+    def submit(self, req: Request, slot: int, now: float, start: int = 0,
+               seed_caches: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """Queue a reserved request (FIFO).  A prefix hit passes ``start``
+        (tokens its shared pages hold) and ``seed_caches`` (their rows)."""
+        start = int(start)
+        self._queue.append(_InFlight(req, slot, -1, self.prompt_of(req), done=start, ready_t=now,
+                                     prefix=start, seed=seed_caches))
 
     def prompt_of(self, req: Request) -> np.ndarray:
         """The request's prompt, or the reference's seeded synthetic one."""
@@ -153,8 +163,8 @@ class PrefillWorker:
         displaced: List[Request] = []
         if 0 <= dev_index < len(self._current):
             for entry in self._current[dev_index]:
-                entry.caches = None
-                entry.done = 0
+                entry.caches = entry.seed = None
+                entry.done = entry.prefix = 0
                 displaced.append(entry.req)
             self._current[dev_index] = []
         return displaced
@@ -162,13 +172,12 @@ class PrefillWorker:
     def cancel_slot(self, slot: int) -> Optional[Request]:
         """Withdraw a queued or in-flight request by slot; returns it, or None
         if the worker no longer holds it."""
-        for i, entry in enumerate(self._queue):
-            if entry.slot == slot:
-                return self._queue.pop(i).req
-        for group in self._current:
+        for group in [self._queue] + self._current:
             for entry in group:
                 if entry.slot == slot:
                     group.remove(entry)
+                    entry.caches = entry.seed = None
+                    entry.done = entry.prefix = 0
                     return entry.req
         return None
 
@@ -239,6 +248,17 @@ class PrefillWorker:
             return None
         return {"moe_ctx": {"capacity": n_tokens if self.capacity is None else self.capacity}}
 
+    def _init_caches(self, entry: _InFlight, dev) -> Dict[str, torch.Tensor]:
+        """Fresh per-request caches; a prefix hit's seed fills rows ``[0,
+        prefix)`` so its cold chunks attend the whole span."""
+        caches = model_mod.init_decode_caches(self.cfg, 1, self.cache_len, dev)
+        if entry.seed:
+            for k, rows in entry.seed.items():
+                if k in caches:
+                    caches[k][:, 0, : entry.prefix] = rows.to(dev, caches[k].dtype)
+            entry.seed = None
+        return caches
+
     def _advance(self, entry: _InFlight, sink) -> Optional[PrefillEvent]:
         if self.fault_hook is not None:
             # before any compute or state change: a retried poll is safe
@@ -259,7 +279,7 @@ class PrefillWorker:
         lo = entry.done
         hi = min(lo + self.chunk, n)
         if entry.caches is None:
-            entry.caches = model_mod.init_decode_caches(self.cfg, 1, self.cache_len, dev)
+            entry.caches = self._init_caches(entry, dev)
         toks = torch.from_numpy(entry.prompt[lo:hi][None, :].astype(np.int64)).to(dev)
         t0 = time.perf_counter()
         logits, entry.caches = model_mod.prefill_chunk(
@@ -296,7 +316,7 @@ class PrefillWorker:
         dev = self.devices[di]
         for e in group:
             if e.caches is None:
-                e.caches = model_mod.init_decode_caches(self.cfg, 1, self.cache_len, dev)
+                e.caches = self._init_caches(e, dev)
         B = len(group)
         los = [e.done for e in group]
         his = [min(e.done + self.chunk, len(e.prompt)) for e in group]

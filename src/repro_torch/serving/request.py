@@ -1,5 +1,6 @@
-"""Requests and synthetic workloads (``repro.serving.request`` plus
-``poisson_arrivals`` from ``repro.serving.trace``), numpy only."""
+"""Requests, their SLO accounting and synthetic workloads
+(``repro.serving.request``), numpy only.  The arrival processes and the
+multi-tenant trace file are in :mod:`repro_torch.serving.trace`."""
 
 from __future__ import annotations
 
@@ -33,12 +34,57 @@ class Request:
     truncated: bool = False
     # greedy token ids emitted (first from prefill, then one per decode step)
     tokens_out: Optional[List[int]] = None
+    # -- multi-tenant and SLO fields (trace replay) --
+    tenant: str = "default"
+    klass: str = "chat"  # chat | long-context | batch-offline
+    # higher wins under sched="priority": admitted first, and may preempt a
+    # strictly lower-priority active slot (its KV spills, nothing is copied)
+    priority: int = 0
+    ttft_slo: Optional[float] = None  # seconds, arrival -> first token
+    tpot_slo: Optional[float] = None  # seconds, p99 inter-token gap
+    preemptions: int = 0  # times this request's slot was preempted
+    # (spill_t, restore_t) spans parked off-batch between two of its tokens:
+    # scheduling wait, which TPOT leaves out
+    wait_spans: Optional[List[tuple]] = None
 
     def decode_gaps(self) -> np.ndarray:
-        """Inter-token gaps over the decode phase."""
+        """Inter-token gaps over the decode phase, each preemption wait taken
+        out of the gap it interrupted."""
         if not self.token_times or len(self.token_times) < 2:
             return np.zeros(0)
-        return np.diff(np.asarray(self.token_times, float))
+        times = np.asarray(self.token_times, float)
+        gaps = np.diff(times)
+        for a, b in self.wait_spans or []:
+            i = int(np.searchsorted(times, a, side="right")) - 1
+            if 0 <= i < len(gaps):
+                gaps[i] = max(0.0, gaps[i] - (b - a))
+        return gaps
+
+    def tpot_p(self, q: float) -> float:
+        """Percentile ``q`` of the decode gaps (preemption waits left out)."""
+        gaps = self.decode_gaps()
+        if not len(gaps):
+            return 0.0
+        return float(np.percentile(gaps, q))
+
+    def ttft(self) -> Optional[float]:
+        """Arrival -> first token, or None if the request was never served."""
+        if self.prefill_done < 0:
+            return None
+        return self.prefill_done - self.arrival
+
+    def slo_ok(self) -> Optional[bool]:
+        """Did the request meet its SLOs?  None when it carries none; False
+        when it was rejected or never served."""
+        if self.ttft_slo is None and self.tpot_slo is None:
+            return None
+        if self.rejected or self.prefill_done < 0:
+            return False
+        if self.ttft_slo is not None and self.ttft() > self.ttft_slo:
+            return False
+        if self.tpot_slo is not None and self.tpot_p(99.0) > self.tpot_slo:
+            return False
+        return True
 
 
 @dataclasses.dataclass
@@ -51,6 +97,26 @@ class WorkloadSpec:
     max_input: int = 512
     max_output: int = 2048
     seed: int = 0
+    # every prompt opens with the same ``shared_prefix_len`` tokens (a
+    # fleet-wide system prompt) before its own tail; the sampled lengths
+    # above size the tails
+    shared_prefix_len: int = 0
+
+
+def long_prompt_spec(**overrides) -> WorkloadSpec:
+    """Long-prompt preset (document QA / RAG): heavy-tailed prompts, short
+    generations."""
+    spec = dict(mean_input=512.0, mean_output=64.0, max_input=4096, max_output=256)
+    spec.update(overrides)
+    return WorkloadSpec(**spec)
+
+
+def shared_prefix_spec(**overrides) -> WorkloadSpec:
+    """Shared-system-prompt preset (assistant and agent fleets): one long
+    system prompt, then a short user turn of each request's own."""
+    spec = dict(mean_input=8.0, mean_output=24.0, max_input=32, max_output=64, shared_prefix_len=48)
+    spec.update(overrides)
+    return WorkloadSpec(**spec)
 
 
 def sample_lengths(spec: WorkloadSpec, n: int, rng: np.random.Generator):
@@ -62,25 +128,41 @@ def sample_lengths(spec: WorkloadSpec, n: int, rng: np.random.Generator):
     return ins, outs
 
 
+def expected_tokens_per_request(spec: WorkloadSpec, n: int = 4096) -> float:
+    """Mean output length of ``spec``, through :func:`sample_lengths`."""
+    _ins, outs = sample_lengths(spec, n, np.random.default_rng(spec.seed))
+    return float(outs.mean())
+
+
 def sample_requests(spec: WorkloadSpec, arrivals: np.ndarray, with_prompts: bool = False) -> List[Request]:
-    """One request per arrival time, lengths from :func:`sample_lengths`."""
+    """One request per arrival time, lengths from :func:`sample_lengths`; a
+    shared prefix is drawn after the lengths and before the prompts (the
+    reference's draw order, so streams without one are unchanged)."""
     rng = np.random.default_rng(spec.seed)
     n = len(arrivals)
     ins, outs = sample_lengths(spec, n, rng)
+    shared = None
+    if spec.shared_prefix_len > 0:
+        shared = rng.integers(0, spec.vocab_size, size=spec.shared_prefix_len, dtype=np.int32)
     reqs = []
     for i, t in enumerate(np.sort(arrivals)):
         prompt = None
         if with_prompts:
             prompt = rng.integers(0, spec.vocab_size, size=int(ins[i]), dtype=np.int32)
+            if shared is not None:
+                prompt = np.concatenate([shared, prompt])
         reqs.append(
-            Request(rid=i, arrival=float(t), input_len=int(ins[i]), output_len=int(outs[i]),
-                    prompt=prompt, token_times=[])
+            Request(rid=i, arrival=float(t), input_len=int(ins[i]) + spec.shared_prefix_len,
+                    output_len=int(outs[i]), prompt=prompt, token_times=[])
         )
     return reqs
 
 
-def poisson_arrivals(rate: float, duration: float, seed: int = 0) -> np.ndarray:
-    """Constant-rate Poisson arrivals over [0, duration) seconds."""
-    rng = np.random.default_rng(seed)
-    n = rng.poisson(rate * duration)
-    return np.sort(rng.uniform(0, duration, size=n))
+def __getattr__(name):
+    # poisson_arrivals lives in serving/trace.py, as in the reference; it is
+    # still importable from here
+    if name == "poisson_arrivals":
+        from repro_torch.serving.trace import poisson_arrivals
+
+        return poisson_arrivals
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -460,10 +460,14 @@ def test_executor_validation(setup):
         DisaggExecutor(setup["cfg"], setup["params"], DevicePools.split(2, 2, [CPU], allow_reuse=True),
                        bad, max_batch=B, cache_len=CACHE_LEN)
     ex = _executor(setup, 2)
-    for call in (lambda: ex.decode_step_verify(None, None, None), lambda: ex.spill_slot(0),
-                 lambda: ex.splice_prefix(0, None, 0)):
-        with pytest.raises(NotImplementedError, match="comes with"):
-            call()
+    with pytest.raises(NotImplementedError, match="comes with"):
+        ex.decode_step_verify(None, None, None)
+    # spill and the prefix cache are ported; on contiguous KV a spill is
+    # refused and a splice misses
+    with pytest.raises(RuntimeError, match="paged KV"):
+        ex.spill_slot(0)
+    assert ex.splice_prefix(0, np.arange(8, dtype=np.int32), 4) == (0, None)
+    assert ex.prefix_stats() is None
     universe = list(ex._all_devices)
     ex.exclude_device("moe", 0)  # pools alias one device: a logical loss
     assert ex._all_devices == universe

@@ -145,7 +145,7 @@ def test_engine_paged_equals_contiguous():
 
 
 @pytest.mark.parametrize("option", [
-    dict(sched="priority"), dict(prefix_cache=True), dict(spec_k=2), dict(scheduler="random"),
+    dict(dispatch="einsum"), dict(dispatch="scatter"), dict(spec_k=2), dict(scheduler="random"),
 ])
 def test_engine_rejects_unported_options(option):
     """Options of the reference's engine that later slices port raise
