@@ -49,7 +49,11 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      attention loss while requests are spilled (their restores replay) and a
      two-tenant ``TraceSpec`` served: streams, ``prefix_cache``,
      preemptions, restores, spill replays, ``slo`` and ``kv_pages`` CPU =
-     card, launches exact;
+     card, launches exact; then speculative decode: a self-draft with
+     ``spec_k=3`` over paged, contiguous and int8 contiguous KV, a cross
+     draft (weights of another seed, ``spec_k=2``) and disagg contiguous
+     with a self-draft: streams CPU = card = the greedy streams, ``spec``
+     and ``amax_log`` CPU = card, launches exact;
   5. full-width serving: dsv2-lite (27 layers, d 2048, 64 experts top-6 + 2
      shared, vocab 102400) with random bf16 weights drawn once on the card
      from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
@@ -85,10 +89,18 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      requests under ``sched="priority"`` and FIFO on a modeled clock (the
      chat burst spills batch slots, which restore), and both together on
      disagg against FIFO without the cache; each held to its undisturbed
-     run (a flip only on a bf16 near-tie) with launches exact; then a
-     profiled short run of each mono layout, each disagg run, each pool
-     size the fault runs pass through and 5e's prefix and preemption runs
-     (device time per step, idle share);
+     run (a flip only on a bf16 near-tie) with launches exact; then (5f)
+     speculative decode at full width, at decode capacity 8: mono paged KV
+     greedy, with a self-draft (``spec_k=3``) and with a 2-layer draft of
+     full width (``spec_k=2``), and disagg contiguous greedy and with a
+     self-draft (``spec_k=3``), every speculative stream equal to its
+     greedy run's token for token (a flip fails), ``spec``, host ms per
+     verify step, TPOT, tokens/s, peak memory and (disagg) bytes per step
+     logged, launches exact from the verify steps, draft forwards and
+     rebuilds; then a profiled short run of each mono layout, each disagg
+     run, each pool size the fault runs pass through, 5e's prefix and
+     preemption runs and 5f's self-draft runs (device time per step or
+     verify step, idle share);
   6. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
@@ -113,9 +125,9 @@ SCALAR_OPS = 67e12  # fp32 / int32 outside the tensor cores
 # and f32 summation-order noise is kept under 2^-12 of the largest output
 ROUNDING_REL, ROUNDING_FLOOR = 2.0**-7, 2.0**-12
 # calls of a run that phase 5b profiles (the rest run unprofiled): each
-# costs ~1-4 s of host time under the profiler, and device time a step
-# varies by under 1% across a run
-PROFILE_CALLS = {"decode": 8, "prefill": 4}
+# costs ~1-4 s of host time under the profiler (a verify step ~8-15 s), and
+# device time a step varies by under 1% across a run
+PROFILE_CALLS = {"decode": 4, "prefill": 2}
 _START = time.perf_counter()
 
 
@@ -899,6 +911,42 @@ def main():
                                  f"{stray}, or {scheduled['calls']} scheduler calls")
         return {"launches_exact": exact, "prefill_calls": prefill_calls}
 
+    def path_launches(eng, attn_kernel, rebuilds, prefill_calls):
+        """The exact launches of a run without faults: each decode step (c =
+        1) or verify step (c = spec_k + 1 unrolled decode steps) launches the
+        attention kernel once per shard, layer and row c, and K2 and K3 once
+        per instance, micro-batch, MoE layer and row c (mono: one shard, one
+        instance); each draft forward (c a verify step) the draft's
+        contiguous attention kernel once per draft layer and K3 once per
+        draft MoE layer (no AEBS); each draft rebuild (a whole-history
+        prefill) K3 once per draft MoE layer; each prefill call K3 once per
+        MoE layer."""
+        kinds = eng.cfg.layer_kinds()
+        n_moe_layers = sum(k == "moe" for k in kinds)
+        c, ex = eng.spec_k + 1, eng.disagg
+        shards, per_layer = (len(ex.shards), ex.n_moe * ex.n_micro) if ex is not None else (1, 1)
+        k2 = per_layer * n_moe_layers * c * eng.steps_done
+        want = dict.fromkeys(attn_kernels, 0)
+        want[attn_kernel] += shards * len(kinds) * c * eng.steps_done
+        want.update(aebs_schedule=k2, expert_ffn=k2 + prefill_calls * n_moe_layers)
+        if eng.spec_k:
+            dkinds = eng.draft_config.layer_kinds()
+            forwards = c * eng.spec_steps
+            want["decode_attention_int8" if eng.draft_config.kv_quant else "decode_attention"] += forwards * len(dkinds)
+            want["expert_ffn"] += (forwards + rebuilds) * sum(k == "moe" for k in dkinds)
+        return want
+
+    def count_rebuilds(eng):
+        """Count the draft's whole-history rebuilds of ``eng``."""
+        n = {"rebuilds": 0}
+        rebuild = eng._draft_prefill
+
+        def counted(tokens):
+            n["rebuilds"] += 1
+            return rebuild(tokens)
+        eng._draft_prefill = counted
+        return n
+
     # (KV layout, kv_quant, kv_page_size, attention kernel, ping_pong)
     disagg_layouts = (("contiguous", False, None, "decode_attention", False),
                       ("paged", False, 16, "paged_decode_attention", True),
@@ -1184,7 +1232,54 @@ def main():
                 or got["restores"] != got["preemptions"]
                 or (name == "attn_loss_spilled" and not got["spill_replays"])):
             raise AssertionError(f"reduced {name}: the case did not run its path: {got}")
-    del p_gpu
+
+    # speculative decode on phase 4's deployment: self-draft spec_k=3 over
+    # paged, contiguous and int8 contiguous KV, a cross draft (seed-1
+    # weights, spec_k=2), and disagg (2 shards, 2 x 3 slots, capacity 64)
+    # contiguous with self-draft.  Streams CPU = card = the card's greedy
+    # streams of the layout above; spec and amax_log CPU = card; launches
+    # exact from the verify steps, draft forwards and rebuilds
+    d_cpu = model_mod.init_params(rcfg, seed=1, device="cpu")
+    d_gpu = to_dev(d_cpu)
+    disagg2 = dict(executor="disagg", n_attn=2, capacity_tokens=64)
+    # (case, KV layout, kv_quant, kv_page_size, attention kernel, cross draft, spec_k, engine options)
+    spec_cases = (("self_paged", "paged", False, 16, "paged_decode_attention", False, 3, {}),
+                  ("self_contiguous", "contiguous", False, None, "decode_attention", False, 3, {}),
+                  ("self_int8_contiguous", "int8_contiguous", True, None, "decode_attention_int8", False, 3, {}),
+                  ("cross_contiguous", "contiguous", False, None, "decode_attention", True, 2, {}),
+                  ("self_disagg_contiguous", "contiguous", False, None, "decode_attention", False, 3, disagg2))
+    for case, name, kv_quant, page, attn_kernel, cross, k, extra in spec_cases:
+        lcfg = dataclasses.replace(rcfg, kv_quant=kv_quant)
+        out = {}
+        for where, params, dparams in (("cpu", p_cpu, d_cpu), ("cuda", p_gpu, d_gpu)):
+            eng = ServingEngine(lcfg, params, max_batch=4, cache_len=64, kv_page_size=page, prefill_chunk=16,
+                                layout=rlayout, scheduler="aebs", device=where, draft_config=lcfg,
+                                draft_params=dparams if cross else None, spec_k=k, **extra)
+            if eng.disagg is not None:
+                eng.disagg.scheduler = counted_scheduler(eng.disagg.scheduler)
+            rebuilds = count_rebuilds(eng)
+            cuda.reset_launch_counts()
+            scheduled["calls"] = 0
+            m = eng.run(sample_requests(spec, np.zeros(6), with_prompts=True), max_steps=500)
+            launches = dict(cuda.LAUNCHES)
+            out[where] = ({r.rid: r.tokens_out for r in eng.completed}, m["spec"], eng.amax_log)
+        want = path_launches(eng, attn_kernel, rebuilds["rebuilds"], eng.prefill_worker.chunks_done)
+        wrong = {n: launches[n] for n in want if launches[n] != want[n]}
+        same = out["cpu"] == out["cuda"] and len(out["cpu"][0]) == 6
+        like_greedy = out["cuda"][0] == mono_streams[name]
+        log({"phase": "reduced_parity_spec", "case": case, "layout": name, "dtype": "float32",
+             "executor": extra.get("executor", "mono"), "spec_k": k, "cpu_equal_card": same,
+             "streams_equal_greedy": like_greedy, "spec": out["cuda"][1], "amax_log": out["cuda"][2],
+             "draft_rebuilds": rebuilds["rebuilds"], "launches": launches, "launches_exact": want, "card": card})
+        if not (same and like_greedy) or wrong or scheduled["calls"] != want["aebs_schedule"]:
+            raise AssertionError(f"reduced speculative {case}: streams, spec, amax_log CPU = card {same}, "
+                                 f"= greedy {like_greedy}; launches {wrong} not {want}, or "
+                                 f"{scheduled['calls']} scheduler calls")
+        got = out["cuda"][1]
+        if (got["acceptance_rate"] >= 1.0) if cross else (got["accepted_per_step"] <= 1.5):
+            raise AssertionError(f"reduced speculative {case}: the cross draft's rejections or the self-draft's "
+                                 f"acceptances did not come: {got}")
+    del p_gpu, d_gpu
 
     # ---- 5. full-width serving ------------------------------------------
     t0 = time.perf_counter()
@@ -1333,7 +1428,7 @@ def main():
             raise AssertionError(f"serving ({name}): {int(nonfinite)} non-finite logits")
         check_disagg_launches(f"serving ({name}): {steps} decode steps", launches, attn_kernel,
                               engine.disagg, steps, m["prefill_chunks"])
-        served[name] = {"step_ms": float(np.mean(step_ms)), "ttft_ms": m["ttft_mean"] * 1e3}
+        served[name] = {"step_ms": float(np.mean(step_ms)), "ttft_ms": m["ttft_mean"] * 1e3, "streams": streams}
         del engine
         torch.cuda.empty_cache()
 
@@ -1394,7 +1489,8 @@ def main():
 
     def record_margins(engine):
         """Top-2 logit margin of every token ``engine`` emits, by (rid, index):
-        index 0 from its prefill call's logits, then one per decode step."""
+        index 0 from its prefill call's logits, then one per decode step (a
+        verify step's accepted rows, one each)."""
         margins = {}
         worker = engine.prefill_worker
         adv, adv_b, dec = worker._advance, worker._advance_batched, engine._decode_iteration
@@ -1413,11 +1509,13 @@ def main():
             return evs
 
         def decode_iteration():
-            at = {s: (engine.slots.slot_req[s].rid, len(engine.slots.slot_req[s].tokens_out))
+            at = {s: (engine.slots.slot_req[s], len(engine.slots.slot_req[s].tokens_out))
                   for s in engine.slots.active_slots}
             dec()
-            for s, key in at.items():
-                margins[key] = top2(last_logits["t"][s])
+            lg = last_logits["t"]
+            for s, (req, n0) in at.items():
+                for j in range(len(req.tokens_out) - n0):
+                    margins[(req.rid, n0 + j)] = top2(lg[s] if lg.dim() == 2 else lg[s, j])
 
         worker._advance, worker._advance_batched = advance, advance_batched
         engine._decode_iteration = decode_iteration
@@ -1826,6 +1924,113 @@ def main():
          **{name: {k: v for k, v in info.items() if k != "launches"} for name, (info, *_r) in runs.items()},
          **held("phase 5e (c)", runs, "fifo_cold", "priority_prefix")})
     del runs
+
+    # ---- 5f. speculative decode at full width ----------------------------
+    # phase 5's 12 requests, weights and 4 x 17 layout at decode capacity 8,
+    # which drops nothing (a verify column routes other tokens beside a
+    # slot's than the greedy step it stands for, so under a capacity that
+    # can drop, speculative and greedy streams may part by design; phase 5
+    # runs the default capacity of 4).  (a) mono paged KV (K1): greedy, then
+    # self-draft spec_k=3, then a 2-layer draft at full width (weights of its
+    # own drawn on the card from seed 1) with spec_k=2; (b) disagg, 2
+    # attention shards and 4 MoE instances, contiguous KV (K4): greedy, then
+    # self-draft spec_k=3.  The draft decodes over contiguous caches through
+    # K4 without AEBS.  Every speculative stream must equal its greedy run's
+    # token for token: a verify runs decode's shapes on this card, so a flip
+    # is a fault (its margin is logged, then the script fails).  Launches are
+    # exact from the verify steps, draft forwards and rebuilds and prefill
+    # calls (path_launches)
+    draft_cfg = dataclasses.replace(cfg, num_layers=2, name="dsv2-lite-draft-2l")
+    fkw = dict(kw, capacity_tokens=8)
+    paged_kw, disagg_kw = dict(fkw, kv_page_size=16), dict(fkw, executor="disagg", n_attn=2)
+    self_k3 = dict(draft_config=cfg, spec_k=3)
+    # (cell, run, engine options, attention kernel, the greedy run it is held to)
+    spec_runs = (("a", "greedy", paged_kw, "paged_decode_attention", None),
+                 ("a", "self_k3", dict(paged_kw, **self_k3), "paged_decode_attention", "greedy"),
+                 ("a", "draft2l_k2", dict(paged_kw, draft_config=draft_cfg, spec_k=2), "paged_decode_attention",
+                  "greedy"),
+                 ("b", "greedy", disagg_kw, "decode_attention", None),
+                 ("b", "self_k3", dict(disagg_kw, **self_k3), "decode_attention", "greedy"))
+    spec_logs, spec_seen = {}, {}
+    model_mod.greedy_token = checked_greedy
+    for cell, run, engine_kw, attn_kernel, held_to in spec_runs:
+        what = f"phase 5f ({cell}, {run})"
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem_start = torch.cuda.memory_allocated() / 1e9
+        if engine_kw.get("draft_config") is draft_cfg:  # the 2-layer draft's own weights, on the card
+            engine_kw = dict(engine_kw, draft_params=model_mod.init_params(draft_cfg, seed=1, device=dev))
+        engine = ServingEngine(cfg, params, **engine_kw)
+        if engine.disagg is not None:
+            engine.disagg.scheduler = counted_scheduler(engine.disagg.scheduler)
+        run_margins = record_margins(engine)
+        rebuilds = count_rebuilds(engine)
+        iter_ms, verify_ms = [], []
+        dec, guarded = engine._decode_iteration, engine._guarded_decode
+
+        def timed_iteration(dec=dec):
+            t = time.perf_counter()
+            dec()
+            torch.cuda.synchronize()
+            iter_ms.append((time.perf_counter() - t) * 1e3)
+
+        def timed_verify(positions, spec=None, guarded=guarded):
+            torch.cuda.synchronize()  # the draft's work ends before the verify's clock starts
+            t = time.perf_counter()
+            out = guarded(positions, spec)
+            verify_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        engine._decode_iteration, engine._guarded_decode = timed_iteration, timed_verify
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        scheduled["calls"] = 0
+        nonfinite["n"] = 0
+        t0 = time.perf_counter()
+        m = engine.run(make_requests(2, 12, 16, 48, 16, 32))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        want = path_launches(engine, attn_kernel, rebuilds["rebuilds"], engine.prefill_worker.chunks_done)
+        wrong = {n: launches[n] for n in want if launches[n] != want[n]}
+        streams = {r.rid: r.tokens_out for r in engine.completed}
+        info = {"phase": "serve_spec", "cell": cell, "run": run, "card": card, "model": cfg.name,
+                "executor": engine.executor_name, "draft": engine.draft_config.name if engine.spec_k else None,
+                "spec_k": engine.spec_k, "requests": 12, "completed": m["completed"], "tokens": m["tokens"],
+                "steps": engine.steps_done, "spec": m.get("spec"), "draft_rebuilds": rebuilds["rebuilds"],
+                "prefill_calls": engine.prefill_worker.chunks_done, "wall_s": wall,
+                "host_ms_per_step": float(np.mean(iter_ms)), "host_ms_per_verify_call": float(np.mean(verify_ms)),
+                "tpot_ms_mean": m["tpot_mean"] * 1e3, "tpot_ms_p99": m["tpot_p99"] * 1e3,
+                "ttft_ms_mean": m["ttft_mean"] * 1e3, "tokens_per_s": m["throughput_tok_s"],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "mem_before_engine_gb": mem_start,
+                "kv_pages": m.get("kv_pages"), "transfer_bytes_per_step": m.get("transfer_bytes_per_step"),
+                "regime_counts": m.get("regime_counts"), "amax_mean": m.get("amax_mean"),
+                "amax_log": engine.amax_log, "launches": launches, "launches_exact": want,
+                # random weights: how often the next token repeats the one before
+                "repeat_share": sum(a == b for st in streams.values() for a, b in zip(st, st[1:]))
+                / sum(len(st) - 1 for st in streams.values())}
+        phase5 = served["paged" if cell == "a" else "disagg_contiguous"]["streams"]
+        info["tokens_equal_phase5_capacity_4"] = sum(a == b for rid, st in streams.items()
+                                                     for a, b in zip(st, phase5[rid]))
+        if held_to is not None:
+            base = spec_seen[(cell, held_to)]
+            flips = first_flips(streams, base["streams"], run_margins, base["margins"])
+            info.update(streams_equal_greedy=not flips, flips=flips, tokens_equal_greedy=sum(
+                a == b for rid, st in streams.items() for a, b in zip(st, base["streams"][rid])))
+        log(info)
+        if m["completed"] != 12 or m["truncated"] or any(r.generated != r.output_len for r in engine.completed):
+            raise AssertionError(f"{what}: {m['completed']} of 12 requests completed in full")
+        if nonfinite["n"]:
+            raise AssertionError(f"{what}: {nonfinite['n']} non-finite logits")
+        if wrong or scheduled["calls"] != want["aebs_schedule"]:
+            raise AssertionError(f"{what}: launches {wrong} not the exact {want}, or {scheduled['calls']} "
+                                 "scheduler calls")
+        if held_to is not None and info["flips"]:
+            raise AssertionError(f"{what}: the speculative stream parts from the greedy one: {info['flips']}")
+        spec_seen[(cell, run)] = {"streams": streams, "margins": run_margins}
+        spec_logs[(cell, run)] = info
+        served[f"spec_{cell}_{run}"] = {"step_ms": info["host_ms_per_step"], "ttft_ms": info["ttft_ms_mean"]}
+        del engine, engine_kw, dec, guarded, timed_iteration, timed_verify
     model_mod.greedy_token = greedy
 
     # ---- 5b. where the time goes: device time of the first decode steps and
@@ -1852,12 +2057,20 @@ def main():
                      ("fault_1a4e_paged", cfg, dict(as_kw, n_attn=1, kv_page_size=16), None),
                      ("fault_mono_paged", cfg, dict(kw, capacity_tokens=8, kv_page_size=16), None)]
     # phase 5e's (a) with the prefix cache and (b) with preemption, on their
-    # own traffic ((b) over its first 16 decode steps: the spill comes at
+    # own traffic ((b) over its first 12 decode steps: the spill comes at
     # step 8)
     profile_runs += [("prefix_mono_paged", cfg, dict(pkw, prefix_cache=True), None),
                      ("priority_mono_paged", cfg, dict(bkw, sched="priority"), None)]
-    profile_reqs = {"prefix_mono_paged": prefix_requests, "priority_mono_paged": priority_requests}
-    profile_decode_steps = {"priority_mono_paged": 16}
+    # phase 5f's self-draft runs on their own traffic, one profiled call a
+    # verify step with its draft forwards, from the second (the first
+    # rebuilds every slot's draft cache)
+    profile_runs += [("spec_a_self_k3", cfg, dict(paged_kw, **self_k3), None),
+                     ("spec_b_self_k3", cfg, dict(disagg_kw, **self_k3), None)]
+    profile_reqs = {"prefix_mono_paged": prefix_requests, "priority_mono_paged": priority_requests,
+                    "spec_a_self_k3": lambda: make_requests(2, 12, 16, 48, 16, 32),
+                    "spec_b_self_k3": lambda: make_requests(2, 12, 16, 48, 16, 32)}
+    profile_decode_steps = {"priority_mono_paged": 12, "spec_a_self_k3": 8, "spec_b_self_k3": 8}
+    profile_skip = {"spec_a_self_k3": 1, "spec_b_self_k3": 1}
     served["autoscaled_before"] = {"step_ms": wall_ms["before"], "ttft_ms": half_metrics(first)["ttft_ms_mean"]}
     served["autoscaled_after"] = {"step_ms": wall_ms["after"], "ttft_ms": half_metrics(second)["ttft_ms_mean"]}
     profiled_ms = {}
@@ -1876,9 +2089,13 @@ def main():
         kernel_n = {"decode": {}, "prefill": {}}
         kernel_ms = {"decode": {}, "prefill": {}}
         cap = dict(PROFILE_CALLS, decode=profile_decode_steps.get(name, PROFILE_CALLS["decode"]))
+        skip = {"decode": profile_skip.get(name, 0), "prefill": 0}
 
         def profiled(fn, kind):
             def call(*args, **kwargs):
+                if skip[kind]:
+                    skip[kind] -= 1
+                    return fn(*args, **kwargs)
                 if len(device_ms[kind]) >= cap[kind]:
                     return fn(*args, **kwargs)
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1897,7 +2114,9 @@ def main():
             return call
 
         engine = ServingEngine(run_cfg, params, **{**kw, **engine_kw})
-        if engine.disagg is not None:
+        if engine.spec_k:  # draft forwards and the verify, one call
+            engine._spec_iteration = profiled(engine._spec_iteration, "decode")
+        elif engine.disagg is not None:
             DisaggExecutor.decode_step = profiled(disagg_step, "decode")
         else:
             model_mod.decode_step = profiled(decode_step, "decode")
@@ -1916,6 +2135,7 @@ def main():
                       "mono_device_idle_share_decode": 1.0 - profiled_ms[mono_name] / served[mono_name]["step_ms"]}
         log({"phase": "profile", "layout": name, "executor": engine_kw.get("executor", "mono"),
              "card": card, "decode_steps": len(device_ms["decode"]),
+             "step": "verify step with its draft forwards" if engine_kw.get("spec_k") else "decode step",
              "device_ms_per_decode_step": busy,
              "device_ops_per_decode_step": float(np.mean(device_ops["decode"])),
              "step_ms_unprofiled": served[name]["step_ms"] if name in served else None,
@@ -1955,6 +2175,17 @@ def main():
          "replay_decode_steps": {run: fault_logs[(run, True)]["replay_decode_steps"] for run in fault_kw},
          "peak_mem_gb": {f"{run}_{'faults' if hit else 'undisturbed'}": v["peak_mem_gb"]
                          for (run, hit), v in fault_logs.items()}})
+
+    # phase 5f: each run beside its greedy run, device ms per verify step
+    # (its draft forwards included) from 5b
+    keys = ("steps", "spec", "host_ms_per_step", "host_ms_per_verify_call", "tpot_ms_mean", "tokens_per_s",
+            "peak_mem_gb", "transfer_bytes_per_step", "draft_rebuilds")
+    log({"phase": "spec_summary", "card": card,
+         "runs": {f"{cell}_{run}": {k: info[k] for k in keys} for (cell, run), info in spec_logs.items()},
+         "device_ms_per_verify_step": {cell: profiled_ms[f"spec_{cell}_self_k3"] for cell in ("a", "b")},
+         "device_ms_per_greedy_step": {"a": profiled_ms["paged"], "b": profiled_ms["disagg_contiguous"]},
+         "device_idle_share_verify": {cell: 1.0 - profiled_ms[f"spec_{cell}_self_k3"]
+                                      / served[f"spec_{cell}_self_k3"]["step_ms"] for cell in ("a", "b")}})
 
     # ---- 6. results ------------------------------------------------------
     log({"kernels": [rows[n] for n in cuda.LAUNCHES]})

@@ -25,6 +25,14 @@ def decode_step(params, tokens, caches, cache_index, cfg, extra=None):
     return transformer.decode_step(params, tokens, caches, cache_index, cfg, extra=extra)
 
 
+def decode_step_verify(params, tokens, caches, cache_index, cfg, extra=None, widths=None):
+    return transformer.decode_step_verify(params, tokens, caches, cache_index, cfg, extra=extra, widths=widths)
+
+
+def supports_speculative_decode(cfg) -> bool:
+    return transformer.supports_speculative_decode(cfg)
+
+
 def prefill_chunk(params, tokens, caches, start, cfg, extra=None):
     return transformer.prefill_chunk(params, tokens, caches, start, cfg, extra=extra)
 

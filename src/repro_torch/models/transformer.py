@@ -73,6 +73,38 @@ def attention_stage(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg):
     return x, rmsnorm(lp["ln2"], x, cfg.norm_eps)
 
 
+def _verify_positions(cache_index: torch.Tensor, c: int, cache_len: int, widths=None):
+    """Each verify row's write positions: row ``j`` of slot ``b`` at
+    ``cache_index[b] + j``, clamped to the cache; a parked row (``j >=
+    widths[b]``) at the last row, as parked slots decode
+    (``transformer.py:585-590``)."""
+    last = cache_len - 1
+    rows = []
+    for j in range(c):
+        pos = torch.clamp_max(cache_index + j, last)
+        if widths is not None:
+            pos = torch.where(j < widths, pos, last)
+        rows.append(pos)
+    return rows
+
+
+def attention_stage_verify(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg, widths=None):
+    """Speculative-verify analogue of :func:`attention_stage`
+    (``transformer.py:262``): ``x`` holds ``c`` candidate rows per slot, and
+    row ``j`` writes and attends at ``cache_index[b] + j``.  It unrolls ``c``
+    one-token stages, so every op runs at decode's shapes and a row's
+    numbers are those of the decode step it stands for (a batched ``[b, c,
+    .]`` form rounds otherwise).  Returns ``(x_resid, h_ffn)`` ``[b, c, d]``."""
+    bt = kv.get("bt")
+    cache_len = bt.shape[1] * kv["k"].shape[1] if bt is not None else kv["k"].shape[1]
+    xs, h2s = [], []
+    for j, pos in enumerate(_verify_positions(cache_index, x.shape[1], cache_len, widths)):
+        xj, h2j = attention_stage(lp, x[:, j : j + 1].contiguous(), kv, pos, cfg)
+        xs.append(xj)
+        h2s.append(h2j)
+    return torch.cat(xs, dim=1), torch.cat(h2s, dim=1)
+
+
 def attention_stage_full(lp, x, cfg, positions=None, return_kv: bool = False):
     """Whole-sequence analogue of :func:`attention_stage` (``transformer.py:210``).
     Returns ``(x_resid, h_ffn, (k, v) or None)``."""
@@ -180,6 +212,38 @@ def decode_step(
         x, h2 = attention_stage(lp, x, kv, cache_index, cfg)
         x = moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None)
     return lm_head(params, x[:, 0, :], cfg), caches
+
+
+def supports_speculative_decode(cfg) -> bool:
+    """The verify step covers dense/MoE stacks with full-context attention,
+    as batched prefill does (``transformer.py:545``)."""
+    return supports_batched_prefill(cfg)
+
+
+def decode_step_verify(
+    params: Params,
+    tokens: torch.Tensor,  # [b, c]: the last accepted token, then c - 1 drafts
+    caches: Dict[str, torch.Tensor],
+    cache_index: torch.Tensor,  # [b] per-slot positions of row 0
+    cfg,
+    extra: Optional[Dict[str, Any]] = None,
+    widths: Optional[torch.Tensor] = None,  # [b] valid rows per slot (<= c)
+):
+    """Speculative verify (``transformer.py:553``): scores ``c`` candidate
+    positions per slot.  Returns ``(logits [b, c, V] f32, caches)``, the
+    caches updated in place.  Row ``j``'s logits are those :func:`decode_step`
+    gives after rows ``0 .. j-1`` were appended, bit for bit: the verify is
+    ``c`` unrolled decode steps at decode's shapes.  A parked row (``j >=
+    widths[b]``) writes at the cache's last row, which no live context
+    reads, so a rejected candidate needs no rollback; a retried verify
+    writes the same rows with the same values."""
+    if not supports_speculative_decode(cfg):
+        raise ValueError(f"{cfg.name}: architecture does not support speculative decode")
+    bt = caches.get("block_tables")
+    cache_len = bt.shape[1] * caches["kv_k"].shape[2] if bt is not None else caches["kv_k"].shape[2]
+    rows = [decode_step(params, tokens[:, j : j + 1], caches, pos, cfg, extra=extra)[0]
+            for j, pos in enumerate(_verify_positions(cache_index, tokens.shape[1], cache_len, widths))]
+    return torch.stack(rows, dim=1), caches
 
 
 def supports_chunked_prefill(cfg) -> bool:

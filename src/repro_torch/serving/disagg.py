@@ -32,6 +32,11 @@ combine in mono's op order), so a step's KV caches and logits follow
 mono's.  Micro-batch ping-pong (``ping_pong=True``, m = 2) routes each
 micro-batch on its own; it matches whenever expert capacity is ample.
 
+Speculative verify (:meth:`DisaggExecutor.decode_step_verify`) carries the
+``c`` candidate rows of every slot across each layer's exchange at once,
+and runs attention, MoE, combine and head once per candidate position at
+a decode step's shapes, so its rows follow ``c`` mono decode steps.
+
 ``reconfigure`` actuates a §3.5 scaling decision mid-run: only the pool
 whose count changed is rebuilt, and KV caches are re-sharded so in-flight
 requests continue undisturbed.  The prefill pool (``pools.prefill_devices``)
@@ -373,6 +378,22 @@ class DisaggExecutor:
         )
         return y_items, keep, local.reshape(-1), gates, load
 
+    def _moe_verify_fn(self, g: int, li: int, h: torch.Tensor):
+        """:meth:`_moe_fn` once per candidate position of ``h`` ``[rows, c,
+        d]`` (``disagg.py:484-507``): each column routes and dispatches as one
+        decode step does, while all ``c`` columns crossed in one exchange.
+        Outputs are packed token-major (row, position, k); ``load`` is the
+        positions' loads stacked."""
+        rows, c, d = h.shape
+        k = self.cfg.top_k
+        outs = [self._moe_fn(g, li, h[:, j : j + 1]) for j in range(c)]
+
+        def packed(i, *shape):
+            return torch.stack([o[i].reshape(rows, k, *shape) for o in outs], dim=1).reshape(rows * c * k, *shape)
+
+        gates = torch.stack([o[3] for o in outs], dim=1).reshape(rows * c, k)
+        return packed(0, d), packed(1), packed(2), gates, torch.stack([o[4] for o in outs])
+
     def _combine_fn(self, x, h2, shared_p, parts, gates):
         """Attention-side combine in mono's op order: gate x keep, sum over
         k, shared expert, residual."""
@@ -389,6 +410,19 @@ class DisaggExecutor:
         if shared_p is not None:
             y2d = y2d + ffn(shared_p, h2.reshape(b, d), "swiglu")
         return x + y2d.reshape(b, 1, d)
+
+    def _combine_verify_fn(self, x, h2, shared_p, parts, gates):
+        """:meth:`_combine_fn` once per candidate position on the token-major
+        parts (``disagg.py:509-530``), at one decode step's shapes."""
+        b, c, d = x.shape
+        k = self.cfg.top_k
+        cols = []
+        for j in range(c):
+            parts_j = [(yg.reshape(b, c, k, d)[:, j].reshape(b * k, d), kg.reshape(b, c, k)[:, j].reshape(b * k),
+                        lg.reshape(b, c, k)[:, j].reshape(b * k)) for yg, kg, lg in parts]
+            cols.append(self._combine_fn(x[:, j : j + 1], h2[:, j : j + 1], shared_p, parts_j,
+                                         gates.reshape(b, c, k)[:, j]))
+        return torch.cat(cols, dim=1)
 
     # ------------------------------------------------------------------
     # cache interop (engine format: stacked [L, b, S, ...])
@@ -486,6 +520,16 @@ class DisaggExecutor:
             return
         si = self.shard_of(slot)
         self._pagers[si].ensure(slot - self.shards[si].lo, pos)
+
+    def truncate_slot(self, slot: int, tokens: int) -> None:
+        """Clamp ``slot``'s live length down to ``tokens`` rows: a
+        speculative verify backed and wrote rows past the accepted prefix
+        (``disagg.py:649-657``)."""
+        self._slot_len[slot] = min(int(self._slot_len[slot]), int(tokens))
+        if self._pagers is None:
+            return
+        si = self.shard_of(slot)
+        self._pagers[si].truncate(slot - self.shards[si].lo, tokens)
 
     def release_slot(self, slot: int) -> None:
         """Free a released slot's pages and forget its live length."""
@@ -780,12 +824,20 @@ class DisaggExecutor:
     def decode_step(self, tokens, positions, collect_stage_times: bool = False) -> Tuple[torch.Tensor, Dict]:
         """One batched decode step: ``tokens`` [b, 1], ``positions`` [b].
         Returns (logits [b, vocab] f32, telemetry)."""
-        return self._decode_impl(tokens, positions, collect_stage_times)
+        return self._decode_impl(tokens, positions, None, collect_stage_times)
 
     def decode_step_verify(self, tokens, positions, widths, collect_stage_times: bool = False):
-        raise NotImplementedError("decode_step_verify: not ported yet (comes with speculative decode)")
+        """One speculative-verify step (``disagg.py:996-1004``): ``tokens``
+        [b, c] (the last accepted token and the drafts), ``widths`` [b] valid
+        rows per slot.  Attention, MoE, combine and head run once per
+        candidate position, at decode's shapes, but each layer's exchange
+        carries all ``c`` rows of a slot at once, so the transfer bytes scale
+        by ``c`` per exchange.
+        Returns (logits [b, c, vocab] f32, telemetry)."""
+        return self._decode_impl(tokens, positions, widths, collect_stage_times)
 
-    def _decode_impl(self, tokens, positions, collect_stage_times: bool = False) -> Tuple[torch.Tensor, Dict]:
+    def _decode_impl(self, tokens, positions, widths, collect_stage_times: bool = False):
+        verify = widths is not None
         self._sync_tables()
         cfg = self.cfg
         pools = self.pools
@@ -816,9 +868,11 @@ class DisaggExecutor:
         # shard inputs + embed (attention pool)
         xs: List[torch.Tensor] = []
         poss: List[torch.Tensor] = []
+        wids: List[Optional[torch.Tensor]] = []
         for s in self.shards:
             dev = pools.attn_devices[s.dev_index]
             poss.append(positions[s.lo : s.hi].to(dev))
+            wids.append(widths[s.lo : s.hi].to(dev) if verify else None)
             xs.append(transformer.embed_tokens(self._attn_params[s.dev_index], tokens[s.lo : s.hi].to(dev), cfg))
 
         mbs = [[si for si, s in enumerate(self.shards) if s.mb == m] for m in range(self.n_micro)]
@@ -840,7 +894,12 @@ class DisaggExecutor:
                 for si in group:
                     s = self.shards[si]
                     lp = self._attn_params[s.dev_index]["layers"][li]
-                    xs[si], h2s_all[si] = transformer.attention_stage(lp, xs[si], self._kv[si][li], poss[si], cfg)
+                    if verify:
+                        xs[si], h2s_all[si] = transformer.attention_stage_verify(
+                            lp, xs[si], self._kv[si][li], poss[si], cfg, widths=wids[si])
+                    else:
+                        xs[si], h2s_all[si] = transformer.attention_stage(
+                            lp, xs[si], self._kv[si][li], poss[si], cfg)
                 _tick("attn", [xs[si] for si in group], t0)
 
             if kind == "dense":
@@ -856,6 +915,7 @@ class DisaggExecutor:
             # stage is issued before m-1's combine, and m+1's attention after
             # it (§6 / MegaScale micro-batch pipelining).
             pending: List[Tuple[int, List[int], List]] = []
+            moe_fn = self._moe_verify_fn if verify else self._moe_fn
             for m, group in enumerate(mbs):
                 attn_mb(group)
                 t0 = time.perf_counter()
@@ -864,21 +924,23 @@ class DisaggExecutor:
                     self.fault_hook("exchange", li, m)
                 h_on_moe = self._run_exchange(h2s, regime, tel)
                 t0 = _tick("exchange", h_on_moe, t0)
-                res = [self._moe_fn(g, li, h_on_moe[g]) for g in range(self.n_moe)]
+                res = [moe_fn(g, li, h_on_moe[g]) for g in range(self.n_moe)]
                 _tick("moe", [r[0] for r in res], t0)
                 if pending:
                     self._combine_mb(*pending.pop(0), xs, h2s_all, offs, li, tel, times,
-                                     collect_stage_times, amax_parts)
+                                     collect_stage_times, amax_parts, verify)
                 pending.append((m, group, res))
             while pending:
                 self._combine_mb(*pending.pop(0), xs, h2s_all, offs, li, tel, times,
-                                 collect_stage_times, amax_parts)
+                                 collect_stage_times, amax_parts, verify)
 
         t0 = time.perf_counter()
         logit_shards = {}
         for si, s in enumerate(self.shards):
             p = self._attn_params[s.dev_index]
-            logit_shards[s.lo] = transformer.lm_head(p, xs[si][:, 0, :], cfg)
+            # one head call per position, at decode's shapes
+            cols = [transformer.lm_head(p, xs[si][:, j, :], cfg) for j in range(xs[si].shape[1])]
+            logit_shards[s.lo] = torch.stack(cols, dim=1) if verify else cols[0]
         out_dev = pools.attn_devices[0]
         logits = torch.cat([logit_shards[lo].to(out_dev) for lo in sorted(logit_shards)], dim=0)
         if collect_stage_times:
@@ -886,21 +948,27 @@ class DisaggExecutor:
             times["head"] = time.perf_counter() - t0
             tel["stage_times"] = times
         # one host read a step: the largest instance-0 load of any layer
+        # (and, verifying, of any position)
         tel["a_max"] = int(torch.stack([a.to(out_dev) for a in amax_parts]).max()) if amax_parts else 0
         tel["bytes_total"] = tel["bytes_slow"] + tel["bytes_fast"]
         return logits, tel
 
-    def _combine_mb(self, m, group, res, xs, h2s_all, offs, li, tel, times, collect, amax_parts) -> None:
+    def _combine_mb(self, m, group, res, xs, h2s_all, offs, li, tel, times, collect, amax_parts,
+                    verify=False) -> None:
         """Ship expert partials back to the owning attention shards and run
-        the gate-combine there (mono's op order)."""
+        the gate-combine there (mono's op order).  Verifying, a shard's rows
+        carry ``c`` candidate tokens each, so the item and gate slices scale
+        by ``c`` (``disagg.py:1156-1192``)."""
         t0 = time.perf_counter()
         k = self.cfg.top_k
+        w = xs[group[0]].shape[1] if verify else 1  # tokens per row
         off, _total = offs[m]
         amax_parts.append(res[0][4].max())  # load from instance 0 (redundant copies agree)
+        combine = self._combine_verify_fn if verify else self._combine_fn
         for si in group:
             s = self.shards[si]
             dev = self.pools.attn_devices[s.dev_index]
-            r0, r1 = off[si], off[si] + s.rows
+            r0, r1 = off[si] * w, (off[si] + s.rows) * w
             parts = []
             for y_items, keep, local, _gates, _load in res:
                 part = (
@@ -915,7 +983,7 @@ class DisaggExecutor:
             tel["bytes_slow"] += gates.nbytes
             tel["msgs_slow"] += 1
             shared = self._attn_params[s.dev_index]["shared"][li]
-            xs[si] = self._combine_fn(xs[si], h2s_all[si], shared, parts, gates)
+            xs[si] = combine(xs[si], h2s_all[si], shared, parts, gates)
         if collect:
             _sync([xs[si] for si in group])
             times["combine"] += time.perf_counter() - t0

@@ -52,7 +52,14 @@ disaggregated one (``executor="disagg"``).
   pages into the new slot's block table (copy-on-write for a partial tail
   page) and the prefill starts at the first cold chunk, seeded with the
   matched rows.  A prompt is published at activation, when every row is
-  written.  ``kv_num_pages`` sizes the page pool (default: full backing).
+  written.  ``kv_num_pages`` sizes the page pool (default: full backing);
+* speculative decode (``draft_config``, ``draft_params``, ``spec_k``): a
+  draft model on the engine's device proposes ``spec_k`` tokens per slot
+  over caches of its own, one verify step scores them with the last
+  accepted token on either executor, and the longest prefix that matches
+  the target's argmax is accepted.  Acceptance is against the target's own
+  greedy tokens, so the stream is greedy decode's whatever the draft
+  proposes; the draft moves only the tokens gained per step.
 
 Options of the reference that later slices port raise ``NotImplementedError``.
 """
@@ -82,6 +89,7 @@ from repro_torch.serving.kv_cache import (
     SlotManager,
     make_paged_caches,
     paginate_caches,
+    scatter_prefill_caches,
     scatter_prefill_chunk_caches,
     scatter_prefill_chunk_paged,
     zero_slots,
@@ -104,9 +112,6 @@ ADMISSION_SCHEDS = ("fifo", "priority")
 _LATER = {
     "dispatch": (("grouped",), "the einsum/scatter oracles"),
     "extra_builder": ((None,), "the other families"),
-    "draft_config": ((None,), "speculative decode"),
-    "draft_params": ((None,), "speculative decode"),
-    "spec_k": ((0,), "speculative decode"),
 }
 
 
@@ -155,6 +160,9 @@ class ServingEngine:
         fault_plan: Optional[FaultPlan] = None,
         retry_policy: Optional[RetryPolicy] = None,
         watchdog: Optional[Watchdog] = None,
+        draft_config=None,  # a config that drafts tokens: speculative decode
+        draft_params=None,  # default: the target's weights (self-draft) or a fresh draw
+        spec_k: int = 0,  # drafts per verify step (0 with a draft_config: 2)
         device="cuda",
         **later,
     ):
@@ -187,6 +195,22 @@ class ServingEngine:
                     "prefix_cache requires an architecture whose decode caches "
                     "are all full-attention (dense/moe periods) — rolling-"
                     "window / recurrent state cannot be seeded positionally"
+                )
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be ≥ 0, got {spec_k}")
+        if spec_k and draft_config is None:
+            raise ValueError("spec_k > 0 requires a draft_config")
+        if draft_config is not None:
+            if not model_mod.supports_speculative_decode(cfg):
+                raise ValueError(
+                    "speculative decode requires full-context dense/moe decode "
+                    "layers (rolling-window / recurrent state has no batched "
+                    "multi-position verify)"
+                )
+            if draft_config.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab ({draft_config.vocab_size}) must match target vocab "
+                    f"({cfg.vocab_size}) — draft tokens are verified verbatim"
                 )
         if admission is None:
             admission = "pipelined" if n_prefill else "blocking"
@@ -280,6 +304,31 @@ class ServingEngine:
             self.prefix = PrefixIndex(self.prefill_worker.chunk, self.paged, max_pages=prefix_cache_pages)
         if fault_plan is not None:
             self.arm_faults(fault_plan, policy=retry_policy, watchdog=watchdog)
+
+        # speculative decode: the draft decodes over contiguous caches of its
+        # own on the engine's device, without the MoE context (no AEBS)
+        self.spec_k = int(spec_k or (2 if draft_config is not None else 0))
+        self.draft_config = draft_config if self.spec_k else None
+        self.spec_steps = 0  # verify iterations taken
+        self.spec_slot_steps = 0  # per-slot verify participations
+        self.spec_draft_tokens = 0  # draft proposals scored
+        self.spec_draft_accepted = 0  # draft proposals accepted
+        self.spec_emitted_tokens = 0  # tokens emitted by verify steps
+        self._draft_params = None
+        self._draft_caches = None
+        # slot -> (rid, n): draft cache rows [0, n) hold request rid's stream;
+        # anything less at the slot's position rebuilds them
+        self._draft_stream: Dict[int, tuple] = {}
+        if self.spec_k:
+            dcfg = draft_config
+            if draft_params is not None:
+                self._draft_params = draft_params
+            elif dcfg is cfg or dcfg.name == cfg.name:
+                self._draft_params = params  # self-draft: the target's weights
+            else:
+                # torch draws other numbers than the reference's JAX PRNG
+                self._draft_params = model_mod.init_params(dcfg, seed=0, device=self.device)
+            self._draft_caches = model_mod.init_decode_caches(dcfg, max_batch, cache_len, self.device)
 
     def _mono_extra(self, layout: Optional[ReplicaLayout]) -> Optional[Dict]:
         """The mono step's MoE context over ``layout``'s tables on the
@@ -495,17 +544,17 @@ class ServingEngine:
         if lost_rows:
             self._rebuild_lost_slots(lost_rows)
 
-    def _guarded_decode(self, positions: torch.Tensor):
-        """One decode step in the fault envelope: a transient exchange fault
-        retries the (idempotent) step under exponential backoff; a spent
-        retry budget degrades to mono; injected sub-deadline delays are
-        charged to the clock."""
+    def _guarded_decode(self, positions: torch.Tensor, spec=None):
+        """One decode (or verify) step in the fault envelope: a transient
+        exchange fault retries the (idempotent) step under exponential
+        backoff; a spent retry budget degrades to mono; injected
+        sub-deadline delays are charged to the clock."""
         if self.faults is None:
-            return self._decode_once(positions)
+            return self._decode_once(positions, spec)
         attempt = 0
         while True:
             try:
-                out = self._decode_once(positions)
+                out = self._decode_once(positions, spec)
             except PoolFault as fault:
                 if not fault.transient:
                     self._recover(fault)
@@ -521,10 +570,21 @@ class ServingEngine:
             self._charge(self.faults.consume_delay())
             return out
 
-    def _decode_once(self, positions: torch.Tensor):
-        """One batched step: (next tokens on the host, telemetry or None)."""
-        tokens = torch.from_numpy(self.tokens).to(self.device)
+    def _decode_once(self, positions: torch.Tensor, spec=None):
+        """One batched step: (next tokens on the host, telemetry or None).
+        With ``spec = (tokens [b, c], widths [b])`` it is a verify step and
+        the tokens are the ``[b, c]`` argmaxes of its rows."""
         tel = None
+        if spec is not None:
+            tokens, widths = spec
+            if self.disagg is not None:
+                logits, tel = self.disagg.decode_step_verify(tokens, positions, widths)
+            else:
+                logits, self.caches = model_mod.decode_step_verify(
+                    self.params, tokens, self.caches, positions, self.cfg, extra=self._extra, widths=widths
+                )
+            return model_mod.greedy_token(logits).cpu().numpy(), tel  # waits for the device
+        tokens = torch.from_numpy(self.tokens).to(self.device)
         if self.disagg is not None:
             logits, tel = self.disagg.decode_step(tokens, positions)
         else:
@@ -684,6 +744,7 @@ class ServingEngine:
         req.preemptions += 1
         self._spilled.append(_SpillRecord(req=req, payload=payload, shard=shard, spilled_at=self.clock))
         self.preempt_count += 1
+        self._draft_stream.pop(slot, None)
         return req
 
     def _restore_record(self, rec: _SpillRecord, slot: int) -> None:
@@ -868,7 +929,120 @@ class ServingEngine:
         elif self.disagg is not None:
             self.disagg.release_slot(slot)
 
+    # ------------------------------------------------------------------
+    # speculative decode: draft -> verify -> greedy acceptance
+    # ------------------------------------------------------------------
+    def _draft_ensure(self, slot: int) -> None:
+        """Make the draft's cache rows of ``slot`` hold its request's stream
+        up to the slot's position: a fresh activation, a restore and a reused
+        slot rebuild them by a whole-history draft prefill; a slot that went
+        on through verify steps is covered already.  The rebuild need not
+        match the incremental rows bit for bit: the draft moves only the
+        acceptance rate, never the tokens."""
+        req = self.slots.slot_req[slot]
+        pos = int(self.slots.positions[slot])
+        rid, have = self._draft_stream.get(slot, (None, -1))
+        if rid == req.rid and have >= pos:
+            return
+        history = self.prefill_worker.prompt_of(req)
+        if req.generated:
+            history = np.concatenate([history, np.asarray(req.tokens_out[:-1], np.int32)])
+        one = self._draft_prefill(torch.from_numpy(history[None].astype(np.int64)).to(self.device))
+        scatter_prefill_caches(self._draft_caches, one, slot)
+        self._draft_stream[slot] = (req.rid, pos)
+
+    def _draft_prefill(self, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The draft's whole-prompt prefill: its caches for one history."""
+        return model_mod.prefill(self._draft_params, tokens, self.draft_config, self.cache_len)[1]
+
+    def _spec_widths(self) -> np.ndarray:
+        """Per-slot verify width: ``spec_k + 1`` rows (the last accepted
+        token and the drafts), clamped so that a slot never scores past its
+        remaining output or the cache rows greedy decode could have written
+        (positions <= cache_len - 3 before the truncation check)."""
+        c = self.spec_k + 1
+        widths = np.zeros(self.max_batch, np.int64)
+        for s in self.slots.active_slots:
+            req = self.slots.slot_req[s]
+            pos = int(self.slots.positions[s])
+            widths[s] = max(1, min(c, req.output_len - req.generated, self.cache_len - 2 - pos))
+        return widths
+
+    def _spec_iteration(self) -> None:
+        """One speculative iteration (``engine.py:1165``): ``spec_k + 1``
+        draft forwards (the last keeps the draft's cache one token behind the
+        feed, so a fully accepted round leaves no stale row), one verify
+        step, then per-slot greedy acceptance.  A slot gains 1 to ``spec_k +
+        1`` tokens; rejected rows stay past its position, where the decode
+        mask never reads them, and the paged high-water mark is truncated
+        back to the accepted length."""
+        if self.faults is not None:
+            self._fault_preflight()
+        active = list(self.slots.active_slots)
+        widths = self._spec_widths()
+        self._ensure_pages({s: int(self.slots.positions[s]) + int(widths[s]) - 1 for s in active})
+        for s in active:
+            self._draft_ensure(s)
+        t0 = time.perf_counter()
+        c = self.spec_k + 1
+        cols = [torch.from_numpy(self.tokens).to(self.device)]
+        for j in range(c):
+            dpos = np.minimum(self.slots.positions.astype(np.int64) + j, self.cache_len - 1)
+            dlogits, _ = model_mod.decode_step(self._draft_params, cols[-1], self._draft_caches,
+                                               torch.from_numpy(dpos).to(self.device), self.draft_config)
+            if j < self.spec_k:
+                cols.append(torch.argmax(dlogits, dim=-1, keepdim=True))
+        vtokens = torch.cat(cols, dim=1)
+        positions = self.slots.positions_device(self.device)
+        greedy, tel = self._guarded_decode(positions, spec=(vtokens, torch.from_numpy(widths).to(self.device)))
+        if tel is not None:
+            self.regime_log.append(tel["regime"])
+            self.transfer_bytes_log.append(tel["bytes_total"])
+            self.amax_log.append(tel["a_max"])
+        wall = time.perf_counter() - t0
+        self.clock += self.step_time_fn(self.slots.num_active) if self.step_time_fn else wall
+        self.steps_done += 1
+        self.spec_steps += 1
+        drafts = vtokens[:, 1:].cpu().numpy()
+        for s in active:
+            if self.slots.state[s] != ACTIVE:
+                continue  # released by a recovery path mid-iteration
+            req = self.slots.slot_req[s]
+            w = int(widths[s])
+            a = 0
+            while a < w - 1 and drafts[s, a] == greedy[s, a]:
+                a += 1
+            self.spec_slot_steps += 1
+            self.spec_draft_tokens += w - 1
+            self.spec_draft_accepted += a
+            self.spec_emitted_tokens += a + 1
+            for j in range(a + 1):
+                req.generated += 1
+                req.token_times.append(self.clock)
+                self.slots.advance(s)
+                if req.tokens_out is not None:
+                    req.tokens_out.append(int(greedy[s, j]))
+            self.tokens[s, 0] = int(greedy[s, a])
+            pos = int(self.slots.positions[s])
+            # the verify backed w rows and a + 1 advanced: keep the
+            # high-water mark (spill records, occupancy) at the accepted rows
+            if self.paged is not None:
+                self.paged.truncate(s, pos)
+            elif self.disagg is not None:
+                self.disagg.truncate_slot(s, pos)
+            self._draft_stream[s] = (req.rid, pos)
+            if req.generated >= req.output_len or pos >= self.cache_len - 2:
+                if req.generated < req.output_len:
+                    req.truncated = True  # context exhausted before the target length
+                req.finished = self.clock
+                self.completed.append(self.slots.release(s))
+                self._release_pages(s)
+                self._draft_stream.pop(s, None)
+
     def _decode_iteration(self) -> None:
+        if self.spec_k:
+            self._spec_iteration()
+            return
         if self.faults is not None:
             self._fault_preflight()
         self._ensure_pages()
@@ -991,6 +1165,17 @@ class ServingEngine:
             }
         out["decode_stall_time"] = self.decode_stall_time
         out["prefill_chunks"] = self.prefill_worker.chunks_done
+        if self.spec_k:
+            out["spec"] = {
+                "k": self.spec_k,
+                "steps": self.spec_steps,
+                "draft_tokens": self.spec_draft_tokens,
+                "accepted_draft_tokens": self.spec_draft_accepted,
+                "emitted_tokens": self.spec_emitted_tokens,
+                "accepted_per_step": self.spec_emitted_tokens / self.spec_slot_steps if self.spec_slot_steps else 0.0,
+                "acceptance_rate": (self.spec_draft_accepted / self.spec_draft_tokens
+                                    if self.spec_draft_tokens else 0.0),
+            }
         if self.paged is not None:
             out["kv_pages"] = self.paged.stats()
         elif self.disagg is not None and self.disagg.kv_page_size is not None:

@@ -172,6 +172,18 @@ def chunk_rows(cache_len: int, start: int, length: int) -> np.ndarray:
     return (start + np.arange(length)) % cache_len
 
 
+def scatter_prefill_caches(
+    batch_caches: Dict[str, torch.Tensor],
+    one_caches: Dict[str, torch.Tensor],
+    slot: int,
+) -> Dict[str, torch.Tensor]:
+    """Write a single-request prefill cache (batch 1) into slot ``slot`` of
+    the batched caches (batch axis 1), in place (``kv_cache.py:204``)."""
+    for k, v in one_caches.items():
+        batch_caches[k][:, slot] = v[:, 0].to(batch_caches[k].dtype)
+    return batch_caches
+
+
 def scatter_prefill_chunk_caches(
     batch_caches: Dict[str, torch.Tensor],
     one_caches: Dict[str, torch.Tensor],
@@ -288,6 +300,15 @@ class PagedKVCache:
             owned.append(page)
             self._dirty = True
         self.hiwater[slot] = max(self.hiwater[slot], upto_pos + 1)
+
+    def truncate(self, slot: int, tokens: int) -> None:
+        """Clamp ``slot``'s high-water mark down to ``tokens`` rows
+        (``kv_cache.py:423``): a speculative verify backed and wrote rows
+        past the accepted prefix, which the decode mask never reads and later
+        writes overwrite.  Pages are kept for the next accepted tokens."""
+        if tokens < 0:
+            raise ValueError(f"cannot truncate slot {slot} to {tokens} tokens")
+        self.hiwater[slot] = min(self.hiwater[slot], tokens)
 
     def release(self, slot: int) -> None:
         """Free every page of ``slot``."""

@@ -460,8 +460,13 @@ def test_executor_validation(setup):
         DisaggExecutor(setup["cfg"], setup["params"], DevicePools.split(2, 2, [CPU], allow_reuse=True),
                        bad, max_batch=B, cache_len=CACHE_LEN)
     ex = _executor(setup, 2)
-    with pytest.raises(NotImplementedError, match="comes with"):
-        ex.decode_step_verify(None, None, None)
+    # speculative verify is ported: one row a slot is the decode step
+    ex.load_caches(_port_caches(setup))
+    tokens, positions = _port_step_inputs(setup)
+    vlogits, vtel = ex.decode_step_verify(tokens, positions, torch.ones(B, dtype=torch.int64))
+    _, logits, tel = _port_step(setup, 2)
+    assert vlogits.shape == (B, 1, logits.shape[-1]) and torch.equal(vlogits[:, 0], logits)
+    assert vtel["bytes_total"] == tel["bytes_total"] and vtel["a_max"] == tel["a_max"]
     # spill and the prefix cache are ported; on contiguous KV a spill is
     # refused and a splice misses
     with pytest.raises(RuntimeError, match="paged KV"):

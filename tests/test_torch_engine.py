@@ -145,7 +145,7 @@ def test_engine_paged_equals_contiguous():
 
 
 @pytest.mark.parametrize("option", [
-    dict(dispatch="einsum"), dict(dispatch="scatter"), dict(spec_k=2), dict(scheduler="random"),
+    dict(dispatch="einsum"), dict(dispatch="scatter"), dict(scheduler="random"),
 ])
 def test_engine_rejects_unported_options(option):
     """Options of the reference's engine that later slices port raise
@@ -158,3 +158,26 @@ def test_engine_rejects_unported_options(option):
                   sched="fifo", prefix_cache=False, spec_k=0, n_prefill=0)
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, params, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(spec_k=2), dict(spec_k=-1, draft="same"), dict(spec_k=2, draft="wide_vocab"),
+])
+def test_engine_rejects_bad_speculation_as_reference(option):
+    """Speculative decode is ported: ``spec_k > 0`` without a draft, a
+    negative ``spec_k`` and a draft of another vocabulary each raise
+    ``ValueError`` with the reference's message (``engine.py:284-313``)."""
+    from repro_torch.models import model
+
+    msgs = []
+    for Engine, cfg, extra in ((ServingEngine, get_config("dsv2-lite-reduced"), dict(device="cpu")),
+                               (RefEngine, ref_get_config("dsv2-lite-reduced"), {})):
+        params = model.init_params(cfg, seed=0, device="cpu") if Engine is ServingEngine else None
+        kw = dict(option)
+        draft = kw.pop("draft", None)
+        if draft is not None:
+            kw["draft_config"] = cfg if draft == "same" else dataclasses.replace(cfg, vocab_size=2 * cfg.vocab_size)
+        with pytest.raises(ValueError) as e:
+            Engine(cfg, params, max_batch=2, cache_len=32, scheduler="none", **kw, **extra)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
