@@ -26,7 +26,14 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      over the block tables of phase 5e, built by ``PagedKVCache``'s splice,
      spill and restore: three slots sharing 12 pages, a 200-row prefix with
      a copied-on-write tail page, and a slot restored into another slot
-     index with its page ids out of order;
+     index with its page ids out of order; then (3e) the shapes of the
+     configs phase 5g serves: K1, K4 and K5 at 8 x 512 for 3, 4 and 7 query
+     heads per KV head, head_dim 256 and dsv2's 128 heads, K2 on
+     serving_layout at 16, 60, 160 and 200 experts, K3 at each new
+     (d_model, expert width) at decode, a 64-token chunk and every prefill
+     capacity 5g gives, and slot-indirect over a token-hash routing; K2 and
+     K3 at 5g's disagg shapes (each MoE instance of qwen2-moe's two 4-instance
+     layouts, a 4-token micro-batch);
   4. reduced parity: dsv2-lite-reduced in float32 through the plain versions
      on the CPU and through the kernels on the card, same seeded weights and
      requests, for four KV layouts: paged (K1), contiguous (K4), int8
@@ -53,7 +60,11 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      ``spec_k=3`` over paged, contiguous and int8 contiguous KV, a cross
      draft (weights of another seed, ``spec_k=2``) and disagg contiguous
      with a self-draft: streams CPU = card = the greedy streams, ``spec``
-     and ``amax_log`` CPU = card, launches exact;
+     and ``amax_log`` CPU = card, launches exact; then the new configs,
+     reduced: dense GQA (phi4-mini), GeGLU (gemma-7b), qwen2-moe under AEBS,
+     random, token hash and the einsum and scatter oracles, and phi3.5-moe
+     on mono and on disagg 2A built by ``launch.steps``: streams CPU = card,
+     launches exact;
   5. full-width serving: dsv2-lite (27 layers, d 2048, 64 experts top-6 + 2
      shared, vocab 102400) with random bf16 weights drawn once on the card
      from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
@@ -100,8 +111,18 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      rebuilds; then a profiled short run of each mono layout, each disagg
      run, each pool size the fault runs pass through, 5e's prefix and
      preemption runs and 5f's self-draft runs (device time per step or
-     verify step, idle share);
-  6. a ``{"kernels": [...]}`` line, then the card line, then the result line.
+     verify step, idle share); then (5g) every config the port added
+     (qwen2-moe-a2.7b, scaled-ds-1, scaled-ds-2, dsv2, phi3.5-moe, yi-34b,
+     phi4-mini, gemma-7b) at published widths, the four that do not fit the
+     card cut in depth, each serving 8 requests on mono paged KV with AEBS
+     over serving_layout(cfg, 4) and freed before the next, launches exact,
+     4 decode steps profiled; qwen2-moe also under random and token hash,
+     and on disagg 2A 4E under AEBS and random over serving_layout and over
+     a trace-planned layout with more replicas (a_max);
+  6. the CLI: ``repro_torch.launch.serve.main`` on the card with the
+     reference's defaults, then disagg paged, the dense GQA config and the
+     token-hash baseline, every request completed;
+  7. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
 printing any result.
@@ -657,7 +678,7 @@ def main():
 
     def aebs_case(eids, lay, iters, plain_iters, shape):
         tables, n_e = lay.device_tables(dev), lay.num_instances
-        R = lay.expert_hosts.shape[1]
+        E, R = lay.expert_hosts.shape
         got, want = aebs_schedule(eids, tables, n_e), aebs_assign(eids, tables, n_e)
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         nit = eids.numel()
@@ -801,6 +822,200 @@ def main():
     check("expert_ffn", f"CAP {CAPL}, {SL} slots", err, TOL["bf16"])
     del wg, wu, wd, wg_a, wu_a, wd_a, x, xp, xl, xg, got, want
     torch.cuda.empty_cache()
+
+    # ---- 3e. the kernels at the shapes of the configs phase 5g serves ------
+    def prompt_lengths_5g(r=None):
+        """Phase 5g's prompt lengths (16-48 tokens): the first draw of its
+        request generator, seed 5."""
+        return (np.random.default_rng(5) if r is None else r).integers(16, 49, size=8)
+
+    # K1, K4 and K5 at the serving shape (8 slots x 512 rows, random lengths)
+    # for each new (query heads per KV head, head_dim): G 3 (phi4-mini, 24
+    # heads over 8), G 4 (scaled-ds-1/2 and phi3.5-moe, 32 over 8), G 7
+    # (yi-34b, 56 over 8) and head_dim 256 at G 1 (gemma-7b, 16 over 16)
+    def attention_shape_case(label, nh_c, nkv_c, hd_c, L=4, iters=100, plain_iters=20):
+        Bc, S = 8, nblk * ps
+        G = nh_c // nkv_c
+        lens_c = rng.integers(1, S + 1, size=Bc).astype(np.int32)
+        lens = torch.from_numpy(lens_c).to(dev)
+        live = int(lens_c.sum())
+        q = torch.randn((Bc, nh_c, hd_c), generator=gen, device=dev).to(bf)
+        kc = torch.randn((L, Bc, S, nkv_c, hd_c), generator=gen, device=dev).to(bf)
+        vc = torch.randn((L, Bc, S, nkv_c, hd_c), generator=gen, device=dev).to(bf)
+        io_bytes = 2 * Bc * nh_c * hd_c * 2 + Bc * 4
+        ops = 4 * nh_c * hd_c * live
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None].long())[:, None, None, :]
+        q4 = q[:, :, None, :]
+        # SDPA on pre-transposed views with the KV heads repeated G times
+        kd = [kc[l].transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for l in range(L)]
+        vd = [vc[l].transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for l in range(L)]
+        lib_ms = time_ms(cycled(lambda l: F.scaled_dot_product_attention(q4, kd[l], vd[l], attn_mask=mask), L),
+                         iters)
+        del kd, vd
+        n_split, split_rows = split_plan(Bc, nkv_c, S, n_sms)
+        got, want = decode_attention(q, kc[0], vc[0], lens), decode_attention_ref(q, kc[0], vc[0], lens)
+        record("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:28", float((got.float() - want.float()).abs().max()),
+               TOL["bf16"], time_ms(cycled(lambda l: decode_attention(q, kc[l], vc[l], lens), L), iters),
+               time_ms(cycled(lambda l: decode_attention_ref(q, kc[l], vc[l], lens), L), plain_iters),
+               bound(2 * live * nkv_c * hd_c * 2 + io_bytes, ops, BF16_FLOPS), lib_ms, label,
+               rounding_excess(got, want), G=G, head_dim=hd_c, n_split=n_split, rows_per_split=split_rows,
+               device_ms=graph_ms(cycled(lambda l: decode_attention(q, kc[l], vc[l], lens), L)))
+        # K1: the same rows as pages of a pool, the block table a permutation
+        P = Bc * nblk + 1
+        perm = torch.from_numpy((rng.permutation(P - 1) + 1).astype(np.int32)).to(dev)
+        bt = perm.reshape(Bc, nblk)
+        kp = torch.zeros((L, P, ps, nkv_c, hd_c), dtype=bf, device=dev)
+        vp = torch.zeros_like(kp)
+        kp[:, bt.reshape(-1).long()] = kc.reshape(L, Bc * nblk, ps, nkv_c, hd_c)
+        vp[:, bt.reshape(-1).long()] = vc.reshape(L, Bc * nblk, ps, nkv_c, hd_c)
+        got = paged_decode_attention(q, kp[0], vp[0], bt, lens)
+        want = paged_decode_attention_ref(q, kp[0], vp[0], bt, lens)
+        record("paged_decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:177", float((got.float() - want.float()).abs().max()),
+               TOL["bf16"], time_ms(cycled(lambda l: paged_decode_attention(q, kp[l], vp[l], bt, lens), L), iters),
+               time_ms(cycled(lambda l: paged_decode_attention_ref(q, kp[l], vp[l], bt, lens), L), plain_iters),
+               bound(2 * live * nkv_c * hd_c * 2 + io_bytes + Bc * nblk * 4, ops, BF16_FLOPS), lib_ms, label,
+               rounding_excess(got, want), G=G, head_dim=hd_c, n_split=n_split, pages_per_split=split_rows // ps,
+               device_ms=graph_ms(cycled(lambda l: paged_decode_attention(q, kp[l], vp[l], bt, lens), L)))
+        del kp, vp
+        quant = [quantize_kv(kc[l]) + quantize_kv(vc[l]) for l in range(L)]  # (k, ks, v, vs)
+        del kc, vc
+        k8, ks, v8, vs = quant[0]
+        got = decode_attention_int8(q, k8, v8, ks, vs, lens)
+        err = float((got.float() - decode_attention_int8_ref(q, k8, v8, ks, vs, lens).float()).abs().max())
+        want = decode_attention_ref(q, k8.float() * ks[..., None], v8.float() * vs[..., None], lens)
+        record("decode_attention_int8", "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:75", err, TOL["bf16"],
+               time_ms(cycled(lambda l: decode_attention_int8(
+                   q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L), iters),
+               time_ms(cycled(lambda l: decode_attention_int8_ref(
+                   q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L), plain_iters),
+               bound(2 * live * nkv_c * (hd_c + 4) + io_bytes, ops + 2 * live * nkv_c * hd_c, INT8_OPS),
+               None, label, rounding_excess(got, want), G=G, head_dim=hd_c, n_split=n_split,
+               rows_per_split=split_rows, device_ms=graph_ms(cycled(lambda l: decode_attention_int8(
+                   q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L)))
+        del quant, k8, ks, v8, vs, got, want
+        torch.cuda.empty_cache()
+
+    for label, shape_heads in (("phi4-mini-3.8b: G 3, 24 heads over 8, hd 128, 8 x 512", (24, 8, 128)),
+                               ("scaled-ds / phi3.5-moe: G 4, 32 heads over 8, hd 128, 8 x 512", (32, 8, 128)),
+                               ("yi-34b: G 7, 56 heads over 8, hd 128, 8 x 512", (56, 8, 128)),
+                               ("gemma-7b: G 1, 16 heads over 16, hd 256, 8 x 512", (16, 16, 256)),
+                               ("dsv2: G 1, 128 heads over 128, hd 128, 8 x 512", (128, 128, 128))):
+        attention_shape_case(label, *shape_heads)
+
+    # K2 on serving_layout(cfg, 4) of every MoE config 5g serves (16, 60,
+    # 160 and 200 experts), at 8 tokens' routing (phase 5g's decode batch)
+    from repro_torch.core import baselines
+    from repro_torch.launch.steps import serving_layout
+
+    for name in ("qwen2-moe-a2.7b", "scaled-ds-1", "scaled-ds-2", "dsv2", "phi3.5-moe-42b-a6.6b"):
+        ncfg = get_config(name)
+        lay_n = serving_layout(ncfg, 4)
+        eids_n = torch.from_numpy(make_routing_trace(8, ncfg.num_experts, ncfg.top_k, skew=0.8, seed=1)).to(dev)
+        aebs_case(eids_n, lay_n, 300, 10, f"{name}: serving_layout 4 x {lay_n.capacity}, E {ncfg.num_experts}, "
+                  f"8 tokens top-{ncfg.top_k}")
+    # 5g's second disagg layout for qwen2-moe: planned from a skewed routing
+    # trace at 24 slots an instance, so 36 of the 60 experts have replicas
+    qwen2 = get_config("qwen2-moe-a2.7b")
+    planned_qwen2 = build_layout(make_routing_trace(2048, qwen2.num_experts, qwen2.top_k, skew=0.8, seed=0),
+                                 qwen2.num_experts, 4, 24)
+
+    # K3 at each new (d_model, expert width): the decode shape (8 tokens,
+    # AEBS over serving_layout(cfg, 4), CAP 4, the active experts) and a
+    # 64-token chunk (drop-free CAP 64, every expert active); weights of one
+    # config at a time.  bmm's yardstick runs on the active experts'
+    # pre-gathered weights
+    def k3_case(label, x, w3, s2e, act, iters, plain_iters):
+        wg3, wu3, wd3 = w3
+        S3, CAP3, d3 = x.shape
+        f3 = wg3.shape[2]
+        got = expert_ffn_grouped(x, wg3, wu3, wd3, s2e, act)
+        err = float((got.float() - expert_ffn_grouped_ref(x, wg3, wu3, wd3, s2e, act).float()).abs().max())
+        idx = torch.nonzero(act & (s2e >= 0))[:, 0]
+        n_a = int(idx.numel())
+        e_idx = s2e[idx].long()
+        ga, ua, da, xa = wg3[e_idx], wu3[e_idx], wd3[e_idx], x[idx]
+
+        def lib():
+            h = F.silu(torch.bmm(xa, ga)) * torch.bmm(xa, ua)
+            torch.bmm(h, da)
+
+        n_w = len(set(e_idx.tolist()))  # distinct experts' weights read
+        record("expert_ffn", "src/repro_torch/csrc/expert_ffn.cu", "src/repro/kernels/expert_ffn/kernel.py:40",
+               err, TOL["bf16"], time_ms(lambda: expert_ffn_grouped(x, wg3, wu3, wd3, s2e, act), iters),
+               time_ms(lambda: expert_ffn_grouped_ref(x, wg3, wu3, wd3, s2e, act), plain_iters),
+               bound(n_w * 3 * d3 * f3 * 2 + n_a * CAP3 * d3 * 2 + S3 * CAP3 * d3 * 2 + 2 * S3 * 4,
+                     n_a * CAP3 * 6 * d3 * f3, BF16_FLOPS),
+               time_ms(lib, iters), label, active=n_a, d=d3, f=f3,
+               device_ms=graph_ms(lambda: expert_ffn_grouped(x, wg3, wu3, wd3, s2e, act), reps=5))
+        del ga, ua, da, xa
+
+    k3_shapes = (("qwen2-moe-a2.7b", 2048, 1408), ("scaled-ds-1", 4096, 1024), ("scaled-ds-2", 4096, 1536),
+                 ("phi3.5-moe-42b-a6.6b", 4096, 6400), ("dsv2", 5120, 1536))
+    for name, d3, f3 in k3_shapes:
+        ncfg = get_config(name)
+        E3, k3 = ncfg.num_experts, ncfg.top_k
+        w3 = ((torch.randn((E3, d3, f3), generator=gen, device=dev) * d3**-0.5).to(bf),
+              (torch.randn((E3, d3, f3), generator=gen, device=dev) * d3**-0.5).to(bf),
+              (torch.randn((E3, f3, d3), generator=gen, device=dev) * f3**-0.5).to(bf))
+        lay_n = serving_layout(ncfg, 4)
+        eids_n = torch.from_numpy(make_routing_trace(8, E3, k3, skew=0.8, seed=1)).to(dev)
+        cap_d = moe_mod.default_capacity(8, k3, lay_n.total_slots, ncfg.capacity_factor)
+        counts_n = torch.bincount(eids_n.reshape(-1).long(), minlength=E3)
+        xd = torch.randn((E3, cap_d, d3), generator=gen, device=dev).to(bf)
+        xd = torch.where(torch.arange(cap_d, device=dev)[None, :, None] < counts_n[:, None, None], xd, 0)
+        s2e_n = torch.arange(E3, dtype=torch.int32, device=dev)
+        k3_case(f"{name} decode: 8 tokens top-{k3}, CAP {cap_d}, d {d3}, f {f3}", xd, w3, s2e_n, counts_n > 0,
+                50, 5)
+        xc = torch.randn((E3, 64, d3), generator=gen, device=dev).to(bf)
+        all_n = torch.ones(E3, dtype=torch.bool, device=dev)
+        k3_case(f"{name} prefill: a 64-token chunk, CAP 64, {E3} active, d {d3}, f {f3}", xc, w3, s2e_n,
+                all_n, 10, 2)
+        # 5g's prefill calls: each prompt in one call at drop-free capacity
+        # (its own length), so every tile band of 16-48 rows
+        for cap in sorted(set(prompt_lengths_5g().tolist())):
+            xq = torch.randn((E3, cap, d3), generator=gen, device=dev).to(bf)
+            err = float((expert_ffn_grouped(xq, *w3, s2e_n, all_n).float()
+                         - expert_ffn_grouped_ref(xq, *w3, s2e_n, all_n).float()).abs().max())
+            check("expert_ffn", f"{name} prefill as 5g: CAP {cap}, {E3} active, d {d3}, f {f3}", err, TOL["bf16"])
+        if name == "qwen2-moe-a2.7b":
+            # 5g's disagg runs: K2 on each layout over a 4-token micro-batch,
+            # K3 on each instance's slots at the executor's capacity
+            eids_m = eids_n[:4]
+            for lay_m in (lay_n, planned_qwen2):
+                tables_m, n_m, C_m = lay_m.device_tables(dev), lay_m.num_instances, lay_m.capacity
+                cap_m = moe_mod.default_capacity(8, k3, lay_m.total_slots, ncfg.capacity_factor)
+                got_m, want_m = aebs_schedule(eids_m, tables_m, n_m), aebs_assign(eids_m, tables_m, n_m)
+                check("aebs_schedule", f"{name} disagg: {n_m} x {C_m} slots, 4 tokens",
+                      max(float((g - w).abs().max()) for g, w in zip(got_m, want_m)), 0.0)
+                slots_m = got_m[0].reshape(-1).long()
+                for g in range(n_m):
+                    s2e_g = torch.as_tensor(lay_m.slot_to_expert[g], dtype=torch.int32, device=dev)
+                    counts_g = torch.bincount(slots_m[(slots_m >= g * C_m) & (slots_m < (g + 1) * C_m)] - g * C_m,
+                                              minlength=C_m)
+                    xg = torch.randn((C_m, cap_m, d3), generator=gen, device=dev).to(bf)
+                    xg = torch.where(torch.arange(cap_m, device=dev)[None, :, None] < counts_g[:, None, None], xg, 0)
+                    act_g = (counts_g > 0) & (s2e_g >= 0)
+                    err = float((expert_ffn_grouped(xg, *w3, s2e_g, act_g).float()
+                                 - expert_ffn_grouped_ref(xg, *w3, s2e_g, act_g).float()).abs().max())
+                    check("expert_ffn", f"{name} disagg: instance {g}, {C_m} slots, CAP {cap_m}", err,
+                          TOL["bf16"], active_slots=int(act_g.sum()))
+            del xg
+            # slot-indirect over the token-hash routing of the same tokens:
+            # buckets stay replica slots (several replicas of an expert may
+            # be active), each read through serving_layout's slot_to_expert
+            s2e_flat = torch.as_tensor(lay_n.slot_to_expert.reshape(-1), dtype=torch.int32, device=dev)
+            slots = baselines.token_hash_assign(eids_n, lay_n.device_tables(dev), 4)[0].reshape(-1).long()
+            counts_s = torch.bincount(slots, minlength=lay_n.total_slots)
+            xs = torch.randn((lay_n.total_slots, cap_d, d3), generator=gen, device=dev).to(bf)
+            xs = torch.where(torch.arange(cap_d, device=dev)[None, :, None] < counts_s[:, None, None], xs, 0)
+            k3_case(f"{name} decode under token_hash: {lay_n.total_slots} replica slots slot-indirect, "
+                    f"CAP {cap_d}", xs, w3, s2e_flat, counts_s > 0, 50, 5)
+            del xs
+        del w3, xd, xc, xq
+        torch.cuda.empty_cache()
 
     # ---- 4. reduced parity: plain versions on the CPU vs kernels on the card
     attn_kernels = ("paged_decode_attention", "decode_attention", "decode_attention_int8")
@@ -1279,6 +1494,79 @@ def main():
         if (got["acceptance_rate"] >= 1.0) if cross else (got["accepted_per_step"] <= 1.5):
             raise AssertionError(f"reduced speculative {case}: the cross draft's rejections or the self-draft's "
                                  f"acceptances did not come: {got}")
+    # the configs phase 5g serves, reduced, in float32 (CPU = card): dense
+    # GQA (phi4-mini, 4 query heads over 2, paged -> K1), GeGLU at head_dim
+    # 64 (gemma-7b, contiguous -> K4), qwen2-moe (4 shared experts' worth
+    # capped at 1, 4 experts top-2) under AEBS, random and token hash and
+    # under the einsum and scatter oracles (paged), and phi3.5-moe (no
+    # shared expert) on mono and on disagg 2A.  Launches exact: the
+    # attention kernel once per layer and step (per shard on disagg), K2 once
+    # per AEBS-scheduled MoE layer call (random and token hash launch none),
+    # K3 once per grouped MoE layer call and per MoE layer of each prefill
+    # call (the oracles run plain PyTorch at decode)
+    from repro_torch.launch.steps import build_serving_engine
+
+    def family_case(case, name, engine_kw, attn_kernel):
+        ncfg = dataclasses.replace(get_config(name), dtype="float32")
+        pc = model_mod.init_params(ncfg, seed=0, device="cpu")
+        pg = to_dev(pc)
+        lay_r = None
+        if ncfg.has_moe:
+            lay_r = build_layout(make_routing_trace(512, ncfg.num_experts, ncfg.top_k, 0.8, 0),
+                                 ncfg.num_experts, 2, 3)
+        out = {}
+        for where, params_ in (("cpu", pc), ("cuda", pg)):
+            kw_ = dict(max_batch=4, cache_len=64, prefill_chunk=16, **engine_kw)
+            if kw_.pop("builder", False):  # launch.steps' one-call disagg deployment
+                eng = build_serving_engine(ncfg, params_, 2, 2, layout=lay_r, device=where, **kw_)
+            else:
+                eng = ServingEngine(ncfg, params_, layout=lay_r, device=where, **kw_)
+            if eng.disagg is not None:
+                eng.disagg.scheduler = counted_scheduler(eng.disagg.scheduler)
+            cuda.reset_launch_counts()
+            scheduled["calls"] = 0
+            m = eng.run(sample_requests(WorkloadSpec(mean_input=8, mean_output=10, vocab_size=ncfg.vocab_size,
+                                                     max_input=24, max_output=16, seed=1),
+                                        np.zeros(6), with_prompts=True), max_steps=500)
+            launches = dict(cuda.LAUNCHES)
+            out[where] = ({r.rid: r.tokens_out for r in eng.completed}, eng.amax_log, m["completed"])
+        want = path_launches(eng, attn_kernel, 0, eng.prefill_worker.chunks_done)
+        sched_name = engine_kw.get("scheduler", "aebs")
+        if sched_name != "aebs" or not ncfg.has_moe:
+            want["aebs_schedule"] = 0
+        if engine_kw.get("dispatch", "grouped") != "grouped":
+            n_moe_layers = sum(k == "moe" for k in ncfg.layer_kinds())
+            want["expert_ffn"] = eng.prefill_worker.chunks_done * n_moe_layers
+        wrong = {n: launches[n] for n in want if launches[n] != want[n]}
+        same = out["cpu"] == out["cuda"] and out["cpu"][2] == 6
+        log({"phase": "reduced_parity_configs", "case": case, "model": ncfg.name, "dtype": "float32",
+             "engine": dict(engine_kw), "cpu_equal_card": same,
+             "streams_cuda": out["cuda"][0], "amax_log": out["cuda"][1], "launches": launches,
+             "launches_exact": want, "card": card})
+        if not same or wrong:
+            raise AssertionError(f"reduced {case}: streams CPU = card {same}; launches {wrong} not {want}")
+        del pg, eng
+        return out["cuda"][0]
+
+    family_case("dense_gqa", "phi4-mini-3.8b-reduced", dict(scheduler="none", kv_page_size=16),
+                "paged_decode_attention")
+    family_case("geglu", "gemma-7b-reduced", dict(scheduler="none"), "decode_attention")
+    qwen_streams = {}
+    for case, ekw in (("aebs", {}), ("random", dict(scheduler="random")),
+                      ("token_hash", dict(scheduler="token_hash")), ("einsum", dict(dispatch="einsum")),
+                      ("scatter", dict(dispatch="scatter"))):
+        qwen_streams[case] = family_case(f"qwen2_{case}", "qwen2-moe-a2.7b-reduced",
+                                         dict(dict(scheduler="aebs", kv_page_size=16, capacity_tokens=64), **ekw),
+                                         "paged_decode_attention")
+    if any(st != qwen_streams["aebs"] for st in qwen_streams.values()):
+        raise AssertionError("reduced qwen2-moe: a scheduler or dispatch changed the streams (drop-free capacity)")
+    phi_mono = family_case("phi35_mono", "phi3.5-moe-42b-a6.6b-reduced",
+                           dict(scheduler="aebs", capacity_tokens=64), "decode_attention")
+    phi_disagg = family_case("phi35_disagg_2a", "phi3.5-moe-42b-a6.6b-reduced",
+                             dict(scheduler="aebs", capacity=64, builder=True), "decode_attention")
+    if phi_disagg != phi_mono:
+        raise AssertionError("reduced phi3.5-moe: disagg 2A streams differ from mono's")
+
     del p_gpu, d_gpu
 
     # ---- 5. full-width serving ------------------------------------------
@@ -2187,7 +2475,202 @@ def main():
          "device_idle_share_verify": {cell: 1.0 - profiled_ms[f"spec_{cell}_self_k3"]
                                       / served[f"spec_{cell}_self_k3"]["step_ms"] for cell in ("a", "b")}})
 
-    # ---- 6. results ------------------------------------------------------
+    # ---- 5g. every config the port added, at full width -----------------
+    # Each newly registered config serves 8 requests (prompts 16-48, 16
+    # output tokens) on mono paged KV (pages of 16), 8 slots x 512 rows,
+    # random bf16 weights drawn on the card from seed 0, MoE configs with
+    # AEBS over serving_layout(cfg, 4).  Published widths throughout; the
+    # four that do not fit one card whole are cut in depth only
+    # (DEPTH_CUTS, about 60 GB of weights or less).  Each model is freed
+    # before the next, the allocator back at its start.  Launches exact per
+    # run; no logit may be non-finite; each mono run is followed by a short
+    # run of the same requests that profiles 4 decode steps.  qwen2-moe-a2.7b (the CLI's default) also serves under random
+    # and token hash on mono, and on disagg 2A 4E under AEBS and random over
+    # two layouts (a_max: the paper's AEBS-versus-random point; token hash
+    # is refused on disagg, as in the reference)
+    DEPTH_CUTS = {"scaled-ds-1": 14, "scaled-ds-2": 7, "dsv2": 7, "phi3.5-moe-42b-a6.6b": 22}
+    CONFIGS_5G = ("qwen2-moe-a2.7b", "scaled-ds-1", "scaled-ds-2", "dsv2", "phi3.5-moe-42b-a6.6b", "yi-34b",
+                  "phi4-mini-3.8b", "gemma-7b")
+    del params  # dsv2-lite's weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def cuda_tensors_gb():
+        """Live CUDA tensors the collector can see, by size (a leak's trail)."""
+        sizes = sorted((o.numel() * o.element_size() / 1e9, tuple(o.shape)) for o in gc.get_objects()
+                       if isinstance(o, torch.Tensor) and o.is_cuda)
+        return sum(sz for sz, _ in sizes), sizes[-5:]
+
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    if base_gb > 1.0:
+        raise AssertionError(f"phase 5g: {base_gb:.2f} GB still allocated before the first model: "
+                             f"{cuda_tensors_gb()}")
+
+    def requests_5g(vocab):
+        r = np.random.default_rng(5)
+        return [Request(rid=i, arrival=0.0, input_len=int(n), output_len=16,
+                        prompt=r.integers(0, vocab, size=int(n), dtype=np.int32), token_times=[])
+                for i, n in enumerate(prompt_lengths_5g(r))]
+
+    def serve_5g(run_cfg, params_, what, profile_steps=0, **engine_kw):
+        """Serve phase 5g's 8 requests, launch counts zeroed just before and
+        read just after, every decode step timed on the host; then, in a
+        second short run of the same requests, profile ``profile_steps``
+        decode steps from the second (device ms and ops a step; the idle
+        share is against the first run's host time a step)."""
+        lay_ = serving_layout(run_cfg, 4) if run_cfg.has_moe else None
+        kw_ = dict(max_batch=8, cache_len=512, prefill_chunk=64, kv_page_size=16, layout=lay_,
+                   scheduler="aebs" if run_cfg.has_moe else "none", device=dev)
+        kw_.update(engine_kw)
+        host_ms, dev_ms, dev_ops = [], [], []
+        nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def run(profiled, max_steps=100_000):
+            engine = ServingEngine(run_cfg, params_, **kw_)
+            step_fn = disagg_step if engine.disagg is not None else decode_step
+            n = {"steps": 0}
+
+            def stepped(*args, **kwargs):
+                n["steps"] += 1
+                if profiled and 2 <= n["steps"] <= profile_steps + 1:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        out = step_fn(*args, **kwargs)
+                        torch.cuda.synchronize()
+                    evs = prof.key_averages()
+                    dev_ms.append(sum(e.self_device_time_total for e in evs) / 1e3)
+                    dev_ops.append(sum(e.count for e in evs))
+                    return out
+                t = time.perf_counter()
+                out = step_fn(*args, **kwargs)
+                nonfinite.add_((~torch.isfinite(out[0])).sum())
+                torch.cuda.synchronize()
+                if not profiled:
+                    host_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+
+            if engine.disagg is not None:
+                DisaggExecutor.decode_step = stepped
+            else:
+                model_mod.decode_step = stepped
+            try:
+                m_ = engine.run(requests_5g(run_cfg.vocab_size), max_steps=max_steps)
+                torch.cuda.synchronize()
+            finally:
+                model_mod.decode_step, DisaggExecutor.decode_step = decode_step, disagg_step
+            return engine, m_
+
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        engine, m = run(False)
+        wall = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        want = path_launches(engine, "paged_decode_attention", 0, engine.prefill_worker.chunks_done)
+        if kw_["scheduler"] != "aebs":
+            want["aebs_schedule"] = 0
+        wrong = {n: launches[n] for n in want if launches[n] != want[n]}
+        info = {"phase": "serve_config", "run": what, "card": card, "model": run_cfg.name,
+                "reduced": {"num_layers": [run_cfg.num_layers, REGISTRY[run_cfg.name].num_layers]}
+                if run_cfg.num_layers != REGISTRY[run_cfg.name].num_layers else {},
+                "executor": kw_.get("executor", "mono"), "scheduler": kw_["scheduler"],
+                "heads": [run_cfg.num_heads, run_cfg.num_kv_heads, run_cfg.resolved_head_dim],
+                "requests": 8, "completed": m["completed"], "tokens": m["tokens"],
+                "decode_steps": engine.steps_done, "wall_s": wall, "tokens_per_s": m["throughput_tok_s"],
+                "tpot_ms_mean": m["tpot_mean"] * 1e3, "tpot_ms_p99": m["tpot_p99"] * 1e3,
+                "ttft_ms_mean": m["ttft_mean"] * 1e3, "decode_step_ms_mean": float(np.mean(host_ms)),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kv_pages": m.get("kv_pages"),
+                "amax_mean": m.get("amax_mean"), "amax_max": m.get("amax_max"),
+                "launches": launches, "launches_exact": want}
+        complete = m["completed"] == 8 and not m["truncated"] and all(
+            r.generated == r.output_len for r in engine.completed)
+        del engine
+        if profile_steps:
+            run(True, max_steps=profile_steps + 3)
+            busy = float(np.mean(dev_ms))
+            info.update(profiled_steps=len(dev_ms), device_ms_per_decode_step=busy,
+                        device_ops_per_decode_step=float(np.mean(dev_ops)),
+                        device_idle_share_decode=1.0 - busy / info["decode_step_ms_mean"])
+        info["nonfinite_logits"] = int(nonfinite)
+        log(info)
+        if not complete:
+            raise AssertionError(f"phase 5g ({what}): {m['completed']} of 8 requests completed in full")
+        if int(nonfinite) or wrong or len(dev_ms) != profile_steps:
+            raise AssertionError(f"phase 5g ({what}): {int(nonfinite)} non-finite logits; launches {wrong} "
+                                 f"not {want}; {len(dev_ms)} of {profile_steps} steps profiled")
+        return info
+
+    from repro_torch.configs import REGISTRY
+
+    summary_5g = {}
+    for name in CONFIGS_5G:
+        run_cfg = dataclasses.replace(get_config(name), num_layers=DEPTH_CUTS.get(name, get_config(name).num_layers))
+        t0 = time.perf_counter()
+        params_5g = model_mod.init_params(run_cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log({"phase": "init_config", "model": name, "num_layers": run_cfg.num_layers,
+             "params": numel(params_5g), "seconds": time.perf_counter() - t0,
+             "weights_gb": (torch.cuda.memory_allocated() / 1e9) - base_gb, "card": card})
+        summary_5g[name] = serve_5g(run_cfg, params_5g, "mono paged", profile_steps=4)
+        if name == "qwen2-moe-a2.7b":
+            for sched in ("random", "token_hash"):
+                summary_5g[f"{name} {sched}"] = serve_5g(run_cfg, params_5g, f"mono paged, {sched}",
+                                                         profile_steps=4, scheduler=sched)
+            # serving_layout replicates 4 of the 60 experts; the layout
+            # planned from a skewed routing trace (phase 3e) replicates 36
+            # of them, which gives the scheduler room
+            for lay_name, lay_ in (("serving_layout 4 x 16", None), ("trace-planned 4 x 24", planned_qwen2)):
+                for sched in ("aebs", "random"):
+                    extra_kw = {} if lay_ is None else dict(layout=lay_)
+                    summary_5g[f"{name} disagg {sched}, {lay_name}"] = serve_5g(
+                        run_cfg, params_5g, f"disagg 2A 4E paged, {sched}, {lay_name}", scheduler=sched,
+                        executor="disagg", n_attn=2, **extra_kw)
+        del params_5g
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 1e9
+        if left > base_gb + 0.5:
+            raise AssertionError(f"phase 5g: {left:.2f} GB still allocated after {name}: {cuda_tensors_gb()}")
+    keys_5g = ("tpot_ms_mean", "tokens_per_s", "peak_mem_gb", "decode_step_ms_mean", "device_ms_per_decode_step",
+               "device_idle_share_decode", "amax_mean", "amax_max", "reduced")
+    log({"phase": "serve_configs_summary", "card": card,
+         "runs": {k: {f: v.get(f) for f in keys_5g} for k, v in summary_5g.items()}})
+
+    # ---- 6. the CLI: repro_torch.launch.serve on the card ------------------
+    # the reference's defaults (qwen2-moe-a2.7b, reduced, random torch
+    # weights from seed 0), then disagg with paged KV, the dense GQA config
+    # without a scheduler and the token-hash baseline; every request must
+    # complete and the path's kernels launch (token hash launches no K2)
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as serve_cli
+
+    cli_cases = (("defaults", [], ("decode_attention", "aebs_schedule", "expert_ffn")),
+                 ("disagg_paged", ["--executor", "disagg", "--n-attn", "2", "--kv-page-size", "16"],
+                  ("paged_decode_attention", "aebs_schedule", "expert_ffn")),
+                 ("dense_gqa", ["--arch", "phi4-mini-3.8b", "--scheduler", "none", "--kv-page-size", "16"],
+                  ("paged_decode_attention",)),
+                 ("token_hash", ["--scheduler", "token_hash"], ("decode_attention", "expert_ffn")))
+    for case, argv, path in cli_cases:
+        cuda.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            m = serve_cli.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        text = out.getvalue()
+        n_req = int(text.split()[1])  # "serving N requests on ..."
+        log({"phase": "cli", "case": case, "argv": argv, "card": card, "requests": n_req,
+             "completed": m["completed"], "tokens": m["tokens"], "wall_s": wall, "launches": launches,
+             "header": text.splitlines()[0], "amax_mean": m.get("amax_mean")})
+        off_path = {n: c for n, c in launches.items() if c and n not in path}
+        if m["completed"] != n_req or m["truncated"] or m["rejected"] or off_path \
+                or any(launches[n] < 1 for n in path):
+            raise AssertionError(f"phase 6 ({case}): {m['completed']} of {n_req} requests completed; "
+                                 f"launches {launches}, path {path}")
+
+    # ---- 7. results ------------------------------------------------------
     log({"kernels": [rows[n] for n in cuda.LAUNCHES]})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

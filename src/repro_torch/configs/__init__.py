@@ -1,10 +1,34 @@
-"""Config registry: ``get_config(name)``.  Only the paper's model family
-(``dsv2-lite``) is ported so far; other names raise ``NotImplementedError``."""
+"""Config registry: ``get_config(name)`` (``repro.configs``).
+
+``ASSIGNED``, ``PAPER_MODELS`` and ``REGISTRY`` copy the reference's
+(``configs/archs.py:29-47``), restricted to the stacks the port runs: the
+period-1 dense and MoE configs.  The other families (``gemma2-2b``,
+``falcon-mamba-7b``, ``zamba2-2.7b``, ``whisper-tiny``, ``pixtral-12b``)
+raise ``NotImplementedError``, as do their ``-reduced`` variants.
+"""
+
+from typing import Dict
 
 from repro_torch.configs.base import ModelConfig, cache_specs, check_supported
+from repro_torch.configs.dsv2 import CONFIG as DSV2
 from repro_torch.configs.dsv2_lite import CONFIG as DSV2_LITE
+from repro_torch.configs.gemma_7b import CONFIG as GEMMA_7B
+from repro_torch.configs.phi3_5_moe_42b import CONFIG as PHI35_MOE_42B
+from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4_MINI_38B
+from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A27B
+from repro_torch.configs.scaled_ds_1 import CONFIG as SCALED_DS_1
+from repro_torch.configs.scaled_ds_2 import CONFIG as SCALED_DS_2
+from repro_torch.configs.yi_34b import CONFIG as YI_34B
 
-REGISTRY = {DSV2_LITE.name: DSV2_LITE}
+ASSIGNED: Dict[str, ModelConfig] = {
+    c.name: c for c in (GEMMA_7B, YI_34B, PHI4_MINI_38B, QWEN2_MOE_A27B, PHI35_MOE_42B)
+}
+
+PAPER_MODELS: Dict[str, ModelConfig] = {
+    c.name: c for c in (DSV2_LITE, DSV2, SCALED_DS_1, SCALED_DS_2)
+}
+
+REGISTRY: Dict[str, ModelConfig] = {**ASSIGNED, **PAPER_MODELS}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -17,4 +41,12 @@ def get_config(name: str) -> ModelConfig:
     return cfg.reduced() if name.endswith("-reduced") else cfg
 
 
-__all__ = ["REGISTRY", "ModelConfig", "cache_specs", "check_supported", "get_config"]
+__all__ = [
+    "ASSIGNED",
+    "PAPER_MODELS",
+    "REGISTRY",
+    "ModelConfig",
+    "cache_specs",
+    "check_supported",
+    "get_config",
+]

@@ -82,6 +82,21 @@ class ReplicaLayout:
         return self.num_instances * self.capacity
 
 
+def activated_mask(eids: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Step 1 of the workflow: the union of the selected expert ids, ``[E]``
+    bool (``aebs.py:118``); padding ids (-1) select nothing."""
+    flat = eids.reshape(-1).long()
+    valid = (flat >= 0) & (flat < num_experts)
+    act = torch.zeros(num_experts + 1, dtype=torch.bool, device=eids.device)
+    act[torch.where(valid, flat, num_experts)] = True
+    return act[:num_experts]
+
+
+def amax_of(load: torch.Tensor) -> torch.Tensor:
+    """a_max: the most activated experts on one instance."""
+    return load.max()
+
+
 def aebs_assign(
     eids: torch.Tensor,  # [T, k] logical expert ids, -1 = padding
     tables: Dict[str, torch.Tensor],
@@ -92,11 +107,7 @@ def aebs_assign(
     host (they are a dependent chain over E experts)."""
     hosts = tables["expert_hosts"]
     E = hosts.shape[0]
-    flat = eids.reshape(-1).long()
-    valid = (flat >= 0) & (flat < E)
-    act = torch.zeros(E + 1, dtype=torch.bool, device=eids.device)
-    act[torch.where(valid, flat, E)] = True
-    act_l = act[:E].tolist()
+    act_l = activated_mask(eids, E).tolist()
     counts_l = tables["replica_counts"].tolist()
     hosts_l = hosts.tolist()
     slot_l = tables["slot_of"].tolist()

@@ -136,3 +136,18 @@ def layout_for_survivors(
     if trace is not None:
         return build_layout(trace, num_experts, n_surviving, C)
     return ReplicaLayout.round_robin(num_experts, n_surviving, C)
+
+
+def instance_coactivation_load(layout: ReplicaLayout, coactivation: np.ndarray) -> np.ndarray:
+    """I(g) of Eq. 6: the co-activation mass among the distinct experts each
+    instance hosts (``placement.py:170``)."""
+    out = np.zeros(layout.num_instances)
+    for g in range(layout.num_instances):
+        hosted = layout.slot_to_expert[g]
+        hosted = np.unique(hosted[hosted >= 0])
+        s = 0.0
+        for i in range(len(hosted)):
+            for j in range(i + 1, len(hosted)):
+                s += coactivation[hosted[i], hosted[j]]
+        out[g] = s
+    return out

@@ -33,7 +33,7 @@
 // of the rows of a (slot, KV head) and the G query heads that share them,
 // and reads each row once.  A lane loads D columns of a row as one vector, 16
 // bytes (8 bf16 columns, 4 f32, 16 int8) where G is small (fewer for
-// G >= 4, so that G * D values of q and the accumulator stay in registers;
+// G >= 3, so that G * D values of q and the accumulator stay in registers;
 // at least hd / 32), so a row takes hd / D lanes and one warp load covers
 // 32 * D / hd rows (two bf16 rows of 128).  Each lane group of a row keeps
 // its own online-softmax state in registers; a row's G scores are shuffle
@@ -99,13 +99,18 @@ constexpr float kI8Bias = 8388736.0f;  // 2^23 + 128
 
 enum { kPaged = 0, kContiguous = 1, kInt8 = 2 };
 
+// The largest power of two <= n (n >= 1).
+__host__ __device__ constexpr int floor_pow2(int n) { return n >= 2 ? 2 * floor_pow2(n / 2) : 1; }
+
 // Columns a lane owns: 16 bytes of the cache's dtype, at least hd / 32 (a
 // row fits one warp) and at most what keeps G * D per-lane values of q and
-// the accumulator in registers.
+// the accumulator in registers.  The register share 16 / G is rounded down
+// to a power of two (4 at G = 3, 2 at G = 7), so that D divides HD and a
+// row's lanes are a power of two: the group sums are shuffle trees.
 template <int G, int HD, int KvBytes>
 __host__ __device__ constexpr int cols_per_lane() {
   constexpr int vec = 16 / KvBytes;
-  constexpr int regs = 16 / G;
+  constexpr int regs = floor_pow2(16 / G);
   constexpr int d = vec < regs ? vec : regs;
   return d > HD / 32 ? d : HD / 32;
 }
@@ -114,7 +119,8 @@ __host__ __device__ constexpr int cols_per_lane() {
 // of 384 threads caps an instance at 168 registers, which they fit without
 // spilling (ptxas -v), so one block fills an SM's register file; 8 above,
 // or 4 where G * D is so large that the merge's shared arrays (warps * G *
-// 32 * D floats) would pass 48 KB (G = 8, hd = 256).  At G = 1 the 12
+// 32 * D floats) would pass 48 KB (G = 8 or 7 at hd = 256; G = 7 at hd 128
+// keeps 8 warps and 28 KB).  At G = 1 the 12
 // warps shorten each warp's walk over a serving slot's rows and keep half
 // as many bytes again in flight as 8 at long context.
 template <int G, int D>
@@ -243,7 +249,7 @@ __device__ __forceinline__ void attend(const Args& a, int b, int h, int len, int
   // fit a register budget for the raw rows (two groups are in flight),
   // smaller where G * D values of q and the accumulator already hold many,
   // and no more than a 16-row chunk holds
-  constexpr int kBudget = G * D >= 32 ? 16 : 32;
+  constexpr int kBudget = G * D > 16 ? 16 : 32;
   constexpr int kFit = kBudget / Load::kRawRegs;
   constexpr int kByRegs = kFit >= 8 ? 8 : (kFit >= 4 ? 4 : (kFit >= 2 ? 2 : 1));
   constexpr int kByChunk = kChunk / kRowsPerLoad > 0 ? kChunk / kRowsPerLoad : 1;
@@ -478,7 +484,9 @@ int launch_g(int hd, const dim3& grid, cudaStream_t st, const Args& a) {
   switch (a.nh / a.nkv) {
     case 1: return launch_d<Kind, T, 1>(hd, grid, st, a);
     case 2: return launch_d<Kind, T, 2>(hd, grid, st, a);
+    case 3: return launch_d<Kind, T, 3>(hd, grid, st, a);
     case 4: return launch_d<Kind, T, 4>(hd, grid, st, a);
+    case 7: return launch_d<Kind, T, 7>(hd, grid, st, a);
     case 8: return launch_d<Kind, T, 8>(hd, grid, st, a);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import cuda
 
 NEG_INF = -1.0e30  # the reference kernel's mask constant (kernel.py:25)
-KERNEL_GROUPS = (1, 2, 4, 8)  # template instances of csrc/decode_attention.cu
+KERNEL_GROUPS = (1, 2, 3, 4, 7, 8)  # template instances of csrc/decode_attention.cu
 KERNEL_HEAD_DIMS = (64, 128, 256)
 _ALIGN = 32  # bytes: a lane loads its head_dim columns of a row as one vector
 _K1_ARGS = [cuda.PTR] * 7 + [cuda.INT] * 8 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]

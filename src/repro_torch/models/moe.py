@@ -1,13 +1,22 @@
-"""Mixture-of-Experts layer: routing, AEBS hook, sort-based grouped dispatch
-and shared experts (``repro.models.moe``, grouped dispatch only).
+"""Mixture-of-Experts layer: routing, the scheduler hook, dispatch and
+shared experts (``repro.models.moe``).
 
-Tokens are packed into capacity blocks by a stable argsort over bucket ids
-plus segment offsets.  With a replica layout, a single-active-replica
-scheduler (AEBS) rewrites expert ids to replica slots and the slots then
-collapse back to logical experts, so one grouped FFN runs over the ``[E, d,
-f]`` weights.  On the card that FFN is the K3 kernel over the *activated*
-experts only (``active = counts > 0``); on the CPU the layer keeps the
-reference's backend choice so parity tests follow its rounding.
+Three dispatch paths with one semantics (``DISPATCH_FNS``):
+
+* ``grouped`` (the serving path): tokens are packed into capacity blocks by
+  a stable argsort over bucket ids plus segment offsets.  With a replica
+  layout, a single-active-replica scheduler (AEBS, random) rewrites expert
+  ids to replica slots and the slots then collapse back to logical experts,
+  so one grouped FFN runs over the ``[E, d, f]`` weights; a per-item
+  scheduler (token hash) keeps slot buckets, read slot-indirectly.  On the
+  card that FFN is the K3 kernel over the *activated* buckets only
+  (``active = counts > 0``); on the CPU the layer keeps the reference's
+  backend choice so parity tests follow its rounding;
+* ``einsum`` (:func:`capacity_dispatch_ffn`) and ``scatter``
+  (:func:`scatter_dispatch_ffn`): the reference's one-hot oracles, plain
+  PyTorch on every device (the reference runs them outside any Pallas
+  kernel); with a layout they copy each slot's weights
+  (:func:`gather_slot_weights`), the cost the grouped path avoids.
 """
 
 from __future__ import annotations
@@ -82,6 +91,86 @@ def sort_dispatch_plan(
     }
 
 
+def gather_slot_weights(params: Params, slot_to_expert: torch.Tensor) -> Params:
+    """Per-slot expert weights copied from the logical ones
+    (``moe.py:105``); an empty slot (-1) takes expert 0's and receives no
+    token."""
+    idx = slot_to_expert.long().clamp(min=0)
+    return {k: params[k][idx] for k in ("w_gate", "w_up", "w_down")}
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: an index outside ``[0, n)`` gives a zero row."""
+    return (idx.long()[:, None] == torch.arange(n, device=idx.device)[None, :]).to(dtype)
+
+
+def _positions_in_bucket(flat_ids: torch.Tensor, num_buckets: int,
+                         item_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Arrival order of each item within its bucket, ``[I]``, by one-hot
+    cumsum (``moe.py:161``); -1 for an item in no bucket."""
+    oh = _one_hot(flat_ids, num_buckets, torch.long)
+    if item_mask is not None:
+        oh = oh * item_mask[:, None].long()
+    return (torch.cumsum(oh, dim=0) * oh).sum(dim=-1) - 1
+
+
+def _keep(pos, capacity, item_mask):
+    keep = (pos >= 0) & (pos < capacity)
+    return keep & item_mask if item_mask is not None else keep
+
+
+def capacity_dispatch_ffn(
+    x2d: torch.Tensor,  # [T, d]
+    bucket_ids: torch.Tensor,  # [T, k]
+    gates: torch.Tensor,  # [T, k] in x's dtype
+    num_buckets: int,
+    capacity: int,
+    weights: Params,  # stacked [num_buckets, ...]
+    item_mask: Optional[torch.Tensor] = None,  # [T*k] bool
+) -> torch.Tensor:
+    """Einsum / one-hot dispatch, the oracle path (``moe.py:211``)."""
+    T, k = bucket_ids.shape
+    dt = x2d.dtype
+    flat = bucket_ids.reshape(-1)
+    x_rep = torch.repeat_interleave(x2d, k, dim=0)  # item i = (t, j), i = t*k + j
+    pos = _positions_in_bucket(flat, num_buckets, item_mask)
+    keep = _keep(pos, capacity, item_mask)
+    pos_c = torch.where(keep, pos, capacity)  # a zero one-hot row: dropped
+    disp = torch.einsum("ie,ic->iec", _one_hot(flat, num_buckets, dt), _one_hot(pos_c, capacity, dt))
+    xin = torch.einsum("iec,id->ecd", disp, x_rep)
+    out = expert_ffn_einsum(weights, xin)
+    y_items = torch.einsum("iec,ecd->id", disp, out)
+    gflat = (gates.reshape(-1) * keep).to(dt)
+    return (y_items * gflat[:, None]).reshape(T, k, -1).sum(dim=1)
+
+
+def scatter_dispatch_ffn(
+    x2d: torch.Tensor,
+    bucket_ids: torch.Tensor,
+    gates: torch.Tensor,
+    num_buckets: int,
+    capacity: int,
+    weights: Params,
+    item_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Scatter / gather dispatch (``moe.py:242``), the same semantics."""
+    T, k = bucket_ids.shape
+    d = x2d.shape[-1]
+    dt = x2d.dtype
+    flat = bucket_ids.reshape(-1).long()
+    x_rep = torch.repeat_interleave(x2d, k, dim=0)
+    pos = _positions_in_bucket(flat, num_buckets, item_mask)
+    keep = _keep(pos, capacity, item_mask)
+    pos_c = torch.where(keep, pos, capacity)  # row `capacity`: the dump row
+    bkt_c = torch.where(keep, flat, 0)
+    buf = torch.zeros((num_buckets, capacity + 1, d), dtype=dt, device=x2d.device)
+    buf.index_put_((bkt_c, pos_c), torch.where(keep[:, None], x_rep, 0).to(dt), accumulate=True)
+    out = expert_ffn_einsum(weights, buf[:, :capacity])
+    y_items = out[bkt_c, pos_c.clamp(max=capacity - 1)]
+    gflat = (gates.reshape(-1) * keep).to(dt)
+    return (y_items * gflat[:, None]).reshape(T, k, -1).sum(dim=1)
+
+
 def grouped_dispatch_items(
     x2d: torch.Tensor,  # [T, d]
     bucket_ids: torch.Tensor,  # [T, k]
@@ -145,11 +234,28 @@ def scheduler_is_single_replica(scheduler) -> bool:
     return bool(getattr(scheduler, "single_active_replica", False))
 
 
+DISPATCH_FNS = {
+    "einsum": capacity_dispatch_ffn,
+    "scatter": scatter_dispatch_ffn,
+    "grouped": grouped_dispatch_ffn,
+}
+
+
+def check_dispatch(dispatch: str) -> None:
+    """Raise for a dispatch path the port does not run."""
+    if dispatch == "ep":
+        raise NotImplementedError("dispatch='ep' (expert parallelism) is not ported yet "
+                                  "(comes with SPMD and training)")
+    if dispatch not in DISPATCH_FNS:
+        raise ValueError(f"unknown dispatch {dispatch!r}; choose from {sorted(DISPATCH_FNS)}")
+
+
 def moe_layer(
     params: Params,
     x: torch.Tensor,  # [b, s, d]
     cfg,
     *,
+    dispatch: str = "grouped",  # grouped | einsum | scatter
     layout_tables: Optional[Dict[str, torch.Tensor]] = None,
     slot_to_expert: Optional[torch.Tensor] = None,  # flat [S_total] int32
     num_instances: int = 0,
@@ -157,14 +263,16 @@ def moe_layer(
     capacity: Optional[int] = None,
     with_aux: bool = False,
 ):
-    """Route + (optional scheduling) + grouped dispatch + shared experts
-    (``moe.py:403`` with ``dispatch="grouped"``; the reference's einsum and
-    scatter oracles and expert parallelism are not ported).  ``with_aux``
-    adds the scheduler's ``load`` and ``a_max``."""
+    """Route + (optional scheduling) + dispatch + shared experts
+    (``moe.py:403``).  The port's default dispatch is ``grouped``, the
+    reference's serving path (the reference defaults ad-hoc calls to its
+    einsum oracle); expert parallelism (``"ep"``) is not ported.
+    ``with_aux`` adds the scheduler's ``load`` and ``a_max``."""
+    check_dispatch(dispatch)
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     gates, eids, _ = route(params["router"], x2d, cfg.top_k)
-    logical_weights = {k: params[k] for k in ("w_gate", "w_up", "w_down")}
+    weights = {k: params[k] for k in ("w_gate", "w_up", "w_down")}
 
     aux: Dict[str, torch.Tensor] = {}
     bucket_map = None
@@ -176,23 +284,24 @@ def moe_layer(
         if with_aux:
             aux["load"] = load
             aux["a_max"] = load.max()
-        if scheduler_is_single_replica(scheduler):
+        if dispatch == "grouped" and scheduler_is_single_replica(scheduler):
             # <= 1 activated replica per expert: slots collapse to experts
             bucket_ids = torch.where(
                 slot_ids >= 0, slot_to_expert[slot_ids.long().clamp(min=0)], -1
             )
             num_buckets = cfg.num_experts
-        else:
+        elif dispatch == "grouped":
             bucket_ids = slot_ids
             bucket_map = slot_to_expert  # weights read slot-indirectly
+        else:
+            bucket_ids = slot_ids
+            weights = gather_slot_weights(params, slot_to_expert)
     else:
         bucket_ids = eids
         num_buckets = cfg.num_experts
         cap = capacity or default_capacity(b * s, cfg.top_k, num_buckets, cfg.capacity_factor)
-    y2d = grouped_dispatch_ffn(
-        x2d, bucket_ids, gates.to(x.dtype), num_buckets, cap, logical_weights,
-        slot_to_expert=bucket_map,
-    )
+    slot_kw = {} if bucket_map is None else {"slot_to_expert": bucket_map}
+    y2d = DISPATCH_FNS[dispatch](x2d, bucket_ids, gates.to(x.dtype), num_buckets, cap, weights, **slot_kw)
     if "shared" in params:
         y2d = y2d + ffn(params["shared"], x2d, "swiglu")
     y = y2d.reshape(b, s, d)

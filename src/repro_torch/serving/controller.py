@@ -43,6 +43,7 @@ class AutoScaler:
         slo: float,
         n_max: int = 16,
         window: float = 300.0,
+        hysteresis: float = 0.1,  # stored, read by nothing: the reference's only use is a no-op branch
         prefill_tok_rate: float = 0.0,  # prompt tokens/s one prefill device sustains
         n_prefill_max: Optional[int] = None,
         kv_pressure_threshold: float = 0.9,  # paged-pool occupancy that forces +1 attn
@@ -52,6 +53,7 @@ class AutoScaler:
         self.scaler = SLOScaler(model, n_max=n_max)
         self.slo = slo
         self.window = window
+        self.hysteresis = hysteresis
         self.prefill_tok_rate = prefill_tok_rate
         self.n_prefill_max = n_prefill_max if n_prefill_max is not None else n_max
         self.kv_pressure_threshold = kv_pressure_threshold

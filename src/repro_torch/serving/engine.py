@@ -17,7 +17,9 @@ disaggregated one (``executor="disagg"``).
   the pending prompts; ``prefill_batch`` packs prompts into one chunk call);
 * decode: one batched ``decode_step`` per iteration with per-slot positions;
   MoE layers route -> AEBS (``scheduler="aebs"``; on the card that is the K2
-  kernel) -> grouped dispatch over the activated experts (K3 on the card);
+  kernel), or the paper's baselines ``"random"`` and ``"token_hash"`` ->
+  grouped dispatch over the activated experts (K3 on the card; the einsum
+  and scatter oracles with ``dispatch=``);
   on the card, attention reads contiguous KV (the default) through K4, int8
   contiguous KV (``cfg.kv_quant``) through K5 and paged KV
   (``kv_page_size``) through K1; paged int8 KV gathers and dequantises, as
@@ -73,11 +75,13 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import baselines
 from repro_torch.core.aebs import ReplicaLayout
 from repro_torch.core.disagg import DevicePools
 from repro_torch.core.placement import layout_for_survivors
 from repro_torch.kernels.aebs.ops import aebs_schedule
 from repro_torch.models import model as model_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import resolve_device, tree_to
 from repro_torch.serving.faults import DEVICE_LOSS, FaultPlan, FaultRuntime, PoolFault, RetryPolicy, Watchdog
 from repro_torch.serving.kv_cache import (
@@ -100,8 +104,15 @@ from repro_torch.serving.request import Request
 
 # "aebs" and "aebs_kernel" share one contract (kernels/aebs/ops.py:40-41 of
 # the reference); the wrapper runs the CUDA kernel on the card and the plain
-# aebs_assign on the CPU.
-SCHEDULERS = {"aebs": aebs_schedule, "aebs_kernel": aebs_schedule, "none": None}
+# aebs_assign on the CPU.  "random" and "token_hash" are the paper's
+# baselines (plain PyTorch on every device, as in the reference).
+SCHEDULERS = {
+    "aebs": aebs_schedule,
+    "aebs_kernel": aebs_schedule,
+    "random": baselines.random_assign,
+    "token_hash": baselines.token_hash_assign,
+    "none": None,
+}
 
 # request admission orders (``sched=``): fifo = arrival order, priority =
 # higher ``Request.priority`` first, preempting through KV spill/restore
@@ -110,7 +121,6 @@ ADMISSION_SCHEDS = ("fifo", "priority")
 # reference options this slice does not run: name -> (values it accepts,
 # which later slice ports the rest)
 _LATER = {
-    "dispatch": (("grouped",), "the einsum/scatter oracles"),
     "extra_builder": ((None,), "the other families"),
 }
 
@@ -146,6 +156,7 @@ class ServingEngine:
         sched: str = "fifo",  # request admission: fifo | priority (preemptive)
         capacity_tokens: Optional[int] = None,
         prefill_capacity_tokens: Optional[int] = None,
+        dispatch: str = "grouped",  # grouped (slot-indirect hot path) | einsum | scatter
         executor: str = "mono",
         n_attn: int = 1,
         n_prefill: int = 0,
@@ -173,10 +184,8 @@ class ServingEngine:
             if not any(value is v or value == v for v in accepted):
                 raise NotImplementedError(f"{name}={value!r}: not ported yet (comes with {port})")
         if scheduler not in SCHEDULERS:
-            raise NotImplementedError(
-                f"scheduler={scheduler!r}: ported schedulers are {sorted(SCHEDULERS)}; "
-                "random and token_hash come in a later slice"
-            )
+            raise ValueError(f"unknown scheduler {scheduler!r}; choose from {sorted(SCHEDULERS)}")
+        moe_mod.check_dispatch(dispatch)
         if max_prefill_queue is not None and max_prefill_queue < 1:
             raise ValueError(
                 f"max_prefill_queue must be ≥ 1, got {max_prefill_queue} "
@@ -256,6 +265,7 @@ class ServingEngine:
         self.fault_listeners: List[Callable[[PoolFault, float], None]] = []
         self._scheduler = SCHEDULERS[scheduler]
         self._capacity = capacity_tokens
+        self._dispatch = dispatch
         self._extra = self._mono_extra(layout)
 
         self.paged: Optional[PagedKVCache] = None
@@ -336,6 +346,7 @@ class ServingEngine:
         if not (self.cfg.has_moe and layout is not None and self._scheduler is not None):
             return None
         return {"moe_ctx": dict(
+            dispatch=self._dispatch,
             layout_tables=layout.device_tables(self.device),
             slot_to_expert=torch.as_tensor(
                 layout.slot_to_expert.reshape(-1), dtype=torch.int32, device=self.device

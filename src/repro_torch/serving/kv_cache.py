@@ -76,6 +76,12 @@ class SlotManager:
     def num_active(self) -> int:
         return len(self.active_slots)
 
+    def admit(self, req: Request) -> int:
+        """Blocking admission: FREE -> ACTIVE in one call."""
+        s = self.reserve(req)
+        self.activate(s)
+        return s
+
     def reserve(self, req: Request, slot: Optional[int] = None) -> int:
         """Reserve the lowest free slot for ``req``, or the free ``slot``
         (a restore on disagg must land on the shard holding its pages)."""
@@ -137,6 +143,9 @@ class SlotManager:
 
     def positions_device(self, device) -> torch.Tensor:
         return torch.from_numpy(self.positions.astype(np.int64)).to(device)
+
+    def active_mask(self) -> np.ndarray:
+        return np.array([s == ACTIVE for s in self.state])
 
 
 def zero_slots(
@@ -650,3 +659,25 @@ def paginate_caches(caches: Dict[str, torch.Tensor], lengths: np.ndarray, page_s
                 out[k][:, pages_t, offs_t] = caches[k][:, slot, :ln]
     out["block_tables"] = pager.table_device(dev)
     return pager, out
+
+
+def depaginate_caches(paged_caches: Dict[str, torch.Tensor], pager: PagedKVCache) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`paginate_caches`: gather each slot's pages back into
+    dense ``[L, B, S, ...]`` rows (unbacked rows come back as zeros)."""
+    out = {k: v for k, v in paged_caches.items() if k != "block_tables"}
+    for k in PAGED_KEYS:
+        if k not in paged_caches:
+            continue
+        pool = paged_caches[k]  # [L, P, ps, ...]
+        L = pool.shape[0]
+        dense = torch.zeros((L, pager.max_batch, pager.cache_len, *pool.shape[3:]),
+                            dtype=pool.dtype, device=pool.device)
+        for slot in range(pager.max_batch):
+            nb = pager.slot_blocks(slot)
+            if not nb:
+                continue
+            pages = torch.from_numpy(pager.tables[slot, :nb].astype(np.int64)).to(pool.device)
+            dense[:, slot, : nb * pager.page_size] = pool[:, pages].reshape(
+                L, nb * pager.page_size, *pool.shape[3:])
+        out[k] = dense
+    return out

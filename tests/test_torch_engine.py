@@ -145,17 +145,24 @@ def test_engine_paged_equals_contiguous():
 
 
 @pytest.mark.parametrize("option", [
-    dict(dispatch="einsum"), dict(dispatch="scatter"), dict(scheduler="random"),
+    dict(extra_builder=lambda batch: {}), dict(dispatch="ep"), dict(family="ssm"),
 ])
 def test_engine_rejects_unported_options(option):
     """Options of the reference's engine that later slices port raise
-    instead of being ignored; their defaults are accepted."""
+    instead of being ignored: ``extra_builder`` (the other families),
+    expert-parallel dispatch (SPMD) and an engine on an unported family;
+    their defaults, and the options this port runs, are accepted."""
     from repro_torch.models import model
 
     cfg = get_config("dsv2-lite-reduced")
     params = model.init_params(cfg, seed=0, device="cpu")
     ServingEngine(cfg, params, device="cpu", executor="mono", admission="blocking",
-                  sched="fifo", prefix_cache=False, spec_k=0, n_prefill=0)
+                  sched="fifo", prefix_cache=False, spec_k=0, n_prefill=0, extra_builder=None)
+    for ported in (dict(dispatch="einsum"), dict(dispatch="scatter"), dict(scheduler="random"),
+                   dict(scheduler="token_hash")):
+        ServingEngine(cfg, params, device="cpu", **ported)
+    if "family" in option:
+        cfg, option = dataclasses.replace(cfg, family=option["family"]), {}
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, params, device="cpu", **option)
 

@@ -274,6 +274,56 @@ def test_paginate_caches_equals_reference():
             assert np.array_equal(got["kv_k"][:, pages, offs].numpy(), caches["kv_k"][:, slot, :ln])
 
 
+def test_depaginate_caches_equals_reference():
+    """``depaginate_caches`` inverts ``paginate_caches`` (tests/test_paged_kv.py
+    :146-155): the reference's dense rows, zeros where no page backs a row,
+    and ``zero_slots`` on the pool clears exactly the slot's pages."""
+    import jax.numpy as jnp
+
+    from repro.serving import kv_cache as ref_kv
+
+    caches = _dense_caches(seed=3)
+    lengths = np.array([5, 0, 16, 9])
+    pager, paged = kv_cache.paginate_caches({k: torch.from_numpy(v) for k, v in caches.items()}, lengths, 4)
+    ref_pager, ref_paged = ref_kv.paginate_caches({k: jnp.asarray(v) for k, v in caches.items()}, lengths, 4)
+    back = kv_cache.depaginate_caches(paged, pager)
+    want = ref_kv.depaginate_caches(ref_paged, ref_pager)
+    assert set(back) == set(want) and "block_tables" not in back
+    for k in want:
+        assert np.array_equal(back[k].numpy(), np.asarray(want[k])), k
+        for b, ln in enumerate(lengths):
+            assert np.array_equal(back[k][:, b, :ln].numpy(), caches[k][:, b, :ln]), (k, b)
+    back2 = kv_cache.depaginate_caches(kv_cache.zero_slots(paged, [2], pager), pager)
+    assert not back2["kv_k"][:, 2].any()
+    assert np.array_equal(back2["kv_k"][:, 0, :5].numpy(), caches["kv_k"][:, 0, :5])
+
+
+def test_slot_manager_admit_and_active_mask_equal_reference():
+    """Blocking ``admit`` and ``active_mask`` (tests/test_kv_cache.py:39-63),
+    state for state against the reference's ``SlotManager``."""
+    from repro.serving import kv_cache as ref_kv
+    from repro.serving.request import Request as RefRequest
+    from repro_torch.serving.request import Request
+
+    sides = []
+    for mod, req_cls in ((kv_cache, Request), (ref_kv, RefRequest)):
+        sm = mod.SlotManager(3, 16)
+        log = []
+        r0 = req_cls(rid=0, arrival=0.0, input_len=5, output_len=2)
+        log.append((sm.admit(r0), r0.slot, list(sm.state), sm.positions.tolist(), sm.active_mask().tolist()))
+        sm.advance(0)
+        s = sm.reserve(req_cls(rid=1, arrival=0.0, input_len=9, output_len=2))
+        sm.start_prefill(s)
+        log.append((s, sm.active_mask().tolist(), sm.pending_slots, sm.positions.tolist()))
+        sm.activate(s)
+        log.append((sm.active_mask().tolist(), sm.active_slots, sm.positions.tolist()))
+        log.append((sm.release(0).rid, sm.admit(req_cls(rid=2, arrival=0.0, input_len=2, output_len=1)),
+                    sm.positions.tolist(), sm.active_mask().tolist()))
+        sides.append(log)
+    assert sides[0] == sides[1]
+    assert sides[0][0][4] == [True, False, False]
+
+
 def test_slot_manager_fault_transitions_equal_reference():
     """The ``FAILED``/``REQUEUED`` detour and its refusals, state for state
     and message for message."""

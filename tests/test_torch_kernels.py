@@ -130,7 +130,7 @@ def _quantised(a):
     return vals.numpy(), scale.numpy()
 
 
-KV_SWEEP = [(1, 128), (2, 64), (4, 64)]  # (query heads per KV head, head_dim)
+KV_SWEEP = [(1, 128), (2, 64), (3, 128), (4, 64), (7, 128)]  # (query heads per KV head, head_dim)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -355,6 +355,26 @@ def test_aebs_plain_matches_reference(E, n_e, C, T, k):
     # the port's own numpy copy agrees as well
     for a, b in zip(aebs_numpy(trace[:T], layout), (s_n, load_n, rep_n)):
         assert_equal_int(a, b)
+
+
+def test_activated_mask_and_amax_of_equal_reference():
+    """Step 1's activated set and a_max (``aebs.py:118,179``); a padding id
+    (-1) activates nothing in the port, as in its ``aebs_assign``."""
+    import jax.numpy as jnp
+
+    from repro.core import aebs as ref_aebs
+    from repro_torch.core.aebs import activated_mask, amax_of
+
+    for E, k, seed in ((16, 2, 0), (64, 6, 1), (200, 8, 2)):
+        eids = make_routing_trace(40, E, k, skew=0.8, seed=seed)
+        got = activated_mask(torch.from_numpy(eids), E)
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref_aebs.activated_mask(jnp.asarray(eids), E)))
+        layout = build_layout(eids, E, 4, -(-E // 4) + 1)
+        load = aebs_schedule(torch.from_numpy(eids), layout.device_tables("cpu"), 4)[1]
+        assert int(amax_of(load)) == int(ref_aebs.amax_of(jnp.asarray(load.numpy())))
+    padded = np.array([[0, -1], [-1, -1]], np.int32)
+    assert activated_mask(torch.from_numpy(padded), 4).tolist() == [True, False, False, False]
 
 
 def test_aebs_plain_padding_neutral():
@@ -601,12 +621,16 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     rng = np.random.default_rng(0)
     before = dict(cuda.LAUNCHES)
 
+    # the G 3 and G 7 instances (phi4-mini, yi-34b) at every head_dim, softcap
+    # on and off: their register share is rounded down to a power of two
+    odd_groups = [(G, hd, cap) for G in (3, 7) for hd in KERNEL_HEAD_DIMS for cap in (0.0, 30.0)]
+
     # K1: every G and head_dim the kernel is built for, softcap on and off,
     # mid-page lengths; the second case is the serving path's shape
-    for (B, nh, nkv, hd, ps, P, nblk), cap in (((3, 8, 2, 64, 4, 40, 8), 0.0),
-                                               ((8, 16, 16, 128, 16, 257, 32), 30.0),
-                                               ((4, 4, 2, 128, 16, 40, 8), 0.0),
-                                               ((2, 16, 2, 256, 8, 12, 5), 30.0)):
+    k1_cases = [((3, 8, 2, 64, 4, 40, 8), 0.0), ((8, 16, 16, 128, 16, 257, 32), 30.0),
+                ((4, 4, 2, 128, 16, 40, 8), 0.0), ((2, 16, 2, 256, 8, 12, 5), 30.0)]
+    k1_cases += [((3, G * 2, 2, hd, 8, 16, 5), cap) for G, hd, cap in odd_groups]
+    for (B, nh, nkv, hd, ps, P, nblk), cap in k1_cases:
         for dtype in ("float32", "bfloat16"):
             q, k, v, bt = _paged_inputs(rng, B, nh, nkv, hd, ps, P, nblk)
             lens = rng.integers(1, nblk * ps + 1, size=B).astype(np.int32)
@@ -618,10 +642,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     # K4 and K5: every G and head_dim the kernels are built for, softcap on
     # and off, random per-slot lengths and a scalar valid_len; the second
     # case is the serving path's shape
-    for (B, nh, nkv, hd, S), cap in (((3, 8, 2, 64, 40), 0.0),
-                                     ((8, 16, 16, 128, 512), 30.0),
-                                     ((4, 4, 2, 128, 100), 0.0),
-                                     ((2, 16, 2, 256, 70), 30.0)):
+    k4_cases = [((3, 8, 2, 64, 40), 0.0), ((8, 16, 16, 128, 512), 30.0),
+                ((4, 4, 2, 128, 100), 0.0), ((2, 16, 2, 256, 70), 30.0)]
+    k4_cases += [((3, G * 2, 2, hd, 70), cap) for G, hd, cap in odd_groups]
+    for (B, nh, nkv, hd, S), cap in k4_cases:
         q, k, v = _contiguous_inputs(rng, B, nh, nkv, hd, S)
         (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
         lens = rng.integers(1, S + 1, size=B).astype(np.int32)

@@ -221,3 +221,36 @@ def test_autoscaler_validation_and_replan():
     assert len(engine.fault_listeners) == 1
     engine.fault_listeners[0](types.SimpleNamespace(pool="attn"), 3.0)
     assert ctl.device_losses == [(3.0, "attn")] and ctl.scaler.n_max == ref_ctl.scaler.n_max - 1
+
+
+def test_autoscaler_hysteresis_decides_as_reference():
+    """``AutoScaler(hysteresis=)`` is accepted and stored; its only use in the
+    reference is a branch that does nothing, so decisions equal the
+    reference's at any value (``controller.py:49,59,243-249``)."""
+    pm, ref = _models("dsv2-lite", slots_per_instance=12, s_ctx=512)
+    for h in (0.0, 0.3, 5.0):
+        kw = dict(slo=0.05, n_max=8, window=60.0, hysteresis=h)
+        ctl, ref_ctl = controller.AutoScaler(pm, **kw), ref_controller.AutoScaler(ref, **kw)
+        assert ctl.hysteresis == ref_ctl.hysteresis == h
+        for t, tok, *_ in _observations():
+            for c in (ctl, ref_ctl):
+                c.observe(t, tok)
+        for t in (5.0, 30.0, 90.0):
+            _same_result(ctl.decide(t), ref_ctl.decide(t))
+    assert controller.AutoScaler(pm, slo=0.05).hysteresis == ref_controller.AutoScaler(ref, slo=0.05).hysteresis
+
+
+@pytest.mark.parametrize("n_e,C", [(4, 17), (8, 12)])
+def test_instance_coactivation_load_equals_reference(n_e, C):
+    """Eq. 6's I(g) per instance (tests/test_placement.py:92-93) of a
+    trace-planned layout and of a round-robin one."""
+    from repro.core.placement import instance_coactivation_load as ref_icl
+    from repro_torch.core.placement import instance_coactivation_load
+
+    trace = amax.make_routing_trace(2048, 64, 6, skew=0.8, seed=4)
+    A = amax.coactivation_matrix(trace, 64)
+    lay, ref = _layouts(trace, 64, n_e, C)
+    got, want = instance_coactivation_load(lay, A), ref_icl(ref, A)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    naive, ref_naive = ReplicaLayout.round_robin(64, n_e, C), RefLayout.round_robin(64, n_e, C)
+    assert np.array_equal(instance_coactivation_load(naive, A), ref_icl(ref_naive, A))
