@@ -33,7 +33,11 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      (d_model, expert width) at decode, a 64-token chunk and every prefill
      capacity 5g gives, and slot-indirect over a token-hash routing; K2 and
      K3 at 5g's disagg shapes (each MoE instance of qwen2-moe's two 4-instance
-     layouts, a 4-token micro-batch);
+     layouts, a 4-token micro-batch); then (3f) the attention shapes 5h
+     serves: K1, K4 and K5 at gemma2-2b's global layers (8 x 8192 rows, 8
+     heads over 4 of 256, softcap 50), K4 and K5 over a wrapped 8 x 4096
+     rolling buffer (valid_len = W) and at zamba2's shared block (8 x 512,
+     32 heads of 80, the head_dim-80 instances);
   4. reduced parity: dsv2-lite-reduced in float32 through the plain versions
      on the CPU and through the kernels on the card, same seeded weights and
      requests, for four KV layouts: paged (K1), contiguous (K4), int8
@@ -64,7 +68,11 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      reduced: dense GQA (phi4-mini), GeGLU (gemma-7b), qwen2-moe under AEBS,
      random, token hash and the einsum and scatter oracles, and phi3.5-moe
      on mono and on disagg 2A built by ``launch.steps``: streams CPU = card,
-     launches exact;
+     launches exact; then the periodic and recurrent families, reduced:
+     gemma2 paged (K1 + K4 on the rolling buffers) and int8 contiguous
+     (K5), falcon-mamba, zamba2 contiguous (K4) and int8 (K5), prompts past
+     the 64-token window: streams and cache state CPU = card, launches
+     exact, and a Mamba update lost on purpose flagged by the same limits;
   5. full-width serving: dsv2-lite (27 layers, d 2048, 64 experts top-6 + 2
      shared, vocab 102400) with random bf16 weights drawn once on the card
      from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
@@ -118,10 +126,15 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      over serving_layout(cfg, 4) and freed before the next, launches exact,
      4 decode steps profiled; qwen2-moe also under random and token hash,
      and on disagg 2A 4E under AEBS and random over serving_layout and over
-     a trace-planned layout with more replicas (a_max);
+     a trace-planned layout with more replicas (a_max); then (5h) the
+     periodic and recurrent families whole at published widths, mono, 8
+     slots: gemma2-2b at 8192 rows paged (K1 global, K4 local) and int8
+     contiguous (K5), with a 4090-token request whose decode wraps the
+     4096-row local buffers, falcon-mamba-7b and zamba2-2.7b (K4 at hd 80)
+     contiguous, launches exact by kernel, 4 decode steps profiled;
   6. the CLI: ``repro_torch.launch.serve.main`` on the card with the
-     reference's defaults, then disagg paged, the dense GQA config and the
-     token-hash baseline, every request completed;
+     reference's defaults, then disagg paged, the dense GQA config, the
+     token-hash baseline and gemma2-2b paged, every request completed;
   7. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
@@ -349,6 +362,7 @@ def main():
     from repro_torch.serving.controller import AutoScaler
     from repro_torch.models import model as model_mod
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.attention import quantize_kv
     from repro_torch.serving.disagg import DisaggExecutor
     from repro_torch.serving.engine import ServingEngine
@@ -439,6 +453,28 @@ def main():
             fn(state["i"] % n)
         return call
 
+    # device ms of ``fn`` alone: ``reps`` calls captured in a CUDA graph,
+    # replayed 5 times (no host time between launches)
+    def graph_ms(fn, reps=20):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(5):
+            graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / (5 * reps)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rng = np.random.default_rng(0)
@@ -501,7 +537,8 @@ def main():
                time_ms(cycled(lambda l: paged_decode_attention_ref(q, k_pool[l], v_pool[l], bt, lens), L),
                        plain_iters),
                bound(k1_bytes, 4 * nh * hd * live, BF16_FLOPS), lib_ms, shape, excess,
-               n_split=n_split, pages_per_split=split_rows // ps, distinct_rows=distinct, live_rows=live)
+               n_split=n_split, pages_per_split=split_rows // ps, distinct_rows=distinct, live_rows=live,
+               device_ms=graph_ms(cycled(lambda l: paged_decode_attention(q, k_pool[l], v_pool[l], bt, lens), L)))
         del k_pool, v_pool
         torch.cuda.empty_cache()
 
@@ -656,26 +693,6 @@ def main():
     # at B 2048, 2049 and 3072, around the cluster threshold (one block up to
     # CLUSTER_ITEMS = 12288 ids), each held exactly against aebs_assign and
     # timed host-inclusive and, from a CUDA graph, on the device alone
-    def graph_ms(fn, reps=20):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(5):
-            graph.replay()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / (5 * reps)
-
     def aebs_case(eids, lay, iters, plain_iters, shape):
         tables, n_e = lay.device_tables(dev), lay.num_instances
         E, R = lay.expert_hosts.shape
@@ -829,81 +846,110 @@ def main():
         request generator, seed 5."""
         return (np.random.default_rng(5) if r is None else r).integers(16, 49, size=8)
 
-    # K1, K4 and K5 at the serving shape (8 slots x 512 rows, random lengths)
-    # for each new (query heads per KV head, head_dim): G 3 (phi4-mini, 24
-    # heads over 8), G 4 (scaled-ds-1/2 and phi3.5-moe, 32 over 8), G 7
-    # (yi-34b, 56 over 8) and head_dim 256 at G 1 (gemma-7b, 16 over 16)
-    def attention_shape_case(label, nh_c, nkv_c, hd_c, L=4, iters=100, plain_iters=20):
-        Bc, S = 8, nblk * ps
-        G = nh_c // nkv_c
-        lens_c = rng.integers(1, S + 1, size=Bc).astype(np.int32)
-        lens = torch.from_numpy(lens_c).to(dev)
+    # K1, K4 and K5 (``kinds``: "paged", "contiguous", "int8") over 8 slots
+    # of ``S`` rows with lengths ``lens_c`` (each layer's caches distinct, L
+    # of them rotated so that a call does not find the last one's rows in
+    # L2), each against its plain version (TOL["bf16"], one bf16 rounding of
+    # its f32 oracle), CUDA-event ms, device ms from a CUDA graph, the bytes
+    # bound, and SDPA with the KV heads repeated G times as the yardstick
+    # (none for int8)
+    def attention_shape_case(label, nh_c, nkv_c, hd_c, S, lens_c, cap, kinds, L=2, iters=50, plain_iters=5):
+        Bc, G = len(lens_c), nh_c // nkv_c
+        lens = torch.from_numpy(lens_c.astype(np.int32)).to(dev)
         live = int(lens_c.sum())
         q = torch.randn((Bc, nh_c, hd_c), generator=gen, device=dev).to(bf)
         kc = torch.randn((L, Bc, S, nkv_c, hd_c), generator=gen, device=dev).to(bf)
         vc = torch.randn((L, Bc, S, nkv_c, hd_c), generator=gen, device=dev).to(bf)
         io_bytes = 2 * Bc * nh_c * hd_c * 2 + Bc * 4
         ops = 4 * nh_c * hd_c * live
+        detail = dict(G=G, head_dim=hd_c, logit_cap=cap, rows=S, live_rows=live)
         mask = (torch.arange(S, device=dev)[None, :] < lens[:, None].long())[:, None, None, :]
         q4 = q[:, :, None, :]
-        # SDPA on pre-transposed views with the KV heads repeated G times
-        kd = [kc[l].transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for l in range(L)]
-        vd = [vc[l].transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for l in range(L)]
-        lib_ms = time_ms(cycled(lambda l: F.scaled_dot_product_attention(q4, kd[l], vd[l], attn_mask=mask), L),
-                         iters)
-        del kd, vd
-        n_split, split_rows = split_plan(Bc, nkv_c, S, n_sms)
-        got, want = decode_attention(q, kc[0], vc[0], lens), decode_attention_ref(q, kc[0], vc[0], lens)
-        record("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-               "src/repro/kernels/decode_attention/kernel.py:28", float((got.float() - want.float()).abs().max()),
-               TOL["bf16"], time_ms(cycled(lambda l: decode_attention(q, kc[l], vc[l], lens), L), iters),
-               time_ms(cycled(lambda l: decode_attention_ref(q, kc[l], vc[l], lens), L), plain_iters),
-               bound(2 * live * nkv_c * hd_c * 2 + io_bytes, ops, BF16_FLOPS), lib_ms, label,
-               rounding_excess(got, want), G=G, head_dim=hd_c, n_split=n_split, rows_per_split=split_rows,
-               device_ms=graph_ms(cycled(lambda l: decode_attention(q, kc[l], vc[l], lens), L)))
-        # K1: the same rows as pages of a pool, the block table a permutation
-        P = Bc * nblk + 1
-        perm = torch.from_numpy((rng.permutation(P - 1) + 1).astype(np.int32)).to(dev)
-        bt = perm.reshape(Bc, nblk)
-        kp = torch.zeros((L, P, ps, nkv_c, hd_c), dtype=bf, device=dev)
-        vp = torch.zeros_like(kp)
-        kp[:, bt.reshape(-1).long()] = kc.reshape(L, Bc * nblk, ps, nkv_c, hd_c)
-        vp[:, bt.reshape(-1).long()] = vc.reshape(L, Bc * nblk, ps, nkv_c, hd_c)
-        got = paged_decode_attention(q, kp[0], vp[0], bt, lens)
-        want = paged_decode_attention_ref(q, kp[0], vp[0], bt, lens)
-        record("paged_decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-               "src/repro/kernels/decode_attention/kernel.py:177", float((got.float() - want.float()).abs().max()),
-               TOL["bf16"], time_ms(cycled(lambda l: paged_decode_attention(q, kp[l], vp[l], bt, lens), L), iters),
-               time_ms(cycled(lambda l: paged_decode_attention_ref(q, kp[l], vp[l], bt, lens), L), plain_iters),
-               bound(2 * live * nkv_c * hd_c * 2 + io_bytes + Bc * nblk * 4, ops, BF16_FLOPS), lib_ms, label,
-               rounding_excess(got, want), G=G, head_dim=hd_c, n_split=n_split, pages_per_split=split_rows // ps,
-               device_ms=graph_ms(cycled(lambda l: paged_decode_attention(q, kp[l], vp[l], bt, lens), L)))
-        del kp, vp
-        quant = [quantize_kv(kc[l]) + quantize_kv(vc[l]) for l in range(L)]  # (k, ks, v, vs)
-        del kc, vc
-        k8, ks, v8, vs = quant[0]
-        got = decode_attention_int8(q, k8, v8, ks, vs, lens)
-        err = float((got.float() - decode_attention_int8_ref(q, k8, v8, ks, vs, lens).float()).abs().max())
-        want = decode_attention_ref(q, k8.float() * ks[..., None], v8.float() * vs[..., None], lens)
-        record("decode_attention_int8", "src/repro_torch/csrc/decode_attention.cu",
-               "src/repro/kernels/decode_attention/kernel.py:75", err, TOL["bf16"],
-               time_ms(cycled(lambda l: decode_attention_int8(
-                   q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L), iters),
-               time_ms(cycled(lambda l: decode_attention_int8_ref(
-                   q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L), plain_iters),
-               bound(2 * live * nkv_c * (hd_c + 4) + io_bytes, ops + 2 * live * nkv_c * hd_c, INT8_OPS),
-               None, label, rounding_excess(got, want), G=G, head_dim=hd_c, n_split=n_split,
-               rows_per_split=split_rows, device_ms=graph_ms(cycled(lambda l: decode_attention_int8(
-                   q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L)))
-        del quant, k8, ks, v8, vs, got, want
+
+        def sdpa_ms():
+            # SDPA scales by hd^-0.5 and takes no softcap: a yardstick of the
+            # same bytes, not the same function when cap > 0
+            kd = [kc[l].transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for l in range(L)]
+            vd = [vc[l].transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for l in range(L)]
+            out = time_ms(cycled(lambda l: F.scaled_dot_product_attention(q4, kd[l], vd[l], attn_mask=mask), L),
+                          iters)
+            del kd, vd
+            return out
+
+        lib_ms = sdpa_ms()
+        n_split, split_rows_ = split_plan(Bc, nkv_c, S, n_sms)
+        if "paged" in kinds:
+            nblk_c = S // ps
+            P = Bc * nblk_c + 1
+            perm = torch.from_numpy((rng.permutation(P - 1) + 1).astype(np.int32)).to(dev)
+            bt = perm.reshape(Bc, nblk_c)
+            kp = torch.zeros((L, P, ps, nkv_c, hd_c), dtype=bf, device=dev)
+            vp = torch.zeros_like(kp)
+            kp[:, bt.reshape(-1).long()] = kc.reshape(L, Bc * nblk_c, ps, nkv_c, hd_c)
+            vp[:, bt.reshape(-1).long()] = vc.reshape(L, Bc * nblk_c, ps, nkv_c, hd_c)
+            got = paged_decode_attention(q, kp[0], vp[0], bt, lens, logit_cap=cap)
+            want = paged_decode_attention_ref(q, kp[0], vp[0], bt, lens, logit_cap=cap)
+            record("paged_decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention/kernel.py:177", float((got.float() - want.float()).abs().max()),
+                   TOL["bf16"],
+                   time_ms(cycled(lambda l: paged_decode_attention(q, kp[l], vp[l], bt, lens, logit_cap=cap), L),
+                           iters),
+                   time_ms(cycled(lambda l: paged_decode_attention_ref(q, kp[l], vp[l], bt, lens, logit_cap=cap),
+                                  L), plain_iters),
+                   bound(2 * live * nkv_c * hd_c * 2 + io_bytes + Bc * nblk_c * 4, ops, BF16_FLOPS), lib_ms, label,
+                   rounding_excess(got, want), n_split=split_plan(Bc, nkv_c, S, n_sms, ps)[0],
+                   device_ms=graph_ms(cycled(lambda l: paged_decode_attention(q, kp[l], vp[l], bt, lens,
+                                                                              logit_cap=cap), L)), **detail)
+            del kp, vp
+        if "contiguous" in kinds:
+            got = decode_attention(q, kc[0], vc[0], lens, logit_cap=cap)
+            want = decode_attention_ref(q, kc[0], vc[0], lens, logit_cap=cap)
+            record("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention/kernel.py:28", float((got.float() - want.float()).abs().max()),
+                   TOL["bf16"],
+                   time_ms(cycled(lambda l: decode_attention(q, kc[l], vc[l], lens, logit_cap=cap), L), iters),
+                   time_ms(cycled(lambda l: decode_attention_ref(q, kc[l], vc[l], lens, logit_cap=cap), L),
+                           plain_iters),
+                   bound(2 * live * nkv_c * hd_c * 2 + io_bytes, ops, BF16_FLOPS), lib_ms, label,
+                   rounding_excess(got, want), n_split=n_split, rows_per_split=split_rows_,
+                   device_ms=graph_ms(cycled(lambda l: decode_attention(q, kc[l], vc[l], lens, logit_cap=cap), L)),
+                   **detail)
+        if "int8" in kinds:
+            quant = [quantize_kv(kc[l]) + quantize_kv(vc[l]) for l in range(L)]  # (k, ks, v, vs)
+            k8, ks, v8, vs = quant[0]
+            got = decode_attention_int8(q, k8, v8, ks, vs, lens, logit_cap=cap)
+            err = float((got.float() - decode_attention_int8_ref(q, k8, v8, ks, vs, lens, logit_cap=cap).float())
+                        .abs().max())
+            want = decode_attention_ref(q, k8.float() * ks[..., None], v8.float() * vs[..., None], lens,
+                                        logit_cap=cap)
+
+            def k5(l):
+                return decode_attention_int8(q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens,
+                                             logit_cap=cap)
+
+            record("decode_attention_int8", "src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention/kernel.py:75", err, TOL["bf16"],
+                   time_ms(cycled(k5, L), iters),
+                   time_ms(cycled(lambda l: decode_attention_int8_ref(
+                       q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens, logit_cap=cap), L), plain_iters),
+                   bound(2 * live * nkv_c * (hd_c + 4) + io_bytes, ops + 2 * live * nkv_c * hd_c, INT8_OPS),
+                   None, label, rounding_excess(got, want), n_split=n_split, rows_per_split=split_rows_,
+                   device_ms=graph_ms(cycled(k5, L)), **detail)
+            del quant, k8, ks, v8, vs
+        del kc, vc, got, want
         torch.cuda.empty_cache()
 
+    # K1, K4 and K5 at the serving shape (8 slots x 512 rows, random lengths)
+    # for each new (query heads per KV head, head_dim): G 3 (phi4-mini, 24
+    # heads over 8), G 4 (scaled-ds-1/2 and phi3.5-moe, 32 over 8), G 7
+    # (yi-34b, 56 over 8) and head_dim 256 at G 1 (gemma-7b, 16 over 16)
     for label, shape_heads in (("phi4-mini-3.8b: G 3, 24 heads over 8, hd 128, 8 x 512", (24, 8, 128)),
                                ("scaled-ds / phi3.5-moe: G 4, 32 heads over 8, hd 128, 8 x 512", (32, 8, 128)),
                                ("yi-34b: G 7, 56 heads over 8, hd 128, 8 x 512", (56, 8, 128)),
                                ("gemma-7b: G 1, 16 heads over 16, hd 256, 8 x 512", (16, 16, 256)),
                                ("dsv2: G 1, 128 heads over 128, hd 128, 8 x 512", (128, 128, 128))):
-        attention_shape_case(label, *shape_heads)
+        attention_shape_case(label, *shape_heads, nblk * ps, rng.integers(1, nblk * ps + 1, size=8), 0.0,
+                             ("contiguous", "paged", "int8"), L=4, iters=100, plain_iters=20)
 
     # K2 on serving_layout(cfg, 4) of every MoE config 5g serves (16, 60,
     # 160 and 200 experts), at 8 tokens' routing (phase 5g's decode batch)
@@ -1016,6 +1062,21 @@ def main():
             del xs
         del w3, xd, xc, xq
         torch.cuda.empty_cache()
+
+    # ---- 3f. the attention kernels at the shapes phase 5h serves ----------
+    # gemma2-2b's global layers (K1 and K4: 8 query heads over 4, hd 256,
+    # softcap 50; K5 under kv_quant) over 8 x 8192 rows, random lengths; its
+    # local layers (K4,
+    # K5) over a wrapped 8 x 4096 rolling buffer, every row live (valid_len =
+    # W); zamba2's shared block (K4, K5 at 32 heads over 32 of hd 80, the
+    # new instances) at 8 x 512, random lengths
+    attention_shape_case("gemma2-2b global: 8 heads over 4, hd 256, cap 50, 8 x 8192, random lengths",
+                         8, 4, 256, 8192, rng.integers(1, 8193, size=8), 50.0, ("paged", "contiguous", "int8"))
+    attention_shape_case("gemma2-2b local: wrapped 8 x 4096 rolling buffer (valid_len = W), 8 heads over 4, "
+                         "hd 256, cap 50", 8, 4, 256, 4096, np.full(8, 4096), 50.0, ("contiguous", "int8"))
+    attention_shape_case("zamba2-2.7b shared block: 32 heads over 32, hd 80, 8 x 512, random lengths",
+                         32, 32, 80, 512, rng.integers(1, 513, size=8), 0.0, ("contiguous", "int8"),
+                         L=4, iters=100, plain_iters=20)
 
     # ---- 4. reduced parity: plain versions on the CPU vs kernels on the card
     attn_kernels = ("paged_decode_attention", "decode_attention", "decode_attention_int8")
@@ -1566,6 +1627,119 @@ def main():
                              dict(scheduler="aebs", capacity=64, builder=True), "decode_attention")
     if phi_disagg != phi_mono:
         raise AssertionError("reduced phi3.5-moe: disagg 2A streams differ from mono's")
+
+    # the periodic and recurrent families phase 5h serves, reduced, in
+    # float32 (CPU = card): gemma2 (window 64, prompts up to 100 tokens, so
+    # the rolling buffers wrap) paged -> K1 for the global layers and K4 for
+    # the local ones, and contiguous int8 -> K5 for both; falcon-mamba
+    # (Mamba-1, no attention kernel); zamba2 (Mamba-2 behind the shared
+    # block) contiguous -> K4 and int8 -> K5.  Streams equal; every cache
+    # array after the run CPU = card within 1e-4 of its largest value, int8
+    # values within one quantisation step, and under kv_quant every float
+    # array within 2e-3 (a KV value one int8 step apart, where f32 noise
+    # rounds it the other way, moves the Mamba state and conv tail after it:
+    # 4.2e-4 read on an H100); launches exact.  zamba2 int8 also plants a
+    # fault on the CPU, a Mamba update lost at the last decode step (the
+    # streams stay equal), and fails unless the same limits flag it
+    def family_launches(eng):
+        """Each decode step launches each attention layer's kernel once:
+        paged full-attention layers K1 (paged int8: none, it gathers),
+        every contiguous cache (full, rolling window, the shared block's) K4,
+        or K5 under kv_quant; Mamba layers and prefill launch none."""
+        kinds = eng.cfg.layer_kinds()
+        n_full = sum(k in ("dense", "moe") for k in kinds)
+        n_cont = sum(k in ("dense_local", "ssm_hybrid") for k in kinds)
+        contiguous = "decode_attention_int8" if eng.cfg.kv_quant else "decode_attention"
+        want = dict.fromkeys(cuda.LAUNCHES, 0)
+        if eng.paged is None:
+            n_cont += n_full
+        elif not eng.cfg.kv_quant:
+            want["paged_decode_attention"] = eng.steps_done * n_full
+        want[contiguous] += eng.steps_done * n_cont
+        return want
+
+    def state_errs(ref, other, float_tol):
+        """Each cache array's error against ``ref``, and those past their
+        limit: int8 in quantisation steps (limit 1), floats relative to the
+        array's largest value (``float_tol``), the rest counted (limit 0)."""
+        errs, bad = {}, {}
+        for k, a in ref.items():
+            b = other[k]
+            if a.dtype == torch.int8:
+                errs[k], lim = float((a.int() - b.int()).abs().max()), 1.0
+            elif a.is_floating_point():
+                errs[k], lim = float((a - b).abs().max() / max(1.0, float(a.abs().max()))), float_tol
+            else:
+                errs[k], lim = float((a != b).sum()), 0
+            if errs[k] > lim:
+                bad[k] = errs[k]
+        return errs, bad
+
+    real_mamba_step = ssm_mod.mamba_step
+    mamba_calls = {"n": 0, "lose": 0}  # the call whose update is lost (0: none)
+
+    def mamba_step_planted(p, u, conv_state, ssm_state, cfg_):
+        y, conv, st = real_mamba_step(p, u, conv_state, ssm_state, cfg_)
+        mamba_calls["n"] += 1
+        if mamba_calls["n"] == mamba_calls["lose"]:
+            conv, st = conv_state.clone(), ssm_state.clone()
+        return y, conv, st
+
+    def period_case(case, name, kv_quant, engine_kw, plant_fault=False):
+        ncfg = dataclasses.replace(get_config(name), dtype="float32", kv_quant=kv_quant)
+        pc = model_mod.init_params(ncfg, seed=0, device="cpu")
+        pg = to_dev(pc)
+        out, state, engines, launches = {}, {}, {}, None
+        runs = [("cpu", pc), ("cuda", pg)] + ([("cpu_planted", pc)] if plant_fault else [])
+        for where, params_ in runs:
+            eng = ServingEngine(ncfg, params_, max_batch=2, cache_len=128, prefill_chunk=32, scheduler="none",
+                                device=where.split("_")[0], **engine_kw)
+            cuda.reset_launch_counts()
+            if plant_fault and where != "cuda":
+                # the sound CPU run counts its Mamba calls; the planted run
+                # loses the first Mamba layer's update at the last step
+                n_mamba = sum(k.startswith("ssm") for k in ncfg.layer_kinds())
+                mamba_calls["lose"] = mamba_calls["n"] - n_mamba + 1 if where == "cpu_planted" else 0
+                mamba_calls["n"] = 0
+                ssm_mod.mamba_step = mamba_step_planted
+            try:
+                m = eng.run(sample_requests(WorkloadSpec(mean_input=70, mean_output=10, vocab_size=ncfg.vocab_size,
+                                                         max_input=100, max_output=12, seed=0),
+                                            np.zeros(4), with_prompts=True), max_steps=500)
+            finally:
+                ssm_mod.mamba_step = real_mamba_step
+            if where == "cuda":
+                launches = dict(cuda.LAUNCHES)
+            engines[where] = eng
+            out[where] = ({r.rid: r.tokens_out for r in eng.completed}, m["completed"], m.get("kv_pages"))
+            state[where] = {k: v.cpu() for k, v in eng.caches.items()}
+        float_tol = 2e-3 if kv_quant else 1e-4
+        planted_missed = False
+        if plant_fault:
+            planted_errs, flagged = state_errs(state["cpu"], state["cpu_planted"], float_tol)
+            planted_missed = not flagged
+            log({"phase": "reduced_parity_periodic_planted", "case": case, "fault": "Mamba update of the first "
+                 f"layer lost at the last decode step (call {mamba_calls['lose']})", "streams_equal":
+                 out["cpu_planted"] == out["cpu"], "cache_state_err": planted_errs, "flagged": flagged,
+                 "float_tol": float_tol, "card": card})
+        want = family_launches(engines["cuda"])
+        wrong = {n: launches[n] for n in want if launches[n] != want[n]}
+        errs, bad = state_errs(state["cpu"], state["cuda"], float_tol)
+        same = out["cpu"] == out["cuda"] and out["cpu"][1] == 4
+        log({"phase": "reduced_parity_periodic", "case": case, "model": ncfg.name, "dtype": "float32",
+             "engine": dict(engine_kw), "kv_quant": kv_quant, "cpu_equal_card": same, "cache_state_err": errs,
+             "float_tol": float_tol, "streams_cuda": out["cuda"][0], "launches": launches, "launches_exact": want,
+             "card": card})
+        if not same or wrong or bad or planted_missed:
+            raise AssertionError(f"reduced {case}: streams CPU = card {same}; launches {wrong} not {want}; "
+                                 f"cache state off {bad}; planted fault missed {planted_missed}")
+        del pg, eng, engines
+
+    period_case("gemma2_paged", "gemma2-2b-reduced", False, dict(kv_page_size=16))
+    period_case("gemma2_int8_contiguous", "gemma2-2b-reduced", True, {})
+    period_case("falcon_mamba", "falcon-mamba-7b-reduced", False, {})
+    period_case("zamba2_contiguous", "zamba2-2.7b-reduced", False, {})
+    period_case("zamba2_int8", "zamba2-2.7b-reduced", True, {}, plant_fault=True)
 
     del p_gpu, d_gpu
 
@@ -2512,12 +2686,15 @@ def main():
                         prompt=r.integers(0, vocab, size=int(n), dtype=np.int32), token_times=[])
                 for i, n in enumerate(prompt_lengths_5g(r))]
 
-    def serve_5g(run_cfg, params_, what, profile_steps=0, **engine_kw):
-        """Serve phase 5g's 8 requests, launch counts zeroed just before and
-        read just after, every decode step timed on the host; then, in a
-        second short run of the same requests, profile ``profile_steps``
-        decode steps from the second (device ms and ops a step; the idle
-        share is against the first run's host time a step)."""
+    def serve_5g(run_cfg, params_, what, profile_steps=0, reqs_fn=None, want_fn=None, phase="5g", **engine_kw):
+        """Serve phase 5g's 8 requests (or ``reqs_fn()``'s), launch counts
+        zeroed just before and read just after (exact: ``want_fn(engine)``,
+        by default the dense and MoE path's), every decode step timed on the
+        host; then, in a second short run of the same requests, profile
+        ``profile_steps`` decode steps from the second (device ms and ops a
+        step; the idle share is against the first run's host time a step)."""
+        reqs_fn = reqs_fn or (lambda: requests_5g(run_cfg.vocab_size))
+        n_req = len(reqs_fn())
         lay_ = serving_layout(run_cfg, 4) if run_cfg.has_moe else None
         kw_ = dict(max_batch=8, cache_len=512, prefill_chunk=64, kv_page_size=16, layout=lay_,
                    scheduler="aebs" if run_cfg.has_moe else "none", device=dev)
@@ -2553,7 +2730,7 @@ def main():
             else:
                 model_mod.decode_step = stepped
             try:
-                m_ = engine.run(requests_5g(run_cfg.vocab_size), max_steps=max_steps)
+                m_ = engine.run(reqs_fn(), max_steps=max_steps)
                 torch.cuda.synchronize()
             finally:
                 model_mod.decode_step, DisaggExecutor.decode_step = decode_step, disagg_step
@@ -2565,23 +2742,27 @@ def main():
         engine, m = run(False)
         wall = time.perf_counter() - t0
         launches = dict(cuda.LAUNCHES)
-        want = path_launches(engine, "paged_decode_attention", 0, engine.prefill_worker.chunks_done)
-        if kw_["scheduler"] != "aebs":
-            want["aebs_schedule"] = 0
+        if want_fn is not None:
+            want = want_fn(engine)
+        else:
+            want = path_launches(engine, "paged_decode_attention", 0, engine.prefill_worker.chunks_done)
+            if kw_["scheduler"] != "aebs":
+                want["aebs_schedule"] = 0
         wrong = {n: launches[n] for n in want if launches[n] != want[n]}
-        info = {"phase": "serve_config", "run": what, "card": card, "model": run_cfg.name,
+        info = {"phase": "serve_config" if phase == "5g" else "serve_family", "run": what, "card": card,
+                "model": run_cfg.name,
                 "reduced": {"num_layers": [run_cfg.num_layers, REGISTRY[run_cfg.name].num_layers]}
                 if run_cfg.num_layers != REGISTRY[run_cfg.name].num_layers else {},
                 "executor": kw_.get("executor", "mono"), "scheduler": kw_["scheduler"],
                 "heads": [run_cfg.num_heads, run_cfg.num_kv_heads, run_cfg.resolved_head_dim],
-                "requests": 8, "completed": m["completed"], "tokens": m["tokens"],
+                "requests": n_req, "completed": m["completed"], "tokens": m["tokens"],
                 "decode_steps": engine.steps_done, "wall_s": wall, "tokens_per_s": m["throughput_tok_s"],
                 "tpot_ms_mean": m["tpot_mean"] * 1e3, "tpot_ms_p99": m["tpot_p99"] * 1e3,
                 "ttft_ms_mean": m["ttft_mean"] * 1e3, "decode_step_ms_mean": float(np.mean(host_ms)),
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kv_pages": m.get("kv_pages"),
                 "amax_mean": m.get("amax_mean"), "amax_max": m.get("amax_max"),
                 "launches": launches, "launches_exact": want}
-        complete = m["completed"] == 8 and not m["truncated"] and all(
+        complete = m["completed"] == n_req and not m["truncated"] and all(
             r.generated == r.output_len for r in engine.completed)
         del engine
         if profile_steps:
@@ -2593,9 +2774,9 @@ def main():
         info["nonfinite_logits"] = int(nonfinite)
         log(info)
         if not complete:
-            raise AssertionError(f"phase 5g ({what}): {m['completed']} of 8 requests completed in full")
+            raise AssertionError(f"phase {phase} ({what}): {m['completed']} of {n_req} requests completed in full")
         if int(nonfinite) or wrong or len(dev_ms) != profile_steps:
-            raise AssertionError(f"phase 5g ({what}): {int(nonfinite)} non-finite logits; launches {wrong} "
+            raise AssertionError(f"phase {phase} ({what}): {int(nonfinite)} non-finite logits; launches {wrong} "
                                  f"not {want}; {len(dev_ms)} of {profile_steps} steps profiled")
         return info
 
@@ -2635,6 +2816,54 @@ def main():
     log({"phase": "serve_configs_summary", "card": card,
          "runs": {k: {f: v.get(f) for f in keys_5g} for k, v in summary_5g.items()}})
 
+    # ---- 5h. the periodic and recurrent families at full width ------------
+    # gemma2-2b (26 layers: 13 local of window 4096, 13 global; 8 heads over
+    # 4 of 256, softcaps 50 / 30, GeGLU, vocab 256000), falcon-mamba-7b (64
+    # Mamba-1 layers, d 4096) and zamba2-2.7b (54 Mamba-2 layers, the shared
+    # attention block, 32 heads of 80, before every 6th) whole, random bf16
+    # weights from seed 0, mono, 8 slots, phase 5g's 8 requests (prompts
+    # 16-48, 16 outputs).  gemma2 at cache_len 8192 (the rolling buffers hold
+    # 4096 rows), with one more request of a 4090-token prompt, whose decode
+    # crosses position 4096 so that its local buffers wrap: paged (K1 for
+    # the global layers, K4 for the local buffers) and contiguous int8 (K5
+    # for both); falcon-mamba (no attention kernel) and zamba2 (K4 at hd 80)
+    # contiguous at 512 rows.  Launches exact by kernel; each model freed
+    # before the next
+    def long_requests(vocab):
+        r = np.random.default_rng(6)
+        long_req = Request(rid=8, arrival=0.0, input_len=4090, output_len=16,
+                           prompt=r.integers(0, vocab, size=4090, dtype=np.int32), token_times=[])
+        return [long_req] + requests_5g(vocab)
+
+    summary_5h = {}
+    for name, runs in (("gemma2-2b", (("mono paged, K1 global + K4 local", False, dict(cache_len=8192)),
+                                      ("mono contiguous int8, K5", True, dict(cache_len=8192, kv_page_size=None)))),
+                       ("falcon-mamba-7b", (("mono contiguous, no attention", False, dict(kv_page_size=None)),)),
+                       ("zamba2-2.7b", (("mono contiguous, K4 at hd 80", False, dict(kv_page_size=None)),))):
+        base_cfg = get_config(name)
+        t0 = time.perf_counter()
+        params_5h = model_mod.init_params(base_cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log({"phase": "init_config", "model": name, "num_layers": base_cfg.num_layers,
+             "params": numel(params_5h), "seconds": time.perf_counter() - t0,
+             "weights_gb": (torch.cuda.memory_allocated() / 1e9) - base_gb, "card": card})
+        for what, kv_quant, ekw in runs:
+            run_cfg = dataclasses.replace(base_cfg, kv_quant=kv_quant)
+            reqs_fn = (lambda v=run_cfg.vocab_size: long_requests(v)) if name == "gemma2-2b" else None
+            info = serve_5g(run_cfg, params_5h, what, profile_steps=4, reqs_fn=reqs_fn, want_fn=family_launches,
+                            phase="5h", **ekw)
+            summary_5h[f"{name} {what}"] = info
+            if name == "gemma2-2b" and info["decode_steps"] < 16:
+                raise AssertionError(f"phase 5h ({name}, {what}): the 4090-token request did not decode past 4096")
+        del params_5h
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 1e9
+        if left > base_gb + 0.5:
+            raise AssertionError(f"phase 5h: {left:.2f} GB still allocated after {name}: {cuda_tensors_gb()}")
+    log({"phase": "serve_families_summary", "card": card,
+         "runs": {k: {f: v.get(f) for f in keys_5g + ("launches", "decode_steps")} for k, v in summary_5h.items()}})
+
     # ---- 6. the CLI: repro_torch.launch.serve on the card ------------------
     # the reference's defaults (qwen2-moe-a2.7b, reduced, random torch
     # weights from seed 0), then disagg with paged KV, the dense GQA config
@@ -2650,7 +2879,9 @@ def main():
                   ("paged_decode_attention", "aebs_schedule", "expert_ffn")),
                  ("dense_gqa", ["--arch", "phi4-mini-3.8b", "--scheduler", "none", "--kv-page-size", "16"],
                   ("paged_decode_attention",)),
-                 ("token_hash", ["--scheduler", "token_hash"], ("decode_attention", "expert_ffn")))
+                 ("token_hash", ["--scheduler", "token_hash"], ("decode_attention", "expert_ffn")),
+                 ("window_paged", ["--arch", "gemma2-2b", "--scheduler", "none", "--kv-page-size", "16"],
+                  ("paged_decode_attention", "decode_attention")))
     for case, argv, path in cli_cases:
         cuda.reset_launch_counts()
         out = io.StringIO()

@@ -6,8 +6,11 @@ Parity tests draw weights with the reference's ``transformer.init_params``
 bf16 crosses as a 16-bit integer view, so every conversion is bit-exact.
 
 Layout: the reference stacks each period position's layer params over
-periods (``blocks/pos0/...`` with a leading ``[n_periods]`` axis, period 1
-for every family this port runs); the port keeps one dict per layer.
+periods (``blocks/pos{p}/...`` with a leading ``[n_periods]`` axis; period 1
+for the dense and MoE stacks, 2 for gemma2's local/global pair, 6 for
+zamba2's shared-attention period); the port keeps one dict per layer, layer
+``l = period_index * period + p``.  The hybrid stack's weight-tied
+``shared_attn`` block crosses over as one dict.
 """
 
 from __future__ import annotations
@@ -44,23 +47,27 @@ def _map(tree, fn):
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """Reference param tree (numpy leaves) -> port params."""
     blocks = tree["blocks"]
-    if set(blocks) != {"pos0"}:
-        raise NotImplementedError("only period-1 layer patterns are ported")
-    stacked = blocks["pos0"]
-    n_layers = len(np.asarray(stacked["ln1"]["scale"]))
+    if "encoder" in tree:
+        raise NotImplementedError("encoder-decoder trees are not ported yet (the encoder-decoder slice)")
+    period = len(blocks)
+    n_periods = len(np.asarray(blocks["pos0"]["ln1"]["scale"]))
     layers: List[Dict[str, Any]] = [
-        _map(stacked, lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device))
-        for i in range(n_layers)
+        _map(blocks[f"pos{l % period}"], lambda a, i=l // period: tensor_from_numpy(np.asarray(a)[i], device))
+        for l in range(period * n_periods)
     ]
-    return {
+    out = {
         "embed": tensor_from_numpy(tree["embed"], device),
         "layers": layers,
         "final_norm": _map(tree["final_norm"], lambda a: tensor_from_numpy(a, device)),
     }
+    if "shared_attn" in tree:
+        out["shared_attn"] = _map(tree["shared_attn"], lambda a: tensor_from_numpy(a, device))
+    return out
 
 
-def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Port params -> the reference's tree layout with numpy leaves."""
+def params_to_numpy(params: Dict[str, Any], period: int = 1) -> Dict[str, Any]:
+    """Port params -> the reference's tree layout with numpy leaves, for a
+    layer pattern of ``period`` (``transformer.period_pattern``)."""
 
     def stack(*leaves):
         return np.stack([tensor_to_numpy(t) for t in leaves])
@@ -71,11 +78,15 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
             return {k: zip_layers([lp[k] for lp in layers]) for k in first}
         return stack(*layers)
 
-    return {
+    layers = params["layers"]
+    out = {
         "embed": tensor_to_numpy(params["embed"]),
-        "blocks": {"pos0": zip_layers(params["layers"])},
+        "blocks": {f"pos{p}": zip_layers(layers[p::period]) for p in range(period)},
         "final_norm": _map(params["final_norm"], tensor_to_numpy),
     }
+    if "shared_attn" in params:
+        out["shared_attn"] = _map(params["shared_attn"], tensor_to_numpy)
+    return out
 
 
 def caches_from_numpy(caches: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:

@@ -1,14 +1,17 @@
 """Model configuration: a copy of ``repro.configs.base.ModelConfig``.
 
 The dataclass keeps every field of the reference so the two configs compare
-field for field; the port's model code reads only the attention/MoE fields
-(``layer_kinds`` kinds ``dense`` and ``moe``).  ``cache_specs`` mirrors the
-reference's ``_cache_specs`` layout for the full-attention caches.
+field for field.  The port runs the decoder-only families: ``layer_kinds``
+``dense``, ``dense_local`` (sliding window), ``moe``, ``ssm`` (Mamba) and
+``ssm_hybrid`` (Mamba after a shared attention block); encoder-decoder and
+frontend configs still raise (:func:`check_supported`).  ``cache_specs``
+mirrors the reference's ``_cache_specs`` layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -80,8 +83,30 @@ class ModelConfig:
         return self.d_model // self.num_heads if self.num_heads else 0
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def has_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner dimension."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        """Mamba-2 head count."""
+        return max(1, self.d_inner // self.ssm_head_dim)
+
+    @property
+    def conv_dim(self) -> int:
+        """Channels of the Mamba block's depthwise conv: x for Mamba-1,
+        [x, B, C] for Mamba-2 (one group)."""
+        if self.ssm_version == 2:
+            return self.d_inner + 2 * self.ssm_state
+        return self.d_inner
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -106,23 +131,35 @@ class ModelConfig:
         return tuple(kinds)
 
     def param_counts(self) -> Dict[str, int]:
-        """Approximate parameter counts per subsystem (``base.py:199``), for
-        the dense and MoE stacks the port runs: the scaling model's memory
-        terms read them."""
+        """Approximate parameter counts per subsystem (``base.py:199``); the
+        scaling model's memory terms read them."""
         check_supported(self)
         d = self.d_model
         hd = self.resolved_head_dim
         counts = dict(embed=self.vocab_size * d, attn=0, ffn=0, expert=0, ssm=0, norm=self.num_layers * 4 * d)
         attn_p = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd + self.num_heads * hd * d
         glu_mult = 3 if self.ffn_activation in ("swiglu", "geglu") else 2
+        ffn_p = glu_mult * d * self.d_ff if self.d_ff else 0
         kinds = self.layer_kinds()
-        n_moe = sum(1 for k in kinds if k == "moe")
-        counts["attn"] = len(kinds) * attn_p
-        counts["ffn"] = (len(kinds) - n_moe) * (glu_mult * d * self.d_ff if self.d_ff else 0)
+        n_attn = sum(k in ("dense", "dense_local", "moe", "ssm_hybrid") for k in kinds)
+        n_moe = sum(k == "moe" for k in kinds)
+        n_ssm = sum(k.startswith("ssm") for k in kinds)
+        counts["attn"] = n_attn * attn_p
+        counts["ffn"] = sum(k in ("dense", "dense_local", "ssm_hybrid") for k in kinds) * ffn_p
         if n_moe:
             expert_p = glu_mult * d * self.d_ff_expert
             counts["expert"] = n_moe * self.num_experts * expert_p
             counts["ffn"] += n_moe * (self.num_shared_experts * expert_p + d * self.num_experts)
+        if n_ssm:
+            di = self.d_inner
+            ssm_p = d * 2 * di + di * self.ssm_conv + di * d  # in_proj, conv, out_proj
+            if self.ssm_version == 1:
+                dt_rank = max(1, math.ceil(d / 16))
+                ssm_p += di * (dt_rank + 2 * self.ssm_state) + dt_rank * di + di * self.ssm_state + di
+            else:
+                nh2 = self.ssm_num_heads
+                ssm_p += d * (2 * self.ssm_state + nh2) + nh2 * 2 + di
+            counts["ssm"] = n_ssm * ssm_p
         return counts
 
     def bytes_per_param(self) -> int:
@@ -130,7 +167,8 @@ class ModelConfig:
 
     def kv_bytes_per_token(self) -> int:
         """KV-cache bytes per token across all attention layers."""
-        return len(self.layer_kinds()) * 2 * self.num_kv_heads * self.resolved_head_dim * self.bytes_per_param()
+        n_attn = sum(k != "ssm" for k in self.layer_kinds())
+        return n_attn * 2 * self.num_kv_heads * self.resolved_head_dim * self.bytes_per_param()
 
     def reduced(self) -> "ModelConfig":
         """A tiny same-family variant for CPU tests (``base.py:156``)."""
@@ -169,26 +207,56 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run yet."""
-    kinds = set(cfg.layer_kinds())
-    if not kinds <= {"dense", "moe"} or cfg.encoder_layers or cfg.frontend:
+    """Raise for what this slice of the port does not run yet: the
+    encoder-decoder and vision-patch families."""
+    if cfg.encoder_layers or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)} are not ported yet "
-            "(other families come in a later slice)"
+            f"{cfg.name}: encoder-decoder and frontend configs are not ported yet "
+            "(they come with the encoder-decoder and vision-patch slice)"
         )
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
-    """Decode-state layout of ``repro.configs.base._cache_specs`` for the
-    full-attention caches: ``kv_k``/``kv_v`` stacked ``[L, B, S, nkv, hd]``;
-    with ``kv_quant`` they are int8, beside f32 per-(row, head) scales
-    ``kv_k_scale``/``kv_v_scale`` ``[L, B, S, nkv]``."""
+    """Decode-state layout of ``repro.configs.base._cache_specs``
+    (``base.py:329``): per attention kind, ``kv_k{s}``/``kv_v{s}`` stacked
+    ``[n, B, L, nkv, hd]`` (int8 beside f32 ``[n, B, L, nkv]`` scales
+    ``kv_k{s}_scale``/``kv_v{s}_scale`` under ``kv_quant``): suffix ``""``
+    for full-attention layers (L = ``cache_len``), ``_local`` for
+    sliding-window layers (a rolling buffer of L = min(``cache_len``,
+    window) rows) and ``_hybrid`` for the shared attention block's calls
+    (L = ``cache_len``); Mamba layers keep ``ssm_state`` f32 (``[n, B,
+    d_inner, N]`` for Mamba-1, ``[n, B, heads, head_dim, N]`` for Mamba-2)
+    and ``conv_state`` ``[n, B, conv - 1, conv_dim]`` in the model dtype."""
     check_supported(cfg)
-    n_full = len(cfg.layer_kinds())
-    shape = (n_full, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    kv_dtype = torch.int8 if cfg.kv_quant else cfg.torch_dtype
-    specs = {"kv_k": (shape, kv_dtype), "kv_v": (shape, kv_dtype)}
-    if cfg.kv_quant:
-        specs["kv_k_scale"] = (shape[:-1], torch.float32)
-        specs["kv_v_scale"] = (shape[:-1], torch.float32)
+    kinds = cfg.layer_kinds()
+    hd = cfg.resolved_head_dim
+    dt = cfg.torch_dtype
+    kv_dtype = torch.int8 if cfg.kv_quant else dt
+    specs: Dict[str, Tuple[tuple, torch.dtype]] = {}
+
+    def kv(suffix: str, n: int, length: int) -> None:
+        shape = (n, batch, length, cfg.num_kv_heads, hd)
+        specs[f"kv_k{suffix}"] = (shape, kv_dtype)
+        specs[f"kv_v{suffix}"] = (shape, kv_dtype)
+        if cfg.kv_quant:
+            specs[f"kv_k{suffix}_scale"] = (shape[:-1], torch.float32)
+            specs[f"kv_v{suffix}_scale"] = (shape[:-1], torch.float32)
+
+    n_full = sum(k in ("dense", "moe") for k in kinds)
+    n_local = sum(k == "dense_local" for k in kinds)
+    n_hyb = sum(k == "ssm_hybrid" for k in kinds)
+    n_ssm = sum(k.startswith("ssm") for k in kinds)
+    if n_full:
+        kv("", n_full, cache_len)
+    if n_local:
+        kv("_local", n_local, min(cache_len, cfg.sliding_window or cache_len))
+    if n_hyb:
+        kv("_hybrid", n_hyb, cache_len)
+    if n_ssm:
+        if cfg.ssm_version == 1:
+            specs["ssm_state"] = ((n_ssm, batch, cfg.d_inner, cfg.ssm_state), torch.float32)
+        else:
+            specs["ssm_state"] = ((n_ssm, batch, cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                                  torch.float32)
+        specs["conv_state"] = ((n_ssm, batch, cfg.ssm_conv - 1, cfg.conv_dim), dt)
     return specs

@@ -71,6 +71,14 @@
 // once, not every element.  Rows hold 16 int8 columns a lane, and a group is
 // as many rows as K4's, so a K5 warp keeps K4's bytes in flight.
 //
+// head_dim 80 (zamba2's shared attention block, 32 heads over 32 KV heads)
+// is built for K4 and K5 at G = 1: a row of 80 columns splits over 8 lanes of
+// 10 bf16 columns (16 of 5 f32, 4 of 20 int8), 20 bytes a lane at a 4-byte
+// boundary, so a warp load covers 4 bf16 rows and the group sums stay
+// shuffle trees; the in-block merge and the split layout (acc [.., hd], one
+// thread a column) hold at any hd.  No path pages a head_dim-80 cache, so
+// K1 keeps 64, 128 and 256.
+//
 // What the H100 showed (PERF.md §6): with one block per (slot, head) and
 // rows loaded only after the last group was folded in, each warp's walk was
 // a latency-bound chain (2.2 ms against a 0.64 ms bound at 8 x 32k rows).
@@ -102,17 +110,30 @@ enum { kPaged = 0, kContiguous = 1, kInt8 = 2 };
 // The largest power of two <= n (n >= 1).
 __host__ __device__ constexpr int floor_pow2(int n) { return n >= 2 ? 2 * floor_pow2(n / 2) : 1; }
 
-// Columns a lane owns: 16 bytes of the cache's dtype, at least hd / 32 (a
-// row fits one warp) and at most what keeps G * D per-lane values of q and
-// the accumulator in registers.  The register share 16 / G is rounded down
-// to a power of two (4 at G = 3, 2 at G = 7), so that D divides HD and a
-// row's lanes are a power of two: the group sums are shuffle trees.
+// Columns a lane owns.  head_dim a power of two: 16 bytes of the cache's
+// dtype, at least hd / 32 (a row fits one warp) and at most what keeps
+// G * D per-lane values of q and the accumulator in registers.  The register
+// share 16 / G is rounded down to a power of two (4 at G = 3, 2 at G = 7),
+// so that D divides HD and a row's lanes are a power of two: the group sums
+// are shuffle trees.  Any other head_dim (80: zamba2's shared block, G = 1):
+// the fewest columns of at least a 16-byte vector that still split a row
+// over a power of two of lanes, D = HD / 2^k (80 -> 10 bf16 columns over 8
+// lanes, 5 f32 over 16, 20 int8 over 4).  Such a lane's 20 bytes sit at a
+// 4-byte boundary and load as five 32-bit words (Vec's alignment).
+__host__ __device__ constexpr bool is_pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
+
 template <int G, int HD, int KvBytes>
 __host__ __device__ constexpr int cols_per_lane() {
   constexpr int vec = 16 / KvBytes;
-  constexpr int regs = floor_pow2(16 / G);
-  constexpr int d = vec < regs ? vec : regs;
-  return d > HD / 32 ? d : HD / 32;
+  if constexpr (is_pow2(HD)) {
+    constexpr int regs = floor_pow2(16 / G);
+    constexpr int d = vec < regs ? vec : regs;
+    return d > HD / 32 ? d : HD / 32;
+  } else {
+    int d = HD;
+    while (d % 2 == 0 && d / 2 >= vec) d /= 2;
+    return d;
+  }
 }
 
 // Warps per block: 12 at G = 1 (dsv2-lite's shape), where the launch bound
@@ -146,10 +167,15 @@ struct Args {
   float scale, logit_cap;
 };
 
+// The largest power of two dividing n (n >= 1).
+__host__ __device__ constexpr int low_pow2(int n) { return n & -n; }
+
 // D consecutive values of one lane's columns of a row, loaded as one
-// vector: the wrapper checks that the cache is aligned to 32 bytes.
+// vector (as words of its alignment, the largest power of two dividing its
+// size: all of it for a power-of-two head_dim, 4 bytes at head_dim 80): the
+// wrapper checks that the cache is aligned to 32 bytes.
 template <typename T, int D>
-struct alignas(sizeof(T) * D) Vec {
+struct alignas(low_pow2(sizeof(T) * D)) Vec {
   T v[D];
 };
 
@@ -192,7 +218,8 @@ struct PlainLoad {  // K1, K4: K and V in q's dtype
   __device__ __forceinline__ static float vs(const Raw&) { return 1.f; }
 };
 
-// D int8 values as words: 4 a word, or one 16-bit word where D = 2
+// D int8 values as words: 4 a word (D a multiple of 4: 16 at a power-of-two
+// head_dim, 20 at 80), or one 16-bit word where D = 2
 template <int D>
 using I8Words = Vec<typename std::conditional<(D >= 4), uint32_t, uint16_t>::type,
                     D >= 4 ? D / 4 : 1>;
@@ -468,10 +495,19 @@ void launch_one(const dim3& grid, cudaStream_t st, const Args& a) {
   decode_attention_kernel<Kind, T, G, HD><<<grid, threads_for<Kind, T, G, HD>(), 0, st>>>(a);
 }
 
+// head_dim 80 is built for K4 and K5 at G = 1 only (zamba2's shared block,
+// 32 heads over 32, contiguous caches); the wrapper refuses the rest
 template <int Kind, typename T, int G>
 int launch_d(int hd, const dim3& grid, cudaStream_t st, const Args& a) {
   switch (hd) {
     case 64: launch_one<Kind, T, G, 64>(grid, st, a); break;
+    case 80:
+      if constexpr (G == 1 && Kind != kPaged) {
+        launch_one<Kind, T, G, 80>(grid, st, a);
+        break;
+      } else {
+        return (int)cudaErrorInvalidValue;
+      }
     case 128: launch_one<Kind, T, G, 128>(grid, st, a); break;
     case 256: launch_one<Kind, T, G, 256>(grid, st, a); break;
     default: return (int)cudaErrorInvalidValue;

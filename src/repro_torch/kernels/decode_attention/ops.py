@@ -26,6 +26,9 @@ from repro_torch.kernels import cuda
 NEG_INF = -1.0e30  # the reference kernel's mask constant (kernel.py:25)
 KERNEL_GROUPS = (1, 2, 3, 4, 7, 8)  # template instances of csrc/decode_attention.cu
 KERNEL_HEAD_DIMS = (64, 128, 256)
+# K4 and K5 also at head_dim 80 for one query head per KV head (zamba2's
+# shared block); K1 has no such instance
+CONTIGUOUS_ONLY = {80: (1,)}
 _ALIGN = 32  # bytes: a lane loads its head_dim columns of a row as one vector
 _K1_ARGS = [cuda.PTR] * 7 + [cuda.INT] * 8 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
 _K4_ARGS = [cuda.PTR] * 6 + [cuda.INT] * 7 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
@@ -180,13 +183,20 @@ def _num_sms(device: torch.device) -> int:
     return _SMS[i]
 
 
-def _check_launch(what: str, q: torch.Tensor, nkv: int, tensors) -> int:
-    """Checks shared by the three launchers; returns the kernel's dtype code."""
+def _check_launch(what: str, q: torch.Tensor, nkv: int, tensors, contiguous: bool = True) -> int:
+    """Checks shared by the three launchers; returns the kernel's dtype code.
+    ``contiguous`` launchers (K4, K5) also take :data:`CONTIGUOUS_ONLY`'s
+    head_dims at their groups."""
     B, nh, hd = q.shape
-    if nh % nkv or nh // nkv not in KERNEL_GROUPS or hd not in KERNEL_HEAD_DIMS:
+    G = nh // nkv if nh % nkv == 0 else 0
+    built = G in KERNEL_GROUPS and hd in KERNEL_HEAD_DIMS
+    if contiguous and hd in CONTIGUOUS_ONLY:
+        built = G in CONTIGUOUS_ONLY[hd]
+    if not built:
+        extra = f", or (head_dim: groups) {CONTIGUOUS_ONLY}" if contiguous else ""
         raise ValueError(
             f"{what}: the kernel is built for query heads per KV head in {KERNEL_GROUPS} and "
-            f"head_dim in {KERNEL_HEAD_DIMS}, got nh={nh}, nkv={nkv}, hd={hd}"
+            f"head_dim in {KERNEL_HEAD_DIMS}{extra}, got nh={nh}, nkv={nkv}, hd={hd}"
         )
     cuda.check_tensors(tensors, q.device)
     for name, t in tensors.items():
@@ -247,7 +257,7 @@ def paged_decode_attention(
     code = _check_launch(
         "paged_decode_attention", q, nkv,
         {"q": q, "k_pages": k_pages, "v_pages": v_pages, "block_tables": block_tables,
-         "lengths": lengths},
+         "lengths": lengths}, contiguous=False,
     )
     n_split, cps, part = _split_launch(q, nkv, nblk * ps, ps)
     out = torch.empty_like(q)

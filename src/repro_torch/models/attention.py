@@ -89,18 +89,22 @@ def attention_decode(
     cache_v: torch.Tensor,
     cache_index: torch.Tensor,  # [b] per-slot positions
     cfg,
+    window: Optional[int] = None,  # sliding window: the cache is a rolling buffer
     k_scale: Optional[torch.Tensor] = None,  # [b, S, nkv] or [P, ps, nkv] (int8 caches only)
     v_scale: Optional[torch.Tensor] = None,
     block_tables: Optional[torch.Tensor] = None,  # [b, nblk] int32 (paged)
 ):
     """One-token decode (``attention.py:334``, per-slot vector index).  The
     new K/V row is written in place at each slot's position (into page
-    ``bt[b, pos // ps]`` when paged; quantised with its scale when the cache
-    is int8), then the slot attends rows ``<= pos``.
+    ``bt[b, pos // ps]`` when paged; at row ``pos % S`` of a rolling
+    window buffer of ``S`` rows; quantised with its scale when the cache is
+    int8), then the slot attends rows ``<= pos`` (every row of a rolling
+    buffer once it has wrapped: it then holds exactly the window's keys, and
+    softmax does not depend on their order).  A paged cache has no window.
 
-    On the card the read is a flash-decode kernel over ``lengths = pos + 1``
-    (the dense mask ``idx <= pos``): K1 for paged pools, K4 for a contiguous
-    cache, K5 for a contiguous int8 cache.  Paged int8 pools, and every
+    On the card the read is a flash-decode kernel over ``lengths = min(pos
+    + 1, S)`` (the dense mask ``idx <= pos``): K1 for paged pools, K4 for a
+    contiguous cache or window buffer, K5 for a contiguous int8 one.  Paged int8 pools, and every
     layout on the CPU, gather (paged), dequantise (int8) and attend densely
     as the reference does (``attention.py:425-441``); the JAX package has no
     page-indirect int8 kernel.  Returns ``(out [b, 1, d], cache_k, cache_v)``,
@@ -109,6 +113,8 @@ def attention_decode(
     paged = block_tables is not None
     quant = cache_k.dtype == torch.int8
     if paged:
+        if window is not None:
+            raise ValueError("paged KV caches do not support rolling windows")
         ps = cache_k.shape[1]
         S = block_tables.shape[1] * ps
     else:
@@ -127,14 +133,14 @@ def attention_decode(
     if paged:
         rows = (block_tables[torch.arange(b, device=x.device), pos[:, 0] // ps].long(), pos[:, 0] % ps)
     else:
-        rows = (torch.arange(b, device=x.device), pos[:, 0])
+        rows = (torch.arange(b, device=x.device), pos[:, 0] % S if window is not None else pos[:, 0])
     cache_k[rows] = k[:, 0].to(cache_k.dtype)
     cache_v[rows] = v[:, 0].to(cache_v.dtype)
     if quant:
         k_scale[rows] = ks_w[:, 0]
         v_scale[rows] = vs_w[:, 0]
     if x.device.type == "cuda" and not (paged and quant):
-        lengths = (pos[:, 0] + 1).to(torch.int32)
+        lengths = torch.clamp_max(pos[:, 0] + 1, S).to(torch.int32)
         cap = float(cfg.attn_logit_softcap or 0.0)
         q1 = q[:, 0].contiguous()
         if paged:
@@ -163,18 +169,34 @@ def attention_decode(
     return y, cache_k, cache_v
 
 
+CHUNK_THRESHOLD = 2048  # the reference's query-chunked path above this length (attention.py:84)
+Q_CHUNK = 256
+
+
+def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    """``[sq, sk]``: key ``k`` is visible from query ``q`` (causal, and inside
+    the window when there is one)."""
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    return mask
+
+
 def attention_full(
     params: Params,
     x: torch.Tensor,  # [b, s, d]
     cfg,
     positions: Optional[torch.Tensor] = None,  # [s]
+    window: Optional[int] = None,  # sliding window (dense_local layers)
     return_kv: bool = False,
 ):
     """Causal self-attention over a whole sequence (``attention.py:121``, the
-    whole-prompt prefill), full context.  Returns ``out [b, s, d]``, and the
-    post-rope ``(k, v)`` ``[b, s, nkv, hd]`` (cache-ready) with
-    ``return_kv``.  The reference attends in 256-row query blocks past 2048
-    tokens; that is a memory bound, not another function."""
+    whole-prompt prefill), within ``window`` keys when one is given.
+    Returns ``out [b, s, d]``, and the post-rope ``(k, v)`` ``[b, s, nkv,
+    hd]`` (cache-ready) with ``return_kv``.  Past 2048 tokens (a multiple of
+    256) the queries attend in blocks of 256 rows, as the reference's
+    ``_attend_qchunked`` does: each block's scores alone are live, and every
+    row's softmax is the unchunked one's."""
     b, s, _ = x.shape
     nkv = cfg.num_kv_heads
     if positions is None:
@@ -185,10 +207,16 @@ def attention_full(
     if cfg.use_rope:
         q = apply_rope(q, positions.expand(b, s), cfg.rope_theta)
         k = apply_rope(k, positions.expand(b, s), cfg.rope_theta)
-    idx = torch.arange(s, device=x.device)
-    mask = idx[None, :] <= idx[:, None]  # [s, s] causal
     qg = q.reshape(b, s, nkv, q.shape[2] // nkv, q.shape[3])
-    out = _attend(qg, k, v, mask[None, None, None], cfg.attn_logit_softcap)
+    idx = torch.arange(s, device=x.device)
+    if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
+        out = torch.cat([
+            _attend(qg[:, lo : lo + Q_CHUNK], k, v,
+                    _causal_mask(idx[lo : lo + Q_CHUNK], idx, window)[None, None, None], cfg.attn_logit_softcap)
+            for lo in range(0, s, Q_CHUNK)
+        ], dim=1)
+    else:
+        out = _attend(qg, k, v, _causal_mask(idx, idx, window)[None, None, None], cfg.attn_logit_softcap)
     y = _out_proj(out, params["wo"])
     return (y, (k, v)) if return_kv else y
 
@@ -200,11 +228,22 @@ def attention_prefill_chunk(
     cache_v: torch.Tensor,
     start,  # int: the chunk's first absolute position; or [b] tensor, one per row
     cfg,
+    window: Optional[int] = None,  # sliding window: the cache is a rolling buffer
     k_scale: Optional[torch.Tensor] = None,  # [b, S, nkv] (int8 caches only)
     v_scale: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,  # [b] valid tokens per row (vector start)
 ):
-    """Chunked prefill, full-context branches (``attention.py:174``).
+    """Chunked prefill (``attention.py:174``).
+
+    ``window`` (scalar ``start`` only; ``attention.py:256-281``): the cache
+    is a rolling buffer of ``S`` rows, row ``r`` holding the key of absolute
+    position ``r + S * floor((start - 1 - r) / S)``, the newest before the
+    chunk (negative: never written).  The chunk's queries attend those rows
+    and the chunk's own keys as a separate segment, each within the window
+    and causally; only then are the chunk's keys written, at rows ``pos %
+    S`` (written first, a chunk key could overwrite one an earlier query of
+    the same chunk still needs).  A chunk may not be longer than the
+    buffer.
 
     Scalar ``start`` (``attention.py:302-315``): the chunk's K/V land in
     place at rows ``[start, start + c)`` -- clamped to ``S - c`` as
@@ -226,6 +265,8 @@ def attention_prefill_chunk(
     nkv = cfg.num_kv_heads
     quant = cache_k.dtype == torch.int8
     vec = torch.is_tensor(start) and start.dim() == 1
+    if vec and window is not None:
+        raise ValueError("vector-start chunks require full-context layers")
     if vec and lengths is None:
         raise ValueError("vector-start chunks require per-row lengths")
     cols = torch.arange(c, device=x.device)
@@ -240,6 +281,9 @@ def attention_prefill_chunk(
     if quant:
         k, ks_q = quantize_kv(k)
         v, vs_q = quantize_kv(v)
+    if window is not None:
+        return _prefill_chunk_window(params, x, q, k, v, cache_k, cache_v, int(start), pos, window, cfg,
+                                     k_scale, v_scale, (ks_q, vs_q) if quant else None)
     if vec:
         valid = cols[None, :] < lengths.long()[:, None]  # [b, c]
         write = valid & (pos < S)
@@ -271,3 +315,39 @@ def attention_prefill_chunk(
     if quant:
         return y, cache_k, cache_v, k_scale, v_scale
     return y, cache_k, cache_v
+
+
+def _prefill_chunk_window(params, x, q, k, v, cache_k, cache_v, start: int, pos, window: int, cfg,
+                          k_scale, v_scale, chunk_scales):
+    """The window branch of :func:`attention_prefill_chunk`; ``k``/``v`` are
+    the chunk's post-rope keys (int8 with ``chunk_scales`` when the cache is
+    int8: then the chunk attends its own keys through the round trip later
+    reads see)."""
+    b, c, _ = x.shape
+    S = cache_k.shape[1]
+    nkv = cfg.num_kv_heads
+    if c > S:
+        raise ValueError(f"chunk ({c}) must not exceed the window ({S})")
+    idx = torch.arange(S, device=x.device)
+    abs_pos = idx + S * torch.div(start - 1 - idx, S, rounding_mode="floor")  # [S] key position of each row
+    cache_mask = (abs_pos[None, :] >= 0) & _causal_mask(pos, abs_pos, window)  # [c, S]
+    mask = torch.cat([cache_mask, _causal_mask(pos, pos, window)], dim=1)  # [c, S + c]
+    if chunk_scales is not None:
+        k_prev = dequantize_kv(cache_k, k_scale, x.dtype)
+        v_prev = dequantize_kv(cache_v, v_scale, x.dtype)
+        k_own = dequantize_kv(k, chunk_scales[0], x.dtype)
+        v_own = dequantize_kv(v, chunk_scales[1], x.dtype)
+    else:
+        k_prev, v_prev, k_own, v_own = cache_k, cache_v, k, v
+    qg = q.reshape(b, c, nkv, q.shape[2] // nkv, q.shape[3])
+    out = _attend(qg, torch.cat([k_prev, k_own.to(k_prev.dtype)], dim=1),
+                  torch.cat([v_prev, v_own.to(v_prev.dtype)], dim=1), mask[None, None, None], cfg.attn_logit_softcap)
+    rows = pos % S
+    cache_k[:, rows] = k.to(cache_k.dtype)
+    cache_v[:, rows] = v.to(cache_v.dtype)
+    y = _out_proj(out, params["wo"])
+    if chunk_scales is None:
+        return y, cache_k, cache_v
+    k_scale[:, rows] = chunk_scales[0]
+    v_scale[:, rows] = chunk_scales[1]
+    return y, cache_k, cache_v, k_scale, v_scale

@@ -1,29 +1,77 @@
-"""Decoder stack for the attention + FFN/MoE families (``repro.models
-.transformer``).
+"""Decoder stack for the decoder-only families (``repro.models.transformer``):
+attention + FFN/MoE layers, sliding-window layers, Mamba layers and the
+hybrid stack's Mamba layers behind a shared attention block.
 
 Parameters are ``{"embed": [V, d], "final_norm": {...}, "layers": [...]}``
-with one dict per layer; the reference's period-stacked ``lax.scan`` becomes
-a plain loop over layers.  Caches keep the reference's stacked layout
-(``kv_k``/``kv_v`` ``[L, B, S, nkv, hd]``, or ``[L, P, ps, nkv, hd]`` page
-pools plus ``block_tables``; int8 caches beside ``kv_k_scale``/``kv_v_scale``
-``[L, B, S, nkv]`` or ``[L, P, ps, nkv]``) and are updated in place.
+with one dict per layer, plus the hybrid stack's weight-tied
+``"shared_attn"`` block; the reference's period-stacked ``lax.scan`` becomes
+a plain loop over layers.  Caches keep the reference's stacked layout, one
+stack per kind (``configs.base.cache_specs``): full-attention ``kv_k``/
+``kv_v`` ``[L, B, S, nkv, hd]`` (or ``[L, P, ps, nkv, hd]`` page pools plus
+``block_tables``), the sliding-window layers' rolling ``kv_k_local``/
+``kv_v_local`` ``[L, B, W, nkv, hd]``, the shared block's ``kv_k_hybrid``/
+``kv_v_hybrid``, int8 caches beside their ``*_scale`` arrays, and the Mamba
+layers' ``ssm_state`` and ``conv_state``.  Layer ``l`` of a kind uses entry
+``i`` of its stack, ``i`` counting that kind's layers before it (the
+reference's per-period counters, ``transformer.py:451``).  Caches are
+updated in place.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import check_supported
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Params, embed_init, init_rmsnorm, rmsnorm, softcap
 from repro_torch.models.ffn import ffn, init_ffn
 
 
+def period_pattern(cfg) -> Tuple[Tuple[str, ...], int]:
+    """``(kinds within one period, number of periods)`` (``transformer.py:45``):
+    the hybrid stack's period is its shared-block interval, a local/global
+    stack's 2, every other stack's 1."""
+    kinds = cfg.layer_kinds()
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        p = cfg.hybrid_attn_every
+    elif cfg.attn_pattern == "local_global":
+        p = 2
+    else:
+        p = 1
+    if cfg.num_layers % p or kinds != kinds[:p] * (cfg.num_layers // p):
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not whole periods of {p}")
+    return kinds[:p], cfg.num_layers // p
+
+
+def layer_plan(cfg) -> List[Tuple[str, Dict[str, int]]]:
+    """Each layer's kind and its entries in the cache stacks: ``""`` (full
+    attention), ``"_local"`` (sliding window), ``"_hybrid"`` (the shared
+    block before it) and ``"ssm"`` (its Mamba state)."""
+    counters = {"": 0, "_local": 0, "_hybrid": 0, "ssm": 0}
+    plan = []
+    for kind in cfg.layer_kinds():
+        if kind in ("dense", "moe"):
+            uses = ("",)
+        elif kind == "dense_local":
+            uses = ("_local",)
+        elif kind == "ssm_hybrid":
+            uses = ("_hybrid", "ssm")
+        else:
+            uses = ("ssm",)
+        plan.append((kind, {u: counters[u] for u in uses}))
+        for u in uses:
+            counters[u] += 1
+    return plan
+
+
 def _init_layer(kind: str, cfg, gen, dtype, device) -> Params:
     d = cfg.d_model
+    if kind in ("ssm", "ssm_hybrid"):
+        return {"ln1": init_rmsnorm(d, device), "mamba": ssm_mod.init_mamba(cfg, gen, dtype, device)}
     lp = {
         "ln1": init_rmsnorm(d, device),
         "attn": attn_mod.init_attention(cfg, gen, dtype, device),
@@ -39,12 +87,17 @@ def _init_layer(kind: str, cfg, gen, dtype, device) -> Params:
 def init_params(cfg, gen: torch.Generator, device) -> Params:
     """Random weights of the reference's distributions, drawn from ``gen``."""
     check_supported(cfg)
+    period_pattern(cfg)
     dtype = cfg.torch_dtype
-    return {
+    params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
         "layers": [_init_layer(kind, cfg, gen, dtype, device) for kind in cfg.layer_kinds()],
         "final_norm": init_rmsnorm(cfg.d_model, device),
     }
+    if cfg.family == "hybrid":
+        # zamba2's shared (weight-tied) attention block: attention + dense FFN
+        params["shared_attn"] = _init_layer("dense", cfg, gen, dtype, device)
+    return params
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
@@ -59,14 +112,14 @@ def lm_head(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     return softcap(logits, cfg.final_logit_softcap)
 
 
-def attention_stage(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg):
+def attention_stage(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg, window=None):
     """ln1 -> one-token attention (in-place cache write) -> residual -> ln2.
     ``kv`` holds the layer's ``k``/``v`` caches, ``k_scale``/``v_scale``
-    when they are int8, and ``bt`` block tables when they are paged.
-    Returns ``(x_resid, h_ffn)``."""
+    when they are int8, and ``bt`` block tables when they are paged;
+    ``window`` makes them a rolling buffer.  Returns ``(x_resid, h_ffn)``."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     h = attn_mod.attention_decode(
-        lp["attn"], h, kv["k"], kv["v"], cache_index, cfg,
+        lp["attn"], h, kv["k"], kv["v"], cache_index, cfg, window=window,
         k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"), block_tables=kv.get("bt"),
     )[0]
     x = x + h
@@ -105,37 +158,42 @@ def attention_stage_verify(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg,
     return torch.cat(xs, dim=1), torch.cat(h2s, dim=1)
 
 
-def attention_stage_full(lp, x, cfg, positions=None, return_kv: bool = False):
+def attention_stage_full(lp, x, cfg, positions=None, window=None, return_kv: bool = False):
     """Whole-sequence analogue of :func:`attention_stage` (``transformer.py:210``).
     Returns ``(x_resid, h_ffn, (k, v) or None)``."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     kv = None
     if return_kv:
-        h, kv = attn_mod.attention_full(lp["attn"], h, cfg, positions=positions, return_kv=True)
+        h, kv = attn_mod.attention_full(lp["attn"], h, cfg, positions=positions, window=window, return_kv=True)
     else:
-        h = attn_mod.attention_full(lp["attn"], h, cfg, positions=positions)
+        h = attn_mod.attention_full(lp["attn"], h, cfg, positions=positions, window=window)
     x = x + h
     return x, rmsnorm(lp["ln2"], x, cfg.norm_eps), kv
 
 
-def attention_stage_chunk(lp, x, kv: Dict[str, torch.Tensor], start, cfg, lengths=None):
+def attention_stage_chunk(lp, x, kv: Dict[str, torch.Tensor], start, cfg, window=None, lengths=None):
     """Chunked-prefill analogue of :func:`attention_stage`; a vector
-    ``start`` with ``lengths`` is the batched multi-prompt chunk."""
+    ``start`` with ``lengths`` is the batched multi-prompt chunk, a
+    ``window`` the rolling buffer's chunk."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     h = attn_mod.attention_prefill_chunk(
-        lp["attn"], h, kv["k"], kv["v"], start, cfg,
+        lp["attn"], h, kv["k"], kv["v"], start, cfg, window=window,
         k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"), lengths=lengths,
     )[0]
     x = x + h
     return x, rmsnorm(lp["ln2"], x, cfg.norm_eps)
 
 
-def _layer_kv(caches: Dict[str, torch.Tensor], l: int, cfg) -> Dict[str, torch.Tensor]:
-    """Layer ``l``'s views of the stacked caches (``transformer.py:458``)."""
-    kv = {"k": caches["kv_k"][l], "v": caches["kv_v"][l]}
+def _layer_kv(caches: Dict[str, torch.Tensor], i: int, cfg, suffix: str = "") -> Dict[str, torch.Tensor]:
+    """Entry ``i`` of the ``suffix`` attention cache stack, as views
+    (``transformer.py:458``); the full-attention stack's block tables when
+    it is paged."""
+    kv = {"k": caches[f"kv_k{suffix}"][i], "v": caches[f"kv_v{suffix}"][i]}
     if cfg.kv_quant:
-        kv["k_scale"] = caches["kv_k_scale"][l]
-        kv["v_scale"] = caches["kv_v_scale"][l]
+        kv["k_scale"] = caches[f"kv_k{suffix}_scale"][i]
+        kv["v_scale"] = caches[f"kv_v{suffix}_scale"][i]
+    if suffix == "" and "block_tables" in caches:
+        kv["bt"] = caches["block_tables"]
     return kv
 
 
@@ -146,49 +204,94 @@ def moe_stage(lp, x, h, cfg, moe_ctx: Optional[Dict[str, Any]] = None):
     return x + ffn(lp["ffn"], h, cfg.ffn_activation)
 
 
-def _layer_full(kind, lp, x, cfg, positions, moe_ctx, collect: bool):
-    """One layer over a whole sequence (``transformer.py:322``, dense and
-    MoE kinds).  Returns ``(x, (k, v) or None)``."""
-    x, h2, kv = attention_stage_full(lp, x, cfg, positions, return_kv=collect)
-    return moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None), kv
+def _window(kind: str, cfg) -> Optional[int]:
+    return cfg.sliding_window if kind == "dense_local" else None
+
+
+def _layer_full(kind, lp, x, cfg, positions, shared_attn, moe_ctx, collect: bool):
+    """One layer over a whole sequence (``transformer.py:322``).  Returns
+    ``(x, cache)``; with ``collect``, ``cache`` holds ``"kv"``, the post-rope
+    ``(k, v)`` of its attention (the shared block's for ``ssm_hybrid``),
+    and for Mamba layers ``"ssm"`` (the final state) and ``"conv"`` (the
+    conv tail)."""
+    cache: Dict[str, Any] = {}
+    if kind in ("ssm", "ssm_hybrid"):
+        if kind == "ssm_hybrid":
+            x, h2, kv = attention_stage_full(shared_attn, x, cfg, positions, return_kv=collect)
+            x = moe_stage(shared_attn, x, h2, cfg)
+            if collect:
+                cache["kv"] = kv
+        y, state, tail = ssm_mod.mamba_seq(lp["mamba"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg)
+        if collect:
+            cache["ssm"], cache["conv"] = state, tail
+        return x + y, cache
+    x, h2, kv = attention_stage_full(lp, x, cfg, positions, window=_window(kind, cfg), return_kv=collect)
+    if collect:
+        cache["kv"] = kv
+    return moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None), cache
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg, extra: Optional[Dict[str, Any]] = None,
             collect_caches: bool = False):
-    """Whole-sequence pass (``transformer.py:359``) over the dense/MoE
-    stacks the port runs.  Returns ``(hidden [b, s, d], kv)``, ``kv`` a list
-    of each layer's post-rope ``(k, v)`` with ``collect_caches`` (else
-    empty).  The reference's load-balance loss (training) is not ported."""
+    """Whole-sequence pass (``transformer.py:359``).  Returns ``(hidden [b,
+    s, d], caches)``, ``caches`` a list of each layer's :func:`_layer_full`
+    cache with ``collect_caches`` (else of empty dicts).  The reference's
+    load-balance loss (training) is not ported."""
     check_supported(cfg)
     moe_ctx = (extra or {}).get("moe_ctx")
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    kvs = []
+    out = []
     for kind, lp in zip(cfg.layer_kinds(), params["layers"]):
-        x, kv = _layer_full(kind, lp, x, cfg, positions, moe_ctx, collect_caches)
-        if kv is not None:
-            kvs.append(kv)
-    return x, kvs
+        x, cache = _layer_full(kind, lp, x, cfg, positions, params.get("shared_attn"), moe_ctx, collect_caches)
+        out.append(cache)
+    return x, out
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg, cache_len: int,
             extra: Optional[Dict[str, Any]] = None):
     """Whole-prompt prefill (``transformer.py:606``): one :func:`forward`,
-    then decode-format caches ``[L, b, cache_len, nkv, hd]`` (int8 with
-    scales under ``kv_quant``, quantised once from the raw keys).  Returns
-    ``(last-token logits [b, V] f32, caches)``."""
+    then decode-format caches (``configs.base.cache_specs``): full-attention
+    and shared-block KV padded to ``cache_len`` rows, the sliding-window
+    layers' keys in their rolling layout (position ``p`` at row ``p % W``,
+    the last ``W`` positions kept), the Mamba layers' final states; int8
+    with scales under ``kv_quant``, quantised once from the raw keys.
+    Returns ``(last-token logits [b, V] f32, caches)``."""
     b, s = tokens.shape
-    x, kvs = forward(params, tokens, cfg, extra=extra, collect_caches=True)
+    x, layer_caches = forward(params, tokens, cfg, extra=extra, collect_caches=True)
     logits = lm_head(params, x[:, -1, :], cfg)
     out: Dict[str, torch.Tensor] = {}
-    for name, i in (("k", 0), ("v", 1)):
-        full = torch.stack([kv[i] for kv in kvs])  # [L, b, s, nkv, hd]
-        pad = torch.zeros((full.shape[0], b, cache_len, *full.shape[3:]), dtype=full.dtype, device=full.device)
-        pad[:, :, : min(s, cache_len)] = full[:, :, :cache_len]
-        if cfg.kv_quant:
-            out[f"kv_{name}"], out[f"kv_{name}_scale"] = attn_mod.quantize_kv(pad)
-        else:
-            out[f"kv_{name}"] = pad
+    plan = layer_plan(cfg)
+
+    def emit(suffix: str, rows: int, place) -> None:
+        kvs = [c["kv"] for (kind, uses), c in zip(plan, layer_caches) if suffix in uses]
+        if not kvs:
+            return
+        for name, i in (("k", 0), ("v", 1)):
+            full = torch.stack([kv[i] for kv in kvs])  # [n, b, s, nkv, hd]
+            buf = torch.zeros((full.shape[0], b, rows, *full.shape[3:]), dtype=full.dtype, device=full.device)
+            place(buf, full)
+            if cfg.kv_quant:
+                out[f"kv_{name}{suffix}"], out[f"kv_{name}{suffix}_scale"] = attn_mod.quantize_kv(buf)
+            else:
+                out[f"kv_{name}{suffix}"] = buf
+
+    def padded(buf, full):
+        buf[:, :, : min(s, buf.shape[2])] = full[:, :, : buf.shape[2]]
+
+    def rolling(buf, full):
+        W = buf.shape[2]
+        take = min(W, s)
+        slots = (torch.arange(take, device=full.device) + (s - take)) % W
+        buf[:, :, slots] = full[:, :, s - take :]
+
+    emit("", cache_len, padded)
+    emit("_local", min(cache_len, cfg.sliding_window or cache_len), rolling)
+    emit("_hybrid", cache_len, padded)
+    ssm = [c for (kind, uses), c in zip(plan, layer_caches) if "ssm" in uses]
+    if ssm:
+        out["ssm_state"] = torch.stack([c["ssm"] for c in ssm]).float()
+        out["conv_state"] = torch.stack([c["conv"] for c in ssm]).to(x.dtype)
     return logits, out
 
 
@@ -201,15 +304,27 @@ def decode_step(
     extra: Optional[Dict[str, Any]] = None,
 ):
     """One-token decode (``transformer.py:415``).  Returns ``(logits [b, V]
-    f32, caches)``; the caches are updated in place."""
+    f32, caches)``; the caches are updated in place.  A hybrid layer runs
+    the shared block (its own ``_hybrid`` cache entry) before its Mamba
+    block."""
     moe_ctx = (extra or {}).get("moe_ctx")
     x = embed_tokens(params, tokens, cfg)
-    bt = caches.get("block_tables")
-    for l, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
-        kv = _layer_kv(caches, l, cfg)
-        if bt is not None:
-            kv["bt"] = bt
-        x, h2 = attention_stage(lp, x, kv, cache_index, cfg)
+    for (kind, uses), lp in zip(layer_plan(cfg), params["layers"]):
+        if "_hybrid" in uses:
+            shared = params["shared_attn"]
+            x, h2 = attention_stage(shared, x, _layer_kv(caches, uses["_hybrid"], cfg, "_hybrid"), cache_index, cfg)
+            x = moe_stage(shared, x, h2, cfg)
+        if "ssm" in uses:
+            i = uses["ssm"]
+            y, conv, state = ssm_mod.mamba_step(lp["mamba"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                                                caches["conv_state"][i], caches["ssm_state"][i], cfg)
+            caches["conv_state"][i] = conv
+            caches["ssm_state"][i] = state
+            x = x + y
+            continue
+        suffix = "_local" if kind == "dense_local" else ""
+        x, h2 = attention_stage(lp, x, _layer_kv(caches, uses[suffix], cfg, suffix), cache_index, cfg,
+                                window=_window(kind, cfg))
         x = moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None)
     return lm_head(params, x[:, 0, :], cfg), caches
 
@@ -247,13 +362,16 @@ def decode_step_verify(
 
 
 def supports_chunked_prefill(cfg) -> bool:
-    """Chunked prefill covers attention + FFN/MoE stacks without windows,
-    with bf16/f32 or int8 KV -- everything the port runs so far."""
-    try:
-        check_supported(cfg)
-    except NotImplementedError:
+    """Chunked prefill covers pure attention + FFN/MoE stacks (``dense``,
+    ``dense_local``, ``moe``), with bf16/f32 or int8 KV
+    (``transformer.py:684``).  Recurrent stacks consume the prompt through a
+    state :func:`prefill_chunk` does not carry, and encoder-decoder and
+    frontend stacks need their encoder first: they take whole-prompt
+    :func:`prefill`."""
+    if cfg.encoder_layers or cfg.frontend or cfg.family in ("audio", "ssm", "hybrid"):
         return False
-    return True
+    period, _ = period_pattern(cfg)
+    return all(k in ("dense", "dense_local", "moe") for k in period)
 
 
 def prefill_chunk(
@@ -264,23 +382,30 @@ def prefill_chunk(
     cfg,
     extra: Optional[Dict[str, Any]] = None,
 ):
-    """One prompt chunk against partially filled caches (``transformer.py:705``).
+    """One prompt chunk against partially filled caches (``transformer.py:705``);
+    sliding-window layers attend and write their rolling buffers.
     Returns ``(last-token logits [b, V], caches)``, caches updated in place."""
     if not supports_chunked_prefill(cfg):
-        raise NotImplementedError(f"{cfg.name}: chunked prefill is not ported for this architecture")
+        raise ValueError(f"{cfg.name}: architecture does not support chunked prefill")
     moe_ctx = (extra or {}).get("moe_ctx")
     x = embed_tokens(params, tokens, cfg)
-    for l, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
-        kv = _layer_kv(caches, l, cfg)
-        x, h2 = attention_stage_chunk(lp, x, kv, start, cfg)
+    for (kind, uses), lp in zip(layer_plan(cfg), params["layers"]):
+        suffix = "_local" if kind == "dense_local" else ""
+        x, h2 = attention_stage_chunk(lp, x, _layer_kv(caches, uses[suffix], cfg, suffix), start, cfg,
+                                      window=_window(kind, cfg))
         x = moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None)
     return lm_head(params, x[:, -1, :], cfg), caches
 
 
 def supports_batched_prefill(cfg) -> bool:
-    """Batched multi-prompt chunks need full-context layers only
-    (``transformer.py:780``); every stack the port runs qualifies."""
-    return supports_chunked_prefill(cfg)
+    """Batched multi-prompt chunks (and the prefix cache, which shares their
+    uniform chunk grid) need full-context ``dense``/``moe`` layers only
+    (``transformer.py:780``): a rolling window stores position ``p`` at row
+    ``p % W``, so rows of different histories share no write grid."""
+    if not supports_chunked_prefill(cfg):
+        return False
+    period, _ = period_pattern(cfg)
+    return all(k in ("dense", "moe") for k in period)
 
 
 def prefill_chunk_batched(
@@ -298,7 +423,7 @@ def prefill_chunk_batched(
     ``(each row's last-valid-token logits [b, V], caches)``, caches updated
     in place."""
     if not supports_batched_prefill(cfg):
-        raise NotImplementedError(f"{cfg.name}: batched prefill is not ported for this architecture")
+        raise ValueError(f"{cfg.name}: architecture does not support batched prefill")
     moe_ctx = (extra or {}).get("moe_ctx")
     x = embed_tokens(params, tokens, cfg)
     for l, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):

@@ -158,8 +158,9 @@ class DisaggExecutor:
         if not cfg.has_moe:
             raise ValueError("disagg executor requires an MoE architecture")
         kinds = cfg.layer_kinds()
-        if cfg.encoder_layers or cfg.frontend or any(k not in ("dense", "moe") for k in kinds):
-            raise ValueError(f"disagg executor supports attention+FFN stacks only, got {sorted(set(kinds))}")
+        period, _ = transformer.period_pattern(cfg)
+        if cfg.encoder_layers or cfg.frontend or any(k not in ("dense", "moe") for k in period):
+            raise ValueError(f"disagg executor supports attention+FFN stacks only, got {period}")
         if not moe_mod.scheduler_is_single_replica(scheduler):
             raise ValueError(
                 "disagg executor requires a single-active-replica scheduler "

@@ -121,7 +121,7 @@ ADMISSION_SCHEDS = ("fifo", "priority")
 # reference options this slice does not run: name -> (values it accepts,
 # which later slice ports the rest)
 _LATER = {
-    "extra_builder": ((None,), "the other families"),
+    "extra_builder": ((None,), "the encoder-decoder and vision-patch slice"),
 }
 
 
@@ -884,21 +884,26 @@ class ServingEngine:
 
     def _chunk_sink(self, slot: int, start: int, length: int, one_caches: Dict) -> None:
         """Land one streamed prefill chunk (or a whole-prompt cache, ``length
-        == -1``) in the decode caches."""
+        == -1``) in the decode caches (``engine.py:1037``)."""
         if self.disagg is not None:
             if length < 0:
                 self.disagg.scatter_prefill(one_caches, slot)
             else:
                 self.disagg.scatter_prefill_chunk(one_caches, slot, start, length)
         elif self.paged is not None:
-            if length < 0:  # the prompt's rows as one chunk
+            if length < 0:
+                # the prompt's rows as one chunk; positionless state (Mamba
+                # states) takes the contiguous path
                 start, length = 0, self.slots.slot_req[slot].input_len
+                rest = {k: v for k, v in one_caches.items() if not k.startswith("kv_")}
+                if rest:
+                    scatter_prefill_caches(self.caches, rest, slot)
             self.caches = scatter_prefill_chunk_paged(
                 self.caches, one_caches, slot, start, length, self.paged
             )
+        elif length < 0:
+            self.caches = scatter_prefill_caches(self.caches, one_caches, slot)
         else:
-            if length < 0:  # the whole cache row
-                start, length = 0, self.cache_len
             self.caches = scatter_prefill_chunk_caches(self.caches, one_caches, slot, start, length)
 
     def _poll_prefill(self) -> None:

@@ -7,8 +7,11 @@ lost to a fault detours ``PREFILLING -> FAILED -> REQUEUED -> PREFILLING``
 at ``cache_len - 1``, a scratch row no live context reaches, so the batched
 decode runs unconditionally.
 
-Paged storage replaces the ``[L, B, S, ...]`` caches by page pools
-``[L, P, ps, ...]`` and per-slot block tables ``[B, S / ps]``.  Page 0 is the
+Paged storage replaces the full-attention ``[L, B, S, ...]`` caches by page
+pools ``[L, P, ps, ...]`` and per-slot block tables ``[B, S / ps]``; the
+rolling-window (``_local``), shared-block (``_hybrid``) and recurrent
+(``ssm_state``, ``conv_state``) caches keep the contiguous per-slot layout
+beside them, bounded as they are by the window or the state size.  Page 0 is the
 null page: unbacked table entries and parked writes land there, and every
 row read through it is masked by the position-bounded attention mask.  The
 block tables and allocator are host (numpy) state; :meth:`table_device`
@@ -200,11 +203,15 @@ def scatter_prefill_chunk_caches(
     start: int,
     length: int,
 ) -> Dict[str, torch.Tensor]:
-    """Copy rows ``[start, start + length)`` of a single-request prefill cache
-    (batch 1) into slot ``slot`` of the batched contiguous caches, in place."""
+    """Copy the rows holding prompt positions ``[start, start + length)`` of
+    a single-request prefill cache (batch 1) into slot ``slot`` of the
+    batched contiguous caches, in place (``kv_cache.py:262``): KV keys only,
+    each at :func:`chunk_rows` of its own length (a rolling buffer wraps).
+    Positionless state moves with the whole-prompt hand-off
+    (:func:`scatter_prefill_caches`)."""
     for k, v in one_caches.items():
         if k.startswith("kv_"):
-            rows = slice(start, start + length)
+            rows = torch.from_numpy(chunk_rows(v.shape[2], start, length)).to(v.device)
             batch_caches[k][:, slot, rows] = v[:, 0, rows].to(batch_caches[k].dtype)
     return batch_caches
 
@@ -595,8 +602,15 @@ class PrefixIndex:
 
 def make_paged_caches(caches: Dict[str, torch.Tensor], max_batch: int, cache_len: int,
                       page_size: int, num_pages: Optional[int] = None):
-    """Replace freshly initialised ``[L, B, S, ...]`` caches by zero page pools
-    ``[L, P, ps, ...]`` plus ``block_tables``.  Returns ``(pager, caches)``."""
+    """Replace freshly initialised full-attention ``[L, B, S, ...]`` caches
+    (:data:`PAGED_KEYS`) by zero page pools ``[L, P, ps, ...]`` plus
+    ``block_tables``; every other cache keeps its contiguous layout.
+    Returns ``(pager, caches)``."""
+    if "kv_k" not in caches:
+        raise ValueError(
+            "kv_page_size set but this architecture has no full-attention "
+            "KV cache to page (only rolling/recurrent state)"
+        )
     pager = PagedKVCache(max_batch, cache_len, page_size, num_pages)
     out = dict(caches)
     for k in PAGED_KEYS:
@@ -618,8 +632,11 @@ def scatter_prefill_chunk_paged(
     pager: PagedKVCache,
 ) -> Dict[str, torch.Tensor]:
     """Paged analogue of :func:`scatter_prefill_chunk_caches`: the chunk's
-    rows land in ``slot``'s pages (allocated on demand), in place; a page
-    another holder shares is never written."""
+    rows of the :data:`PAGED_KEYS` land in ``slot``'s pages (allocated on
+    demand), in place, and a page another holder shares is never written;
+    any other KV key (a rolling ``_local`` buffer) takes the contiguous row
+    path, its last ``S`` positions when the hand-off is longer than its
+    ``S`` rows (``kv_cache.py:808-834``)."""
     pager.ensure(slot, start + length - 1)
     pager.check_exclusive(slot, start, length)
     pages, offs = pager.rows_of(slot, start, length)
@@ -627,10 +644,16 @@ def scatter_prefill_chunk_paged(
     pages_t = torch.from_numpy(pages.astype(np.int64)).to(dev)
     offs_t = torch.from_numpy(offs.astype(np.int64)).to(dev)
     rows = slice(start, start + length)
-    for k in PAGED_KEYS:
-        if k not in one_caches:
+    for k, v in one_caches.items():
+        if not k.startswith("kv_"):
             continue
-        batch_caches[k][:, pages_t, offs_t] = one_caches[k][:, 0, rows].to(batch_caches[k].dtype)
+        if k in PAGED_KEYS:
+            batch_caches[k][:, pages_t, offs_t] = v[:, 0, rows].to(batch_caches[k].dtype)
+            continue
+        S_k = v.shape[2]
+        st, ln = (start + length - S_k, S_k) if length > S_k else (start, length)
+        own = torch.from_numpy(chunk_rows(S_k, st, ln)).to(v.device)
+        batch_caches[k][:, slot, own] = v[:, 0, own].to(batch_caches[k].dtype)
     batch_caches["block_tables"] = pager.table_device(dev)
     return batch_caches
 

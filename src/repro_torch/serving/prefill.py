@@ -13,9 +13,11 @@ parameters, and drives an admission pipeline beside the decode loop:
   :func:`repro_torch.models.model.prefill_chunk_batched` call (row by row
   what the serial path computes);
 * after every chunk its KV rows go to the engine's ``sink``, which lands them
-  in the decode caches; a stack that cannot chunk (``chunked`` false) takes
-  one whole-prompt :func:`repro_torch.models.model.prefill` call and hands
-  the whole cache over (``length == -1``);
+  in the decode caches; a stack that cannot chunk (``chunked`` false: the
+  Mamba and hybrid stacks) takes one whole-prompt
+  :func:`repro_torch.models.model.prefill` call and hands the whole cache,
+  recurrent state included, over (``length == -1``); a sliding-window
+  stack's chunk is clamped to its rolling buffer (``prefill.py:90-93``);
 * the last chunk's last-position logits give the request's first token;
 * a prefix-cache hit submits with ``start`` (the chunk-aligned tokens its
   shared pages already hold) and ``seed_caches`` (those rows' KV): the
@@ -92,6 +94,10 @@ class PrefillWorker:
         self.device = torch.device(device)  # the engine's: serves an empty pool
         self.cache_len = cache_len
         self.chunk = max(1, int(chunk))
+        if cfg.sliding_window:
+            # a windowed layer attends [cache, chunk]: a chunk longer than the
+            # rolling buffer would overwrite keys its own queries still need
+            self.chunk = min(self.chunk, min(cache_len, cfg.sliding_window))
         self.capacity = capacity
         self.prefill_time_fn = prefill_time_fn
         self.max_chunks_per_poll = max(1, int(max_chunks_per_poll))

@@ -3,6 +3,8 @@
 to both the reference (JAX) function and its port; outputs are compared here.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -67,3 +69,44 @@ def first_divergence(a, b):
         if x != y:
             return i
     return None if len(a) == len(b) else min(len(a), len(b))
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_rows_bitwise(total: int, rows: int, widths: tuple) -> bool:
+    """Whether this host's float32 matrix product gives the first ``rows``
+    rows of a ``total``-row product bit for bit when it is given those rows
+    alone: ``x[:rows] @ w == (x @ w)[:rows]`` for every ``(K, N)`` in
+    ``widths``.  Torch's CPU GEMM picks its kernel and blocking by the row
+    count, and on some hosts a product of 1-3 rows rounds other than the
+    same rows of a 6-row product, so a sharded step can equal the unsharded
+    one bitwise on one host and only to float32 rounding on another."""
+    gen = torch.Generator().manual_seed(0)
+    for k, n in widths:
+        x = torch.randn((total, k), generator=gen)
+        w = torch.randn((k, n), generator=gen)
+        if not torch.equal(x[:rows] @ w, (x @ w)[:rows]):
+            return False
+    return True
+
+
+def matmul_widths(tree) -> tuple:
+    """The ``(K, N)`` a step may multiply by, from a parameter tree: each
+    weight of two or more axes split after its first axis and before its
+    last (``[d, nh, hd]`` is a ``d x nh*hd`` product, ``[nh, hd, d]`` an
+    ``nh*hd x d`` one)."""
+    out = set()
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor) and t.dim() >= 2:
+            shape = [int(n) for n in t.shape]
+            out.add((shape[0], int(np.prod(shape[1:]))))
+            out.add((int(np.prod(shape[:-1])), shape[-1]))
+
+    walk(tree)
+    return tuple(sorted(out))

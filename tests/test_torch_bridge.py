@@ -17,7 +17,7 @@ from repro_torch.models import model
 
 
 PORTED = ("dsv2-lite", "dsv2", "scaled-ds-1", "scaled-ds-2", "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
-          "yi-34b", "phi4-mini-3.8b", "gemma-7b")
+          "yi-34b", "phi4-mini-3.8b", "gemma-7b", "gemma2-2b", "falcon-mamba-7b", "zamba2-2.7b")
 
 
 @pytest.mark.parametrize("name", [n + s for n in PORTED for s in ("", "-reduced")])
@@ -31,7 +31,7 @@ def test_config_matches_reference_field_for_field(name):
     assert port.has_moe == ref.has_moe
 
 
-@pytest.mark.parametrize("name", ["gemma2-2b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("name", ["whisper-tiny", "pixtral-12b"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError):
         get_config(name)

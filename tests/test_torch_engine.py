@@ -145,13 +145,14 @@ def test_engine_paged_equals_contiguous():
 
 
 @pytest.mark.parametrize("option", [
-    dict(extra_builder=lambda batch: {}), dict(dispatch="ep"), dict(family="ssm"),
+    dict(extra_builder=lambda batch: {}), dict(dispatch="ep"), dict(frontend="vision_patches"),
 ])
 def test_engine_rejects_unported_options(option):
     """Options of the reference's engine that later slices port raise
-    instead of being ignored: ``extra_builder`` (the other families),
-    expert-parallel dispatch (SPMD) and an engine on an unported family;
-    their defaults, and the options this port runs, are accepted."""
+    instead of being ignored: ``extra_builder`` (the encoder-decoder and
+    vision-patch slice), expert-parallel dispatch (SPMD) and an engine on an
+    unported family (a vision-patch frontend); their defaults, and the
+    options this port runs, are accepted."""
     from repro_torch.models import model
 
     cfg = get_config("dsv2-lite-reduced")
@@ -161,8 +162,8 @@ def test_engine_rejects_unported_options(option):
     for ported in (dict(dispatch="einsum"), dict(dispatch="scatter"), dict(scheduler="random"),
                    dict(scheduler="token_hash")):
         ServingEngine(cfg, params, device="cpu", **ported)
-    if "family" in option:
-        cfg, option = dataclasses.replace(cfg, family=option["family"]), {}
+    if "frontend" in option:
+        cfg, option = dataclasses.replace(cfg, frontend=option["frontend"]), {}
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, params, device="cpu", **option)
 

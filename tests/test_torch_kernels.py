@@ -130,7 +130,7 @@ def _quantised(a):
     return vals.numpy(), scale.numpy()
 
 
-KV_SWEEP = [(1, 128), (2, 64), (3, 128), (4, 64), (7, 128)]  # (query heads per KV head, head_dim)
+KV_SWEEP = [(1, 128), (2, 64), (3, 128), (4, 64), (7, 128), (1, 80)]  # (query heads per KV head, head_dim)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -759,3 +759,80 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                 assert (got.float()[dead] == 0).all()
     torch.cuda.synchronize()
     assert all(cuda.LAUNCHES[n] > before[n] for n in before)
+
+
+# ---------------------------------------------------------------------------
+# head_dim 80 (zamba2's shared block) and the rolling window buffer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("what,nh,nkv,contiguous", [
+    ("paged_decode_attention", 32, 32, False),  # K1 has no head_dim-80 instance
+    ("decode_attention", 64, 32, True),  # K4 at head_dim 80 only for G 1
+    ("decode_attention_int8", 96, 32, True),
+])
+def test_launchers_refuse_unbuilt_head_dim_80(what, nh, nkv, contiguous):
+    """An unbuilt (G, head_dim) raises before anything launches; nothing
+    falls back to the plain version."""
+    from repro_torch.kernels.decode_attention import ops
+
+    with pytest.raises(ValueError, match="built for"):
+        ops._check_launch(what, torch.zeros((2, nh, 80)), nkv, {}, contiguous=contiguous)
+
+
+def test_decode_plain_over_wrapped_rolling_buffer():
+    """K4's plain version over a wrapped rolling buffer (``valid_len = W``,
+    row ``p % W`` holding position ``p``) equals it over the same keys in
+    position order, and a window attention that masks by position: softmax
+    does not depend on the rows' order."""
+    rng = np.random.default_rng(3)
+    B, nh, nkv, hd, W, pos = 2, 8, 4, 64, 24, 57
+    q, k, v = _contiguous_inputs(rng, B, nh, nkv, hd, W)
+    order = (np.arange(pos - W + 1, pos + 1)) % W  # rows of positions pos-W+1 .. pos
+    got = decode_attention(_t(q), _t(k), _t(v), W, logit_cap=50.0)
+    want = decode_attention(_t(q), _t(k[:, order]), _t(v[:, order]), W, logit_cap=50.0)
+    assert_close(got, want, TOL["f32_op"])
+    (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
+    got = decode_attention_int8(_t(q), *[_t(a) for a in (kq, vq, ks, vs)], W)
+    want = decode_attention_int8(_t(q), *[_t(a[:, order]) for a in (kq, vq, ks, vs)], W)
+    assert_close(got, want, TOL["f32_op"])
+
+
+@pytest.mark.gpu
+def test_cuda_head_dim_80_and_rolling_window(cuda_device):
+    """K4 and K5 at head_dim 80 (G 1, zamba2's shared block: 32 heads over
+    32) in f32 and bf16, softcap on and off, per-slot lengths (one past the
+    16-row chunk edge) and a split launch; K4 and K5 over a wrapped rolling
+    buffer (``valid_len = W``, gemma2's local layers: G 2, head_dim 256,
+    softcap 50), each against its plain version."""
+    dev = cuda_device
+    rng = np.random.default_rng(80)
+    before = dict(cuda.LAUNCHES)
+    cases = [(3, 32, 32, 80, 70), (8, 32, 32, 80, 512), (1, 4, 4, 80, 2048)]
+    n = 0
+    for B, nh, nkv, hd, S in cases:
+        q, k, v = _contiguous_inputs(rng, B, nh, nkv, hd, S)
+        (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
+        lens = rng.integers(1, S + 1, size=B).astype(np.int32)
+        lens[0] = min(S, 17)
+        for dtype in ("float32", "bfloat16"):
+            for cap in (0.0, 30.0):
+                args = [_t(a, dtype, dev) for a in (q, k, v)] + [_t(lens, device=dev)]
+                got = decode_attention(*args, logit_cap=cap)
+                assert_close(got, decode_attention_ref(*args, logit_cap=cap), tol_for(dtype))
+                args = [_t(q, dtype, dev)] + [_t(a, device=dev) for a in (kq, vq, ks, vs)] + [_t(lens, device=dev)]
+                got = decode_attention_int8(*args, logit_cap=cap)
+                assert_close(got, decode_attention_int8_ref(*args, logit_cap=cap), tol_for(dtype))
+                n += 1
+    B, nh, nkv, hd, W = 4, 8, 4, 256, 4096
+    q, k, v = _contiguous_inputs(rng, B, nh, nkv, hd, W)
+    (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
+    for dtype in ("float32", "bfloat16"):
+        args = [_t(a, dtype, dev) for a in (q, k, v)] + [W]
+        assert_close(decode_attention(*args, logit_cap=50.0), decode_attention_ref(*args, logit_cap=50.0),
+                     tol_for(dtype))
+        args = [_t(q, dtype, dev)] + [_t(a, device=dev) for a in (kq, vq, ks, vs)] + [W]
+        assert_close(decode_attention_int8(*args, logit_cap=50.0),
+                     decode_attention_int8_ref(*args, logit_cap=50.0), tol_for(dtype))
+    assert cuda.LAUNCHES["decode_attention"] - before["decode_attention"] == n + 2
+    assert cuda.LAUNCHES["decode_attention_int8"] - before["decode_attention_int8"] == n + 2
