@@ -37,7 +37,9 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      serves: K1, K4 and K5 at gemma2-2b's global layers (8 x 8192 rows, 8
      heads over 4 of 256, softcap 50), K4 and K5 over a wrapped 8 x 4096
      rolling buffer (valid_len = W) and at zamba2's shared block (8 x 512,
-     32 heads of 80, the head_dim-80 instances);
+     32 heads of 80, the head_dim-80 instances); then (3g) the shapes 5i
+     serves: K1, K4 and K5 at whisper-tiny's decoder (8 x 448 rows, 6 heads
+     of 64) and pixtral-12b's (8 x 2048, 32 heads over 8 of 128);
   4. reduced parity: dsv2-lite-reduced in float32 through the plain versions
      on the CPU and through the kernels on the card, same seeded weights and
      requests, for four KV layouts: paged (K1), contiguous (K4), int8
@@ -73,6 +75,11 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      (K5), falcon-mamba, zamba2 contiguous (K4) and int8 (K5), prompts past
      the 64-token window: streams and cache state CPU = card, launches
      exact, and a Mamba update lost on purpose flagged by the same limits;
+     then the encoder-decoder and vision-patch families, reduced, through
+     the engine's ``extra_builder`` (a seeded frontend stub): whisper paged,
+     contiguous, int8 contiguous and paged behind a prefill pool
+     (pipelined), pixtral paged and contiguous: streams and cache state
+     (``enc_out`` included) CPU = card, launches exact;
   5. full-width serving: dsv2-lite (27 layers, d 2048, 64 experts top-6 + 2
      shared, vocab 102400) with random bf16 weights drawn once on the card
      from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
@@ -131,10 +138,17 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      slots: gemma2-2b at 8192 rows paged (K1 global, K4 local) and int8
      contiguous (K5), with a 4090-token request whose decode wraps the
      4096-row local buffers, falcon-mamba-7b and zamba2-2.7b (K4 at hd 80)
-     contiguous, launches exact by kernel, 4 decode steps profiled;
+     contiguous, launches exact by kernel, 4 decode steps profiled; then
+     (5i) the encoder-decoder and vision-patch families whole at published
+     widths through ``extra_builder``: whisper-tiny (encoder_seq 1500,
+     8 x 448 rows) paged (K1) and int8 contiguous (K5), pixtral-12b (8 x
+     2048 rows, 256 patch rows a prompt) paged (K1), launches exact by
+     kernel, 4 decode steps profiled;
   6. the CLI: ``repro_torch.launch.serve.main`` on the card with the
      reference's defaults, then disagg paged, the dense GQA config, the
-     token-hash baseline and gemma2-2b paged, every request completed;
+     token-hash baseline, gemma2-2b paged and pixtral-12b's text-only
+     prompts (the reference's CLI passes no frontend), every request
+     completed;
   7. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
@@ -1078,6 +1092,19 @@ def main():
                          32, 32, 80, 512, rng.integers(1, 513, size=8), 0.0, ("contiguous", "int8"),
                          L=4, iters=100, plain_iters=20)
 
+    # ---- 3g. the attention kernels at the shapes phase 5i serves ----------
+    # whisper-tiny's decoder self-attention (6 heads of 64, G 1) over 8 x 448
+    # rows (Whisper's decoder context) and pixtral-12b's (32 query heads over
+    # 8 of 128, G 4) over 8 x 2048, random lengths: K1, K4 and K5 each (the
+    # encoder and the cross attention run plain PyTorch, as the reference
+    # has no kernel for them)
+    rng_3g = np.random.default_rng(23)
+    attention_shape_case("whisper-tiny: 6 heads of 64, G 1, 8 x 448, random lengths", 6, 6, 64, 448,
+                         rng_3g.integers(1, 449, size=8), 0.0, ("paged", "contiguous", "int8"),
+                         L=4, iters=100, plain_iters=20)
+    attention_shape_case("pixtral-12b: 32 heads over 8 of 128, 8 x 2048, random lengths", 32, 8, 128, 2048,
+                         rng_3g.integers(1, 2049, size=8), 0.0, ("paged", "contiguous", "int8"))
+
     # ---- 4. reduced parity: plain versions on the CPU vs kernels on the card
     attn_kernels = ("paged_decode_attention", "decode_attention", "decode_attention_int8")
     moe_kernels = ("aebs_schedule", "expert_ffn")
@@ -1685,6 +1712,19 @@ def main():
             conv, st = conv_state.clone(), ssm_state.clone()
         return y, conv, st
 
+    def frontend_builder(fcfg, where, seed=3):
+        """An ``extra_builder`` of the frontend stub of ``fcfg`` on ``where``:
+        whisper's ``encoder_frames`` or pixtral's ``patch_embeds``, 0.1 x a
+        normal f32 draw from ``seed`` (numpy, so both devices get the same
+        values), in the model dtype; None without a frontend."""
+        if not fcfg.frontend:
+            return None
+        key, n_rows = (("encoder_frames", fcfg.encoder_seq) if fcfg.encoder_layers
+                       else ("patch_embeds", fcfg.num_patch_tokens))
+        stub = 0.1 * np.random.default_rng(seed).standard_normal((1, n_rows, fcfg.d_model)).astype(np.float32)
+        t = torch.from_numpy(stub).to(where, fcfg.torch_dtype)
+        return lambda batch: {key: t[:batch]}
+
     def period_case(case, name, kv_quant, engine_kw, plant_fault=False):
         ncfg = dataclasses.replace(get_config(name), dtype="float32", kv_quant=kv_quant)
         pc = model_mod.init_params(ncfg, seed=0, device="cpu")
@@ -1693,7 +1733,8 @@ def main():
         runs = [("cpu", pc), ("cuda", pg)] + ([("cpu_planted", pc)] if plant_fault else [])
         for where, params_ in runs:
             eng = ServingEngine(ncfg, params_, max_batch=2, cache_len=128, prefill_chunk=32, scheduler="none",
-                                device=where.split("_")[0], **engine_kw)
+                                device=where.split("_")[0], extra_builder=frontend_builder(ncfg, where.split("_")[0]),
+                                **engine_kw)
             cuda.reset_launch_counts()
             if plant_fault and where != "cuda":
                 # the sound CPU run counts its Mamba calls; the planted run
@@ -1727,7 +1768,8 @@ def main():
         errs, bad = state_errs(state["cpu"], state["cuda"], float_tol)
         same = out["cpu"] == out["cuda"] and out["cpu"][1] == 4
         log({"phase": "reduced_parity_periodic", "case": case, "model": ncfg.name, "dtype": "float32",
-             "engine": dict(engine_kw), "kv_quant": kv_quant, "cpu_equal_card": same, "cache_state_err": errs,
+             "engine": {k: v for k, v in engine_kw.items() if not callable(v)}, "kv_quant": kv_quant,
+             "cpu_equal_card": same, "cache_state_err": errs,
              "float_tol": float_tol, "streams_cuda": out["cuda"][0], "launches": launches, "launches_exact": want,
              "card": card})
         if not same or wrong or bad or planted_missed:
@@ -1740,6 +1782,22 @@ def main():
     period_case("falcon_mamba", "falcon-mamba-7b-reduced", False, {})
     period_case("zamba2_contiguous", "zamba2-2.7b-reduced", False, {})
     period_case("zamba2_int8", "zamba2-2.7b-reduced", True, {}, plant_fault=True)
+
+    # the encoder-decoder and vision-patch families phase 5i serves, reduced,
+    # in float32 (CPU = card), through the engine's extra_builder (a seeded
+    # frontend stub): whisper paged (K1), contiguous (K4) and int8 (K5),
+    # pixtral (16 patch rows over each prompt's first) paged and contiguous,
+    # and whisper paged behind a prefill pool (pipelined admission, modeled
+    # clocks).  Streams equal; every cache array, ``enc_out`` included, CPU =
+    # card within 1e-4 of its largest value (int8 values within one step,
+    # floats within 2e-3 under kv_quant); launches exact
+    period_case("whisper_paged", "whisper-tiny-reduced", False, dict(kv_page_size=16))
+    period_case("whisper_contiguous", "whisper-tiny-reduced", False, {})
+    period_case("whisper_int8_contiguous", "whisper-tiny-reduced", True, {})
+    period_case("whisper_paged_pipelined", "whisper-tiny-reduced", False,
+                dict(kv_page_size=16, n_prefill=1, step_time_fn=lambda n: 2e-3, prefill_time_fn=lambda n: 1e-4 * n))
+    period_case("pixtral_paged", "pixtral-12b-reduced", False, dict(kv_page_size=16))
+    period_case("pixtral_contiguous", "pixtral-12b-reduced", False, {})
 
     del p_gpu, d_gpu
 
@@ -2525,13 +2583,15 @@ def main():
                      ("priority_mono_paged", cfg, dict(bkw, sched="priority"), None)]
     # phase 5f's self-draft runs on their own traffic, one profiled call a
     # verify step with its draft forwards, from the second (the first
-    # rebuilds every slot's draft cache)
+    # rebuilds every slot's draft cache); 4 of them (each costs 8-15 s of
+    # host time under the profiler, and device time a verify step varies by
+    # under 1%)
     profile_runs += [("spec_a_self_k3", cfg, dict(paged_kw, **self_k3), None),
                      ("spec_b_self_k3", cfg, dict(disagg_kw, **self_k3), None)]
     profile_reqs = {"prefix_mono_paged": prefix_requests, "priority_mono_paged": priority_requests,
                     "spec_a_self_k3": lambda: make_requests(2, 12, 16, 48, 16, 32),
                     "spec_b_self_k3": lambda: make_requests(2, 12, 16, 48, 16, 32)}
-    profile_decode_steps = {"priority_mono_paged": 12, "spec_a_self_k3": 8, "spec_b_self_k3": 8}
+    profile_decode_steps = {"priority_mono_paged": 12, "spec_a_self_k3": 4, "spec_b_self_k3": 4}
     profile_skip = {"spec_a_self_k3": 1, "spec_b_self_k3": 1}
     served["autoscaled_before"] = {"step_ms": wall_ms["before"], "ttft_ms": half_metrics(first)["ttft_ms_mean"]}
     served["autoscaled_after"] = {"step_ms": wall_ms["after"], "ttft_ms": half_metrics(second)["ttft_ms_mean"]}
@@ -2749,7 +2809,8 @@ def main():
             if kw_["scheduler"] != "aebs":
                 want["aebs_schedule"] = 0
         wrong = {n: launches[n] for n in want if launches[n] != want[n]}
-        info = {"phase": "serve_config" if phase == "5g" else "serve_family", "run": what, "card": card,
+        info = {"phase": {"5g": "serve_config", "5h": "serve_family", "5i": "serve_frontend"}[phase], "run": what,
+                "card": card,
                 "model": run_cfg.name,
                 "reduced": {"num_layers": [run_cfg.num_layers, REGISTRY[run_cfg.name].num_layers]}
                 if run_cfg.num_layers != REGISTRY[run_cfg.name].num_layers else {},
@@ -2827,42 +2888,79 @@ def main():
     # crosses position 4096 so that its local buffers wrap: paged (K1 for
     # the global layers, K4 for the local buffers) and contiguous int8 (K5
     # for both); falcon-mamba (no attention kernel) and zamba2 (K4 at hd 80)
-    # contiguous at 512 rows.  Launches exact by kernel; each model freed
-    # before the next
+    # contiguous at 512 rows.
+    # ---- 5i. the encoder-decoder and vision-patch families at full width --
+    # whisper-tiny (4 encoder + 4 decoder layers, d 384, 6 heads of 64, vocab
+    # 51865, encoder_seq 1500: 30 s of audio; the reference stubs the conv /
+    # mel frontend, so the frames are a seeded draw) at 8 slots x 448 rows
+    # (Whisper's decoder context), paged (K1) and int8 contiguous (K5), 8
+    # requests of 4-32 prompt tokens and 32-64 outputs; pixtral-12b (40
+    # layers, d 5120, 32 query heads over 8 of 128, vocab 131072, ~11.6 B
+    # parameters) at 8 x 2048 paged (K1), 8 requests of 256 patch rows (one
+    # 1024 px tile, a seeded draw) plus 16-48 text tokens, 16 outputs.
+    # Random bf16 weights drawn on the card from seed 0, the frontend stub
+    # from seed 3 (phase 4's ``frontend_builder``), mono, whole-prompt
+    # prefill (the encoder runs inside it), every request given the one stub
+    # (``extra_builder(1)``, as in the reference).
+    # Both phases: launches exact by kernel, 4 decode steps profiled, each
+    # model freed before the next
     def long_requests(vocab):
         r = np.random.default_rng(6)
         long_req = Request(rid=8, arrival=0.0, input_len=4090, output_len=16,
                            prompt=r.integers(0, vocab, size=4090, dtype=np.int32), token_times=[])
         return [long_req] + requests_5g(vocab)
 
-    summary_5h = {}
-    for name, runs in (("gemma2-2b", (("mono paged, K1 global + K4 local", False, dict(cache_len=8192)),
-                                      ("mono contiguous int8, K5", True, dict(cache_len=8192, kv_page_size=None)))),
-                       ("falcon-mamba-7b", (("mono contiguous, no attention", False, dict(kv_page_size=None)),)),
-                       ("zamba2-2.7b", (("mono contiguous, K4 at hd 80", False, dict(kv_page_size=None)),))):
+    def frontend_requests(vocab, seed, n_lo, n_hi, out_lo, out_hi, lead=0):
+        """8 requests arriving at once: ``lead`` patch rows plus ``n_lo``-
+        ``n_hi`` prompt tokens, ``out_lo``-``out_hi`` outputs."""
+        r = np.random.default_rng(seed)
+        reqs = []
+        for i in range(8):
+            n = lead + int(r.integers(n_lo, n_hi + 1))
+            reqs.append(Request(rid=i, arrival=0.0, input_len=n, output_len=int(r.integers(out_lo, out_hi + 1)),
+                                prompt=r.integers(0, vocab, size=n, dtype=np.int32), token_times=[]))
+        return reqs
+
+    contig_kw = dict(kv_page_size=None)
+    # (phase, config, its runs: (what, kv_quant, engine options), its requests; None: phase 5g's)
+    families = (
+        ("5h", "gemma2-2b", (("mono paged, K1 global + K4 local", False, dict(cache_len=8192)),
+                             ("mono contiguous int8, K5", True, dict(cache_len=8192, **contig_kw))), long_requests),
+        ("5h", "falcon-mamba-7b", (("mono contiguous, no attention", False, contig_kw),), None),
+        ("5h", "zamba2-2.7b", (("mono contiguous, K4 at hd 80", False, contig_kw),), None),
+        ("5i", "whisper-tiny", (("mono paged, K1", False, dict(cache_len=448)),
+                                ("mono contiguous int8, K5", True, dict(cache_len=448, **contig_kw))),
+         lambda v: frontend_requests(v, 7, 4, 32, 32, 64)),
+        ("5i", "pixtral-12b", (("mono paged, K1", False, dict(cache_len=2048)),),
+         lambda v: frontend_requests(v, 8, 16, 48, 16, 16, lead=get_config("pixtral-12b").num_patch_tokens)))
+    summaries = {"5h": {}, "5i": {}}
+    for phase, name, runs, reqs_of in families:
         base_cfg = get_config(name)
         t0 = time.perf_counter()
-        params_5h = model_mod.init_params(base_cfg, seed=0, device=dev)
+        params_fam = model_mod.init_params(base_cfg, seed=0, device=dev)
         torch.cuda.synchronize()
         log({"phase": "init_config", "model": name, "num_layers": base_cfg.num_layers,
-             "params": numel(params_5h), "seconds": time.perf_counter() - t0,
+             "encoder_layers": base_cfg.encoder_layers, "params": numel(params_fam),
+             "seconds": time.perf_counter() - t0,
              "weights_gb": (torch.cuda.memory_allocated() / 1e9) - base_gb, "card": card})
         for what, kv_quant, ekw in runs:
             run_cfg = dataclasses.replace(base_cfg, kv_quant=kv_quant)
-            reqs_fn = (lambda v=run_cfg.vocab_size: long_requests(v)) if name == "gemma2-2b" else None
-            info = serve_5g(run_cfg, params_5h, what, profile_steps=4, reqs_fn=reqs_fn, want_fn=family_launches,
-                            phase="5h", **ekw)
-            summary_5h[f"{name} {what}"] = info
+            reqs_fn = (lambda v=run_cfg.vocab_size, f=reqs_of: f(v)) if reqs_of else None
+            info = serve_5g(run_cfg, params_fam, what, profile_steps=4, reqs_fn=reqs_fn, want_fn=family_launches,
+                            phase=phase, extra_builder=frontend_builder(run_cfg, dev), **ekw)
+            summaries[phase][f"{name} {what}"] = info
             if name == "gemma2-2b" and info["decode_steps"] < 16:
                 raise AssertionError(f"phase 5h ({name}, {what}): the 4090-token request did not decode past 4096")
-        del params_5h
+        del params_fam
         gc.collect()
         torch.cuda.empty_cache()
         left = torch.cuda.memory_allocated() / 1e9
         if left > base_gb + 0.5:
-            raise AssertionError(f"phase 5h: {left:.2f} GB still allocated after {name}: {cuda_tensors_gb()}")
-    log({"phase": "serve_families_summary", "card": card,
-         "runs": {k: {f: v.get(f) for f in keys_5g + ("launches", "decode_steps")} for k, v in summary_5h.items()}})
+            raise AssertionError(f"phase {phase}: {left:.2f} GB still allocated after {name}: {cuda_tensors_gb()}")
+    for phase, line in (("5h", "serve_families_summary"), ("5i", "serve_frontends_summary")):
+        log({"phase": line, "card": card,
+             "runs": {k: {f: v.get(f) for f in keys_5g + ("ttft_ms_mean", "launches", "decode_steps")}
+                      for k, v in summaries[phase].items()}})
 
     # ---- 6. the CLI: repro_torch.launch.serve on the card ------------------
     # the reference's defaults (qwen2-moe-a2.7b, reduced, random torch
@@ -2881,7 +2979,8 @@ def main():
                   ("paged_decode_attention",)),
                  ("token_hash", ["--scheduler", "token_hash"], ("decode_attention", "expert_ffn")),
                  ("window_paged", ["--arch", "gemma2-2b", "--scheduler", "none", "--kv-page-size", "16"],
-                  ("paged_decode_attention", "decode_attention")))
+                  ("paged_decode_attention", "decode_attention")),
+                 ("vision_text_only", ["--arch", "pixtral-12b", "--scheduler", "none"], ("decode_attention",)))
     for case, argv, path in cli_cases:
         cuda.reset_launch_counts()
         out = io.StringIO()

@@ -10,7 +10,9 @@ periods (``blocks/pos{p}/...`` with a leading ``[n_periods]`` axis; period 1
 for the dense and MoE stacks, 2 for gemma2's local/global pair, 6 for
 zamba2's shared-attention period); the port keeps one dict per layer, layer
 ``l = period_index * period + p``.  The hybrid stack's weight-tied
-``shared_attn`` block crosses over as one dict.
+``shared_attn`` block crosses over as one dict; the encoder-decoder stack's
+``encoder`` (its layers stacked over a leading ``[encoder_layers]`` axis)
+becomes one dict per encoder layer, and ``enc_norm`` one dict.
 """
 
 from __future__ import annotations
@@ -44,24 +46,27 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(stacked: Dict[str, Any], n: int, device) -> List[Dict[str, Any]]:
+    """A tree stacked over a leading axis of ``n`` -> ``n`` trees."""
+    return [_map(stacked, lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device)) for i in range(n)]
+
+
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """Reference param tree (numpy leaves) -> port params."""
     blocks = tree["blocks"]
-    if "encoder" in tree:
-        raise NotImplementedError("encoder-decoder trees are not ported yet (the encoder-decoder slice)")
     period = len(blocks)
     n_periods = len(np.asarray(blocks["pos0"]["ln1"]["scale"]))
-    layers: List[Dict[str, Any]] = [
-        _map(blocks[f"pos{l % period}"], lambda a, i=l // period: tensor_from_numpy(np.asarray(a)[i], device))
-        for l in range(period * n_periods)
-    ]
+    by_pos = [_unstack(blocks[f"pos{p}"], n_periods, device) for p in range(period)]
     out = {
         "embed": tensor_from_numpy(tree["embed"], device),
-        "layers": layers,
+        "layers": [by_pos[l % period][l // period] for l in range(period * n_periods)],
         "final_norm": _map(tree["final_norm"], lambda a: tensor_from_numpy(a, device)),
     }
-    if "shared_attn" in tree:
-        out["shared_attn"] = _map(tree["shared_attn"], lambda a: tensor_from_numpy(a, device))
+    for name in ("shared_attn", "enc_norm"):
+        if name in tree:
+            out[name] = _map(tree[name], lambda a: tensor_from_numpy(a, device))
+    if "encoder" in tree:
+        out["encoder"] = _unstack(tree["encoder"], len(np.asarray(tree["encoder"]["ln1"]["scale"])), device)
     return out
 
 
@@ -84,8 +89,11 @@ def params_to_numpy(params: Dict[str, Any], period: int = 1) -> Dict[str, Any]:
         "blocks": {f"pos{p}": zip_layers(layers[p::period]) for p in range(period)},
         "final_norm": _map(params["final_norm"], tensor_to_numpy),
     }
-    if "shared_attn" in params:
-        out["shared_attn"] = _map(params["shared_attn"], tensor_to_numpy)
+    for name in ("shared_attn", "enc_norm"):
+        if name in params:
+            out[name] = _map(params[name], tensor_to_numpy)
+    if "encoder" in params:
+        out["encoder"] = zip_layers(params["encoder"])
     return out
 
 

@@ -1,11 +1,13 @@
 """Model configuration: a copy of ``repro.configs.base.ModelConfig``.
 
 The dataclass keeps every field of the reference so the two configs compare
-field for field.  The port runs the decoder-only families: ``layer_kinds``
-``dense``, ``dense_local`` (sliding window), ``moe``, ``ssm`` (Mamba) and
-``ssm_hybrid`` (Mamba after a shared attention block); encoder-decoder and
-frontend configs still raise (:func:`check_supported`).  ``cache_specs``
-mirrors the reference's ``_cache_specs`` layout.
+field for field.  ``layer_kinds`` are ``dense``, ``dense_local`` (sliding
+window), ``moe``, ``ssm`` (Mamba) and ``ssm_hybrid`` (Mamba after a shared
+attention block); a config with ``encoder_layers`` (whisper) runs its
+``dense`` decoder layers with cross attention over an encoder's output, and
+a ``vision_patches`` frontend (pixtral) splices patch embeddings over a
+prompt's first rows.  ``cache_specs`` mirrors the reference's
+``_cache_specs`` layout.
 """
 
 from __future__ import annotations
@@ -133,10 +135,10 @@ class ModelConfig:
     def param_counts(self) -> Dict[str, int]:
         """Approximate parameter counts per subsystem (``base.py:199``); the
         scaling model's memory terms read them."""
-        check_supported(self)
         d = self.d_model
         hd = self.resolved_head_dim
-        counts = dict(embed=self.vocab_size * d, attn=0, ffn=0, expert=0, ssm=0, norm=self.num_layers * 4 * d)
+        counts = dict(embed=self.vocab_size * d * (2 if self.encoder_layers else 1), attn=0, ffn=0, expert=0, ssm=0,
+                      norm=self.num_layers * 4 * d)
         attn_p = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd + self.num_heads * hd * d
         glu_mult = 3 if self.ffn_activation in ("swiglu", "geglu") else 2
         ffn_p = glu_mult * d * self.d_ff if self.d_ff else 0
@@ -160,6 +162,9 @@ class ModelConfig:
                 nh2 = self.ssm_num_heads
                 ssm_p += d * (2 * self.ssm_state + nh2) + nh2 * 2 + di
             counts["ssm"] = n_ssm * ssm_p
+        if self.encoder_layers:
+            counts["attn"] += self.encoder_layers * attn_p * 2  # self + cross, as the reference approximates
+            counts["ffn"] += self.encoder_layers * ffn_p
         return counts
 
     def bytes_per_param(self) -> int:
@@ -206,16 +211,6 @@ class ModelConfig:
         return dataclasses.replace(self, **changes)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run yet: the
-    encoder-decoder and vision-patch families."""
-    if cfg.encoder_layers or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend configs are not ported yet "
-            "(they come with the encoder-decoder and vision-patch slice)"
-        )
-
-
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """Decode-state layout of ``repro.configs.base._cache_specs``
     (``base.py:329``): per attention kind, ``kv_k{s}``/``kv_v{s}`` stacked
@@ -226,8 +221,9 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Tuple
     window) rows) and ``_hybrid`` for the shared attention block's calls
     (L = ``cache_len``); Mamba layers keep ``ssm_state`` f32 (``[n, B,
     d_inner, N]`` for Mamba-1, ``[n, B, heads, head_dim, N]`` for Mamba-2)
-    and ``conv_state`` ``[n, B, conv - 1, conv_dim]`` in the model dtype."""
-    check_supported(cfg)
+    and ``conv_state`` ``[n, B, conv - 1, conv_dim]`` in the model dtype; an
+    encoder-decoder config keeps its encoder's output ``enc_out`` ``[B,
+    encoder_seq, d_model]`` in the model dtype (batch axis 0)."""
     kinds = cfg.layer_kinds()
     hd = cfg.resolved_head_dim
     dt = cfg.torch_dtype
@@ -259,4 +255,6 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Tuple
             specs["ssm_state"] = ((n_ssm, batch, cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state),
                                   torch.float32)
         specs["conv_state"] = ((n_ssm, batch, cfg.ssm_conv - 1, cfg.conv_dim), dt)
+    if cfg.encoder_layers:
+        specs["enc_out"] = ((batch, cfg.encoder_seq, cfg.d_model), dt)
     return specs

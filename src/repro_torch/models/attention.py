@@ -1,4 +1,5 @@
-"""Grouped-query attention: one-token decode and chunked prefill
+"""Grouped-query attention: one-token decode, chunked and whole-sequence
+prefill, the encoder's bidirectional attention and cross attention
 (``repro.models.attention``).
 
 Layouts follow the reference: q proj ``[d, nh, hd]``, k/v ``[d, nkv, hd]``,
@@ -173,10 +174,13 @@ CHUNK_THRESHOLD = 2048  # the reference's query-chunked path above this length (
 Q_CHUNK = 256
 
 
-def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
-    """``[sq, sk]``: key ``k`` is visible from query ``q`` (causal, and inside
-    the window when there is one)."""
-    mask = k_pos[None, :] <= q_pos[:, None]
+def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int], causal: bool = True) -> torch.Tensor:
+    """``[sq, sk]``: key ``k`` is visible from query ``q`` (causal unless
+    ``causal`` is false, and inside the window when there is one)."""
+    if causal:
+        mask = k_pos[None, :] <= q_pos[:, None]
+    else:
+        mask = torch.ones((len(q_pos), len(k_pos)), dtype=torch.bool, device=q_pos.device)
     if window is not None:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
     return mask
@@ -188,10 +192,12 @@ def attention_full(
     cfg,
     positions: Optional[torch.Tensor] = None,  # [s]
     window: Optional[int] = None,  # sliding window (dense_local layers)
+    causal: bool = True,  # False: every query sees every key (the encoder)
     return_kv: bool = False,
 ):
-    """Causal self-attention over a whole sequence (``attention.py:121``, the
-    whole-prompt prefill), within ``window`` keys when one is given.
+    """Self-attention over a whole sequence (``attention.py:121``, the
+    whole-prompt prefill and the encoder), causal unless ``causal`` is false,
+    within ``window`` keys when one is given.
     Returns ``out [b, s, d]``, and the post-rope ``(k, v)`` ``[b, s, nkv,
     hd]`` (cache-ready) with ``return_kv``.  Past 2048 tokens (a multiple of
     256) the queries attend in blocks of 256 rows, as the reference's
@@ -212,13 +218,33 @@ def attention_full(
     if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
         out = torch.cat([
             _attend(qg[:, lo : lo + Q_CHUNK], k, v,
-                    _causal_mask(idx[lo : lo + Q_CHUNK], idx, window)[None, None, None], cfg.attn_logit_softcap)
+                    _causal_mask(idx[lo : lo + Q_CHUNK], idx, window, causal)[None, None, None],
+                    cfg.attn_logit_softcap)
             for lo in range(0, s, Q_CHUNK)
         ], dim=1)
     else:
-        out = _attend(qg, k, v, _causal_mask(idx, idx, window)[None, None, None], cfg.attn_logit_softcap)
+        out = _attend(qg, k, v, _causal_mask(idx, idx, window, causal)[None, None, None], cfg.attn_logit_softcap)
     y = _out_proj(out, params["wo"])
     return (y, (k, v)) if return_kv else y
+
+
+def attention_cross(
+    params: Params,
+    x: torch.Tensor,  # [b, sq, d]
+    kv_src: torch.Tensor,  # [b, sk, d], the encoder's output
+    cfg,
+) -> torch.Tensor:
+    """Encoder-decoder cross attention (``attention.py:157``): K/V projected
+    from ``kv_src`` on every call, no positions on them, no mask.  Plain
+    PyTorch on every device, as the reference has no kernel for it."""
+    nkv = cfg.num_kv_heads
+    q = _project(x, params["wq"])
+    k = _project(kv_src, params["wk"])
+    v = _project(kv_src, params["wv"])
+    b, sq, nh, hd = q.shape
+    mask = torch.ones((1, 1, 1, sq, kv_src.shape[1]), dtype=torch.bool, device=x.device)
+    out = _attend(q.reshape(b, sq, nkv, nh // nkv, hd), k, v, mask, cfg.attn_logit_softcap)
+    return _out_proj(out, params["wo"])
 
 
 def attention_prefill_chunk(

@@ -1,5 +1,5 @@
-"""Shared model components: norms, rotary positions, init helpers
-(``repro.models.common``).  Parameters are nested dicts of tensors."""
+"""Shared model components: norms, rotary and sinusoidal positions, init
+helpers (``repro.models.common``).  Parameters are nested dicts of tensors."""
 
 from __future__ import annotations
 
@@ -60,6 +60,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The classic sinusoidal encoding of integer ``positions``, ``[...,
+    d_model]`` f32: sin and cos interleaved (``common.py:91``)."""
+    pos = positions.float()[..., None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=positions.device)
+                    * (-math.log(10000.0) / d_model))
+    return torch.stack([torch.sin(pos * div), torch.cos(pos * div)], dim=-1).reshape(*positions.shape, d_model)
+
+
+def sinusoidal_positions(num_pos: int, d_model: int, offset: int = 0, device=None) -> torch.Tensor:
+    """The table of :func:`sinusoidal_at` over ``[offset, offset + num_pos)``,
+    ``[num_pos, d_model]`` f32 (``common.py:79``)."""
+    return sinusoidal_at(torch.arange(offset, offset + num_pos, device=device), d_model)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

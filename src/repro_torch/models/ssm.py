@@ -21,7 +21,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Params, dense_init
+from repro_torch.models.common import Params, dense_init, resolve_device
 
 
 def init_mamba(cfg, gen, dtype, device) -> Params:
@@ -56,8 +56,10 @@ def init_mamba(cfg, gen, dtype, device) -> Params:
     }
 
 
-def init_ssm_state(cfg, batch: int, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(ssm_state f32, conv_state in the model dtype)`` zeros for decode."""
+def init_ssm_state(cfg, batch: int, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ssm_state f32, conv_state in the model dtype)`` zeros for decode,
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     conv = torch.zeros((batch, cfg.ssm_conv - 1, cfg.conv_dim), dtype=cfg.torch_dtype, device=device)
     if cfg.ssm_version == 1:
         shape = (batch, cfg.d_inner, cfg.ssm_state)

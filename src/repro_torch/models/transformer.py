@@ -1,17 +1,22 @@
-"""Decoder stack for the decoder-only families (``repro.models.transformer``):
-attention + FFN/MoE layers, sliding-window layers, Mamba layers and the
-hybrid stack's Mamba layers behind a shared attention block.
+"""Decoder stack for every family (``repro.models.transformer``): attention +
+FFN/MoE layers, sliding-window layers, Mamba layers, the hybrid stack's
+Mamba layers behind a shared attention block, the encoder-decoder stack's
+layers with cross attention over an encoder's output (whisper), and patch
+embeddings spliced over a prompt's first rows (pixtral).
 
 Parameters are ``{"embed": [V, d], "final_norm": {...}, "layers": [...]}``
 with one dict per layer, plus the hybrid stack's weight-tied
-``"shared_attn"`` block; the reference's period-stacked ``lax.scan`` becomes
-a plain loop over layers.  Caches keep the reference's stacked layout, one
-stack per kind (``configs.base.cache_specs``): full-attention ``kv_k``/
+``"shared_attn"`` block and the encoder-decoder stack's ``"encoder"`` (one
+dict per encoder layer) and ``"enc_norm"``; the reference's period-stacked
+``lax.scan`` becomes a plain loop over layers.  Caches keep the reference's
+stacked layout, one stack per kind (``configs.base.cache_specs``):
+full-attention ``kv_k``/
 ``kv_v`` ``[L, B, S, nkv, hd]`` (or ``[L, P, ps, nkv, hd]`` page pools plus
 ``block_tables``), the sliding-window layers' rolling ``kv_k_local``/
 ``kv_v_local`` ``[L, B, W, nkv, hd]``, the shared block's ``kv_k_hybrid``/
 ``kv_v_hybrid``, int8 caches beside their ``*_scale`` arrays, and the Mamba
-layers' ``ssm_state`` and ``conv_state``.  Layer ``l`` of a kind uses entry
+layers' ``ssm_state`` and ``conv_state``, and the encoder's output ``enc_out``
+``[B, encoder_seq, d]`` (batch axis 0).  Layer ``l`` of a kind uses entry
 ``i`` of its stack, ``i`` counting that kind's layers before it (the
 reference's per-period counters, ``transformer.py:451``).  Caches are
 updated in place.
@@ -23,11 +28,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import check_supported
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import Params, embed_init, init_rmsnorm, rmsnorm, softcap
+from repro_torch.models.common import Params, embed_init, init_rmsnorm, rmsnorm, sinusoidal_at, softcap
 from repro_torch.models.ffn import ffn, init_ffn
 
 
@@ -47,14 +51,21 @@ def period_pattern(cfg) -> Tuple[Tuple[str, ...], int]:
     return kinds[:p], cfg.num_layers // p
 
 
+def decoder_kinds(cfg) -> Tuple[str, ...]:
+    """Each decoder layer's kind: ``cfg.layer_kinds()``, with every layer an
+    ``encdec`` one (a dense layer with cross attention) when the config has
+    an encoder (``transformer.py:103``)."""
+    return tuple("encdec" if cfg.encoder_layers else k for k in cfg.layer_kinds())
+
+
 def layer_plan(cfg) -> List[Tuple[str, Dict[str, int]]]:
     """Each layer's kind and its entries in the cache stacks: ``""`` (full
     attention), ``"_local"`` (sliding window), ``"_hybrid"`` (the shared
     block before it) and ``"ssm"`` (its Mamba state)."""
     counters = {"": 0, "_local": 0, "_hybrid": 0, "ssm": 0}
     plan = []
-    for kind in cfg.layer_kinds():
-        if kind in ("dense", "moe"):
+    for kind in decoder_kinds(cfg):
+        if kind in ("dense", "moe", "encdec"):
             uses = ("",)
         elif kind == "dense_local":
             uses = ("_local",)
@@ -72,11 +83,11 @@ def _init_layer(kind: str, cfg, gen, dtype, device) -> Params:
     d = cfg.d_model
     if kind in ("ssm", "ssm_hybrid"):
         return {"ln1": init_rmsnorm(d, device), "mamba": ssm_mod.init_mamba(cfg, gen, dtype, device)}
-    lp = {
-        "ln1": init_rmsnorm(d, device),
-        "attn": attn_mod.init_attention(cfg, gen, dtype, device),
-        "ln2": init_rmsnorm(d, device),
-    }
+    lp = {"ln1": init_rmsnorm(d, device), "attn": attn_mod.init_attention(cfg, gen, dtype, device)}
+    if kind == "encdec":
+        lp["ln_x"] = init_rmsnorm(d, device)
+        lp["xattn"] = attn_mod.init_attention(cfg, gen, dtype, device)
+    lp["ln2"] = init_rmsnorm(d, device)
     if kind == "moe":
         lp["moe"] = moe_mod.init_moe(cfg, gen, dtype, device)
     else:
@@ -86,23 +97,37 @@ def _init_layer(kind: str, cfg, gen, dtype, device) -> Params:
 
 def init_params(cfg, gen: torch.Generator, device) -> Params:
     """Random weights of the reference's distributions, drawn from ``gen``."""
-    check_supported(cfg)
     period_pattern(cfg)
     dtype = cfg.torch_dtype
     params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
-        "layers": [_init_layer(kind, cfg, gen, dtype, device) for kind in cfg.layer_kinds()],
+        "layers": [_init_layer(kind, cfg, gen, dtype, device) for kind in decoder_kinds(cfg)],
         "final_norm": init_rmsnorm(cfg.d_model, device),
     }
     if cfg.family == "hybrid":
         # zamba2's shared (weight-tied) attention block: attention + dense FFN
         params["shared_attn"] = _init_layer("dense", cfg, gen, dtype, device)
+    if cfg.encoder_layers:
+        params["encoder"] = [_init_layer("dense", cfg, gen, dtype, device) for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = init_rmsnorm(cfg.d_model, device)
     return params
 
 
-def embed_tokens(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg, extra: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Token embeddings (``transformer.py:131``), scaled by ``sqrt(d)`` except
+    for the audio family; a ``vision_patches`` config given
+    ``extra["patch_embeds"]`` ``[b, n_p, d]`` takes those rows in place of
+    the first ``n_p`` positions' (a prompt shorter than ``n_p`` raises)."""
     x = params["embed"][tokens.long()]
-    return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    if cfg.family != "audio":
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    if extra and cfg.frontend == "vision_patches" and "patch_embeds" in extra:
+        p = extra["patch_embeds"]
+        if x.shape[1] < p.shape[1]:
+            raise ValueError(f"{cfg.name}: a prompt of {x.shape[1]} tokens is shorter than its "
+                             f"{p.shape[1]} patch rows")
+        x = torch.cat([p.to(x.dtype), x[:, p.shape[1]:]], dim=1)
+    return x
 
 
 def lm_head(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -112,17 +137,54 @@ def lm_head(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     return softcap(logits, cfg.final_logit_softcap)
 
 
-def attention_stage(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg, window=None):
-    """ln1 -> one-token attention (in-place cache write) -> residual -> ln2.
-    ``kv`` holds the layer's ``k``/``v`` caches, ``k_scale``/``v_scale``
-    when they are int8, and ``bt`` block tables when they are paged;
-    ``window`` makes them a rolling buffer.  Returns ``(x_resid, h_ffn)``."""
+def run_encoder(params: Params, frames: torch.Tensor, cfg) -> torch.Tensor:
+    """frames ``[b, encoder_seq, d]`` (the stubbed conv/mel frontend's
+    output) -> the encoder's states (``transformer.py:153``): sinusoidal
+    positions, then dense layers of bidirectional attention, then
+    ``enc_norm``."""
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames + sinusoidal_at(pos, cfg.d_model).to(frames.dtype)
+    for lp in params["encoder"]:
+        x = x + attn_mod.attention_full(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg, causal=False)
+        x = x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg.ffn_activation)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _encoder_output(params: Params, cfg, extra: Optional[Dict[str, Any]]) -> Optional[torch.Tensor]:
+    """The encoder's output a decoder pass attends: ``extra["enc_out"]``, or
+    :func:`run_encoder` over ``extra["encoder_frames"]``; None without an
+    encoder (``transformer.py:379-381``)."""
+    if not cfg.encoder_layers:
+        return None
+    extra = extra or {}
+    if "enc_out" in extra:
+        return extra["enc_out"]
+    if "encoder_frames" not in extra:
+        raise ValueError(f"{cfg.name}: an encoder-decoder pass needs extra['encoder_frames'] "
+                         "(or extra['enc_out']); pass an extra_builder to the engine")
+    return run_encoder(params, extra["encoder_frames"], cfg)
+
+
+def _cross(lp, x, enc_out, cfg):
+    """ln_x -> cross attention over ``enc_out`` -> residual (no-op without
+    an encoder's output)."""
+    if enc_out is None:
+        return x
+    return x + attn_mod.attention_cross(lp["xattn"], rmsnorm(lp["ln_x"], x, cfg.norm_eps), enc_out, cfg)
+
+
+def attention_stage(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg, window=None, enc_out=None):
+    """ln1 -> one-token attention (in-place cache write) -> residual [->
+    cross attention over ``enc_out``] -> ln2.  ``kv`` holds the layer's
+    ``k``/``v`` caches, ``k_scale``/``v_scale`` when they are int8, and
+    ``bt`` block tables when they are paged; ``window`` makes them a rolling
+    buffer.  Returns ``(x_resid, h_ffn)``."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     h = attn_mod.attention_decode(
         lp["attn"], h, kv["k"], kv["v"], cache_index, cfg, window=window,
         k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"), block_tables=kv.get("bt"),
     )[0]
-    x = x + h
+    x = _cross(lp, x + h, enc_out, cfg)
     return x, rmsnorm(lp["ln2"], x, cfg.norm_eps)
 
 
@@ -158,7 +220,7 @@ def attention_stage_verify(lp, x, kv: Dict[str, torch.Tensor], cache_index, cfg,
     return torch.cat(xs, dim=1), torch.cat(h2s, dim=1)
 
 
-def attention_stage_full(lp, x, cfg, positions=None, window=None, return_kv: bool = False):
+def attention_stage_full(lp, x, cfg, positions=None, window=None, enc_out=None, return_kv: bool = False):
     """Whole-sequence analogue of :func:`attention_stage` (``transformer.py:210``).
     Returns ``(x_resid, h_ffn, (k, v) or None)``."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
@@ -167,7 +229,7 @@ def attention_stage_full(lp, x, cfg, positions=None, window=None, return_kv: boo
         h, kv = attn_mod.attention_full(lp["attn"], h, cfg, positions=positions, window=window, return_kv=True)
     else:
         h = attn_mod.attention_full(lp["attn"], h, cfg, positions=positions, window=window)
-    x = x + h
+    x = _cross(lp, x + h, enc_out, cfg)
     return x, rmsnorm(lp["ln2"], x, cfg.norm_eps), kv
 
 
@@ -208,7 +270,7 @@ def _window(kind: str, cfg) -> Optional[int]:
     return cfg.sliding_window if kind == "dense_local" else None
 
 
-def _layer_full(kind, lp, x, cfg, positions, shared_attn, moe_ctx, collect: bool):
+def _layer_full(kind, lp, x, cfg, positions, shared_attn, enc_out, moe_ctx, collect: bool):
     """One layer over a whole sequence (``transformer.py:322``).  Returns
     ``(x, cache)``; with ``collect``, ``cache`` holds ``"kv"``, the post-rope
     ``(k, v)`` of its attention (the shared block's for ``ssm_hybrid``),
@@ -225,7 +287,8 @@ def _layer_full(kind, lp, x, cfg, positions, shared_attn, moe_ctx, collect: bool
         if collect:
             cache["ssm"], cache["conv"] = state, tail
         return x + y, cache
-    x, h2, kv = attention_stage_full(lp, x, cfg, positions, window=_window(kind, cfg), return_kv=collect)
+    x, h2, kv = attention_stage_full(lp, x, cfg, positions, window=_window(kind, cfg),
+                                     enc_out=enc_out if kind == "encdec" else None, return_kv=collect)
     if collect:
         cache["kv"] = kv
     return moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None), cache
@@ -235,15 +298,20 @@ def forward(params: Params, tokens: torch.Tensor, cfg, extra: Optional[Dict[str,
             collect_caches: bool = False):
     """Whole-sequence pass (``transformer.py:359``).  Returns ``(hidden [b,
     s, d], caches)``, ``caches`` a list of each layer's :func:`_layer_full`
-    cache with ``collect_caches`` (else of empty dicts).  The reference's
+    cache with ``collect_caches`` (else of empty dicts).  The audio family
+    adds sinusoidal positions to its embeddings, and its layers attend the
+    encoder's output (:func:`_encoder_output`).  The reference's
     load-balance loss (training) is not ported."""
-    check_supported(cfg)
     moe_ctx = (extra or {}).get("moe_ctx")
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, extra)
     positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "audio":
+        x = x + sinusoidal_at(positions, cfg.d_model).to(x.dtype)
+    enc_out = _encoder_output(params, cfg, extra)
     out = []
-    for kind, lp in zip(cfg.layer_kinds(), params["layers"]):
-        x, cache = _layer_full(kind, lp, x, cfg, positions, params.get("shared_attn"), moe_ctx, collect_caches)
+    for kind, lp in zip(decoder_kinds(cfg), params["layers"]):
+        x, cache = _layer_full(kind, lp, x, cfg, positions, params.get("shared_attn"), enc_out, moe_ctx,
+                               collect_caches)
         out.append(cache)
     return x, out
 
@@ -255,9 +323,13 @@ def prefill(params: Params, tokens: torch.Tensor, cfg, cache_len: int,
     and shared-block KV padded to ``cache_len`` rows, the sliding-window
     layers' keys in their rolling layout (position ``p`` at row ``p % W``,
     the last ``W`` positions kept), the Mamba layers' final states; int8
-    with scales under ``kv_quant``, quantised once from the raw keys.
-    Returns ``(last-token logits [b, V] f32, caches)``."""
+    with scales under ``kv_quant``, quantised once from the raw keys; an
+    encoder-decoder config's ``enc_out`` beside them.  Returns ``(last-token
+    logits [b, V] f32, caches)``."""
     b, s = tokens.shape
+    enc_out = _encoder_output(params, cfg, extra)
+    if enc_out is not None:
+        extra = {**extra, "enc_out": enc_out}
     x, layer_caches = forward(params, tokens, cfg, extra=extra, collect_caches=True)
     logits = lm_head(params, x[:, -1, :], cfg)
     out: Dict[str, torch.Tensor] = {}
@@ -292,6 +364,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg, cache_len: int,
     if ssm:
         out["ssm_state"] = torch.stack([c["ssm"] for c in ssm]).float()
         out["conv_state"] = torch.stack([c["conv"] for c in ssm]).to(x.dtype)
+    if enc_out is not None:
+        out["enc_out"] = enc_out
     return logits, out
 
 
@@ -306,9 +380,13 @@ def decode_step(
     """One-token decode (``transformer.py:415``).  Returns ``(logits [b, V]
     f32, caches)``; the caches are updated in place.  A hybrid layer runs
     the shared block (its own ``_hybrid`` cache entry) before its Mamba
-    block."""
+    block.  The audio family adds each slot's sinusoidal position at its
+    ``cache_index``, and its layers attend ``caches["enc_out"]``."""
     moe_ctx = (extra or {}).get("moe_ctx")
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, extra)
+    if cfg.family == "audio":
+        x = x + sinusoidal_at(cache_index.reshape(-1), cfg.d_model).to(x.dtype)[:, None, :]
+    enc_out = caches.get("enc_out")
     for (kind, uses), lp in zip(layer_plan(cfg), params["layers"]):
         if "_hybrid" in uses:
             shared = params["shared_attn"]
@@ -324,7 +402,7 @@ def decode_step(
             continue
         suffix = "_local" if kind == "dense_local" else ""
         x, h2 = attention_stage(lp, x, _layer_kv(caches, uses[suffix], cfg, suffix), cache_index, cfg,
-                                window=_window(kind, cfg))
+                                window=_window(kind, cfg), enc_out=enc_out if kind == "encdec" else None)
         x = moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None)
     return lm_head(params, x[:, 0, :], cfg), caches
 
@@ -388,7 +466,7 @@ def prefill_chunk(
     if not supports_chunked_prefill(cfg):
         raise ValueError(f"{cfg.name}: architecture does not support chunked prefill")
     moe_ctx = (extra or {}).get("moe_ctx")
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, extra)
     for (kind, uses), lp in zip(layer_plan(cfg), params["layers"]):
         suffix = "_local" if kind == "dense_local" else ""
         x, h2 = attention_stage_chunk(lp, x, _layer_kv(caches, uses[suffix], cfg, suffix), start, cfg,
@@ -425,7 +503,7 @@ def prefill_chunk_batched(
     if not supports_batched_prefill(cfg):
         raise ValueError(f"{cfg.name}: architecture does not support batched prefill")
     moe_ctx = (extra or {}).get("moe_ctx")
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, extra)
     for l, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
         kv = _layer_kv(caches, l, cfg)
         x, h2 = attention_stage_chunk(lp, x, kv, starts, cfg, lengths=lengths)

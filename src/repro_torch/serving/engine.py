@@ -61,9 +61,15 @@ disaggregated one (``executor="disagg"``).
   accepted token on either executor, and the longest prefix that matches
   the target's argmax is accepted.  Acceptance is against the target's own
   greedy tokens, so the stream is greedy decode's whatever the draft
-  proposes; the draft moves only the tokens gained per step.
+  proposes; the draft moves only the tokens gained per step;
+* frontends (``extra_builder``): ``extra_builder(1)`` gives the tensors of a
+  frontend stub (whisper's ``encoder_frames``, pixtral's ``patch_embeds``),
+  which every prefill call gets, as in the reference (one stub shared by
+  every request).  The encoder's output lands in the slot's row of
+  ``enc_out`` beside the KV caches, and each decode step attends it.
 
-Options of the reference that later slices port raise ``NotImplementedError``.
+Expert-parallel dispatch (``dispatch="ep"``), which the SPMD slice brings,
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -118,12 +124,6 @@ SCHEDULERS = {
 # higher ``Request.priority`` first, preempting through KV spill/restore
 ADMISSION_SCHEDS = ("fifo", "priority")
 
-# reference options this slice does not run: name -> (values it accepts,
-# which later slice ports the rest)
-_LATER = {
-    "extra_builder": ((None,), "the encoder-decoder and vision-patch slice"),
-}
-
 
 @dataclasses.dataclass
 class _SpillRecord:
@@ -174,15 +174,9 @@ class ServingEngine:
         draft_config=None,  # a config that drafts tokens: speculative decode
         draft_params=None,  # default: the target's weights (self-draft) or a fresh draw
         spec_k: int = 0,  # drafts per verify step (0 with a draft_config: 2)
+        extra_builder: Optional[Callable[[int], Dict[str, torch.Tensor]]] = None,  # frontend stubs
         device="cuda",
-        **later,
     ):
-        for name, value in later.items():
-            if name not in _LATER:
-                raise TypeError(f"ServingEngine got an unexpected keyword argument {name!r}")
-            accepted, port = _LATER[name]
-            if not any(value is v or value == v for v in accepted):
-                raise NotImplementedError(f"{name}={value!r}: not ported yet (comes with {port})")
         if scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r}; choose from {sorted(SCHEDULERS)}")
         moe_mod.check_dispatch(dispatch)
@@ -308,7 +302,8 @@ class ServingEngine:
         self.prefill_worker = PrefillWorker(
             cfg, params, list(pools.prefill_devices) if pools is not None else [],
             device=self.device, cache_len=cache_len, chunk=prefill_chunk,
-            capacity=prefill_capacity_tokens, batch=prefill_batch, prefill_time_fn=worker_time_fn,
+            capacity=prefill_capacity_tokens, extra=extra_builder(1) if extra_builder else None,
+            batch=prefill_batch, prefill_time_fn=worker_time_fn,
         )
         if self.prefix_cache and self.paged is not None:
             self.prefix = PrefixIndex(self.prefill_worker.chunk, self.paged, max_pages=prefix_cache_pages)

@@ -11,7 +11,9 @@ Paged storage replaces the full-attention ``[L, B, S, ...]`` caches by page
 pools ``[L, P, ps, ...]`` and per-slot block tables ``[B, S / ps]``; the
 rolling-window (``_local``), shared-block (``_hybrid``) and recurrent
 (``ssm_state``, ``conv_state``) caches keep the contiguous per-slot layout
-beside them, bounded as they are by the window or the state size.  Page 0 is the
+beside them, bounded as they are by the window or the state size, and so
+does the encoder's output ``enc_out`` (batch axis 0, not 1, in every
+per-slot helper; a spill or restore leaves it in the slot's row).  Page 0 is the
 null page: unbacked table entries and parked writes land there, and every
 row read through it is masked by the position-bounded attention mask.  The
 block tables and allocator are host (numpy) state; :meth:`table_device`
@@ -156,7 +158,8 @@ def zero_slots(
     slots: List[int],
     paged: Optional["PagedKVCache"] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Destroy the KV rows of ``slots`` (batch axis 1), in place: a dead
+    """Destroy the KV rows of ``slots`` (batch axis 1; ``enc_out`` axis 0),
+    in place: a dead
     attention shard's rows are zeroed before re-sharding, so recovery must
     rebuild them by replay rather than read what a real failure destroyed.
     With a ``paged`` manager the page pools (:data:`PAGED_KEYS`) zero the
@@ -171,6 +174,8 @@ def zero_slots(
             pages = paged.pages_of(slots)
             if len(pages):
                 v[:, torch.from_numpy(pages).to(v.device)] = 0
+        elif k == "enc_out":
+            v[idx.to(v.device)] = 0
         else:
             v[:, idx.to(v.device)] = 0
     return batch_caches
@@ -190,9 +195,13 @@ def scatter_prefill_caches(
     slot: int,
 ) -> Dict[str, torch.Tensor]:
     """Write a single-request prefill cache (batch 1) into slot ``slot`` of
-    the batched caches (batch axis 1), in place (``kv_cache.py:204``)."""
+    the batched caches (batch axis 1; ``enc_out`` axis 0), in place
+    (``kv_cache.py:204``)."""
     for k, v in one_caches.items():
-        batch_caches[k][:, slot] = v[:, 0].to(batch_caches[k].dtype)
+        if k == "enc_out":
+            batch_caches[k][slot] = v[0].to(batch_caches[k].dtype)
+        else:
+            batch_caches[k][:, slot] = v[:, 0].to(batch_caches[k].dtype)
     return batch_caches
 
 

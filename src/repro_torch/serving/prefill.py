@@ -31,7 +31,9 @@ decode clock; the engine activates a finished request once its clock passes
 the completion stamp.  Prompts route over logical experts (no replica
 scheduling) with drop-free capacity by default: each call's own token count
 (``prefill.py:112-123``); ``capacity`` fixes it instead (the engine's
-``prefill_capacity_tokens``).
+``prefill_capacity_tokens``).  ``extra`` holds a frontend's tensors
+(``encoder_frames``, ``patch_embeds``), which every call of the worker
+passes on; each pool device keeps its own copy.
 
 Faults: ``fault_hook(slot, device index, chunk ordinal)`` (the engine's
 :meth:`repro_torch.serving.faults.FaultRuntime.prefill_hook` when a plan is
@@ -86,6 +88,7 @@ class PrefillWorker:
         cache_len: int,
         chunk: int = 64,
         capacity: Optional[int] = None,
+        extra: Optional[Dict[str, torch.Tensor]] = None,
         max_chunks_per_poll: int = 1,
         batch: int = 1,
         prefill_time_fn: Optional[Callable[[int], float]] = None,
@@ -99,6 +102,7 @@ class PrefillWorker:
             # rolling buffer would overwrite keys its own queries still need
             self.chunk = min(self.chunk, min(cache_len, cfg.sliding_window))
         self.capacity = capacity
+        self.extra = extra
         self.prefill_time_fn = prefill_time_fn
         self.max_chunks_per_poll = max(1, int(max_chunks_per_poll))
         self.chunked = model_mod.supports_chunked_prefill(cfg)
@@ -123,6 +127,7 @@ class PrefillWorker:
         devs = [torch.device(d) for d in (devices or [])] or [self.device]
         self.devices = devs
         self._params = [tree_to(params, d) for d in devs]
+        self._extras = [tree_to(self.extra or {}, d) for d in devs]
         old_busy = getattr(self, "busy_until", [])
         self.busy_until = [old_busy[i] if i < len(old_busy) else 0.0 for i in range(len(devs))]
         cur = getattr(self, "_current", None)
@@ -198,14 +203,15 @@ class PrefillWorker:
         n = len(prompt)
         if not self.chunked:
             toks = torch.from_numpy(prompt[None, :].astype(np.int64)).to(dev)
-            logits, caches = model_mod.prefill(params, toks, self.cfg, self.cache_len, extra=self._extra(n))
+            logits, caches = model_mod.prefill(params, toks, self.cfg, self.cache_len, extra=self._extra(n, 0))
             sink(slot, 0, -1, caches)
             return int(model_mod.greedy_token(logits)[0])
         caches = model_mod.init_decode_caches(self.cfg, 1, self.cache_len, dev)
         for lo in range(0, n, self.chunk):
             hi = min(lo + self.chunk, n)
             toks = torch.from_numpy(prompt[lo:hi][None, :].astype(np.int64)).to(dev)
-            logits, caches = model_mod.prefill_chunk(params, toks, caches, lo, self.cfg, extra=self._extra(hi - lo))
+            logits, caches = model_mod.prefill_chunk(params, toks, caches, lo, self.cfg,
+                                                     extra=self._extra(hi - lo, 0))
             sink(slot, lo, hi - lo, caches)
         return int(model_mod.greedy_token(logits)[0])
 
@@ -248,11 +254,13 @@ class PrefillWorker:
     def _elapsed(self, t0: float, n_tokens: int) -> float:
         return self.prefill_time_fn(n_tokens) if self.prefill_time_fn else time.perf_counter() - t0
 
-    def _extra(self, n_tokens: int) -> Optional[Dict]:
-        """Drop-free capacity unless fixed: a call's own token count."""
-        if not self.cfg.has_moe:
-            return None
-        return {"moe_ctx": {"capacity": n_tokens if self.capacity is None else self.capacity}}
+    def _extra(self, n_tokens: int, di: int) -> Optional[Dict]:
+        """Device ``di``'s frontend tensors, and the MoE context: drop-free
+        capacity unless fixed, a call's own token count."""
+        extra = dict(self._extras[di])
+        if self.cfg.has_moe:
+            extra["moe_ctx"] = {"capacity": n_tokens if self.capacity is None else self.capacity}
+        return extra or None
 
     def _init_caches(self, entry: _InFlight, dev) -> Dict[str, torch.Tensor]:
         """Fresh per-request caches; a prefix hit's seed fills rows ``[0,
@@ -276,7 +284,8 @@ class PrefillWorker:
             # whole-prompt fallback: one call on the pool device, one hand-off
             toks = torch.from_numpy(entry.prompt[None, :].astype(np.int64)).to(dev)
             t0 = time.perf_counter()
-            logits, caches = model_mod.prefill(params, toks, self.cfg, self.cache_len, extra=self._extra(n))
+            logits, caches = model_mod.prefill(params, toks, self.cfg, self.cache_len,
+                                               extra=self._extra(n, entry.dev_index))
             first = int(model_mod.greedy_token(logits)[0])  # waits for the device
             dt = self._elapsed(t0, n)
             sink(entry.slot, 0, -1, caches)
@@ -289,7 +298,7 @@ class PrefillWorker:
         toks = torch.from_numpy(entry.prompt[lo:hi][None, :].astype(np.int64)).to(dev)
         t0 = time.perf_counter()
         logits, entry.caches = model_mod.prefill_chunk(
-            params, toks, entry.caches, lo, self.cfg, extra=self._extra(hi - lo)
+            params, toks, entry.caches, lo, self.cfg, extra=self._extra(hi - lo, entry.dev_index)
         )
         first = int(model_mod.greedy_token(logits)[0])  # waits for the device
         dt = self._elapsed(t0, hi - lo)
@@ -337,7 +346,7 @@ class PrefillWorker:
             self._params[di], torch.from_numpy(toks).to(dev), stacked,
             torch.tensor(los, dtype=torch.int64, device=dev),
             torch.tensor(lens, dtype=torch.int64, device=dev), self.cfg,
-            extra=self._extra(toks.size),
+            extra=self._extra(toks.size, di),
         )
         firsts = model_mod.greedy_token(logits).cpu().numpy()  # waits for the device
         dt = self._elapsed(t0, sum(lens))

@@ -31,10 +31,22 @@ def test_config_matches_reference_field_for_field(name):
     assert port.has_moe == ref.has_moe
 
 
-@pytest.mark.parametrize("name", ["whisper-tiny", "pixtral-12b"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError):
-        get_config(name)
+@pytest.mark.parametrize("name", ["whisper-tiny-reduced", "pixtral-12b-reduced"])
+def test_frontend_family_trees_round_trip(name):
+    """The encoder-decoder tree (``encoder``, ``enc_norm``, the decoder
+    layers' ``ln_x``/``xattn``) and the vision-patch one cross both ways bit
+    for bit, with the keys of the port's own draw."""
+    ref_cfg = ref_get_config(name)
+    tree = jax.tree.map(np.asarray, ref_model.init_params(ref_cfg, 0))
+    params = bridge.params_from_jax(tree)
+    own = model.init_params(get_config(name), seed=0, device="cpu")
+    assert set(params) == set(own) and set(params["layers"][0]) == set(own["layers"][0])
+    assert ("encoder" in params) == bool(ref_cfg.encoder_layers)
+    a, b = _flatten(tree), _flatten(bridge.params_to_numpy(params))
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+        assert a[k].tobytes() == b[k].tobytes(), k
 
 
 def _flatten(tree, prefix=""):

@@ -24,7 +24,7 @@ from repro_torch.models import ffn, model
 
 NEW = ("dsv2", "scaled-ds-1", "scaled-ds-2", "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "yi-34b",
        "phi4-mini-3.8b", "gemma-7b", "gemma2-2b", "falcon-mamba-7b", "zamba2-2.7b")
-UNPORTED = ("whisper-tiny", "pixtral-12b")
+FRONTENDS = ("whisper-tiny", "pixtral-12b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -39,8 +39,8 @@ def _one_thread():
 def test_registry_is_the_references_dense_and_moe_configs():
     from repro.configs import REGISTRY as REF_REGISTRY
 
-    assert set(REGISTRY) == set(NEW) | {"dsv2-lite"}
-    assert set(REF_REGISTRY) - set(REGISTRY) == set(UNPORTED)
+    assert set(REGISTRY) == set(NEW) | set(FRONTENDS) | {"dsv2-lite"}
+    assert list(REGISTRY) == list(REF_REGISTRY)
 
 
 @pytest.mark.parametrize("name", [n + s for n in NEW + ("dsv2-lite",) for s in ("", "-reduced")])
@@ -49,10 +49,15 @@ def test_param_counts_equal_reference(name):
     assert get_config(name).kv_bytes_per_token() == ref_get_config(name).kv_bytes_per_token()
 
 
-@pytest.mark.parametrize("name", [n + s for n in UNPORTED for s in ("", "-reduced")])
-def test_unported_families_still_raise(name):
-    with pytest.raises(NotImplementedError, match="comes with the (encoder-decoder|vision-patch) slice"):
-        get_config(name)
+@pytest.mark.parametrize("name", [n + s for n in FRONTENDS for s in ("", "-reduced")])
+def test_frontend_configs_equal_reference(name):
+    """The encoder-decoder and vision-patch configs, field for field, with
+    the reference's parameter counts (the encoder's terms included)."""
+    ref, port = ref_get_config(name), get_config(name)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.layer_kinds() == ref.layer_kinds()
+    assert port.param_counts() == ref.param_counts()
+    assert port.kv_bytes_per_token() == ref.kv_bytes_per_token()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro_torch.models.model as port_model_mod
 from _torch_parity import as_f32, assert_close, first_divergence, tol_for
@@ -144,15 +145,11 @@ def test_engine_paged_equals_contiguous():
     assert runs[0] == runs[1]
 
 
-@pytest.mark.parametrize("option", [
-    dict(extra_builder=lambda batch: {}), dict(dispatch="ep"), dict(frontend="vision_patches"),
-])
+@pytest.mark.parametrize("option", [dict(dispatch="ep")])
 def test_engine_rejects_unported_options(option):
-    """Options of the reference's engine that later slices port raise
-    instead of being ignored: ``extra_builder`` (the encoder-decoder and
-    vision-patch slice), expert-parallel dispatch (SPMD) and an engine on an
-    unported family (a vision-patch frontend); their defaults, and the
-    options this port runs, are accepted."""
+    """Options of the reference's engine that a later slice ports raise
+    instead of being ignored: expert-parallel dispatch (SPMD); their
+    defaults, and the options this port runs, are accepted."""
     from repro_torch.models import model
 
     cfg = get_config("dsv2-lite-reduced")
@@ -162,10 +159,32 @@ def test_engine_rejects_unported_options(option):
     for ported in (dict(dispatch="einsum"), dict(dispatch="scatter"), dict(scheduler="random"),
                    dict(scheduler="token_hash")):
         ServingEngine(cfg, params, device="cpu", **ported)
-    if "frontend" in option:
-        cfg, option = dataclasses.replace(cfg, frontend=option["frontend"]), {}
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, params, device="cpu", **option)
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny-reduced", "pixtral-12b-reduced"])
+def test_engine_accepts_frontends(name):
+    """An engine on the encoder-decoder or vision-patch family takes an
+    ``extra_builder``: ``extra_builder(1)`` is called once and its tensors go
+    with every prefill call; two requests are served to the end."""
+    from repro_torch.models import model
+
+    cfg = get_config(name)
+    params = model.init_params(cfg, seed=0, device="cpu")
+    key, rows = ("encoder_frames", cfg.encoder_seq) if cfg.encoder_layers else ("patch_embeds", cfg.num_patch_tokens)
+    calls = []
+
+    def builder(batch):
+        calls.append(batch)
+        return {key: torch.ones((batch, rows, cfg.d_model), dtype=cfg.torch_dtype)}
+
+    eng = ServingEngine(cfg, params, max_batch=2, cache_len=64, scheduler="none", extra_builder=builder, device="cpu")
+    assert calls == [1] and set(eng.prefill_worker.extra) == {key}
+    spec = WorkloadSpec(mean_input=20, mean_output=4, vocab_size=cfg.vocab_size, max_input=24, max_output=4, seed=0)
+    reqs = [r for r in sample_requests(spec, np.zeros(4), True) if r.input_len >= cfg.num_patch_tokens][:2]
+    m = eng.run(reqs, max_steps=100)
+    assert m["completed"] == len(reqs) == 2 and calls == [1]
 
 
 @pytest.mark.parametrize("option", [

@@ -164,7 +164,7 @@ def test_supports_and_period_pattern_equal_reference():
             for fn in ("supports_chunked_prefill", "supports_batched_prefill", "supports_speculative_decode"):
                 assert getattr(model, fn)(cfg) == getattr(ref_model, fn)(ref_cfg), (name, fn)
             assert cfg.kv_bytes_per_token() == ref_cfg.kv_bytes_per_token(), name
-    assert set(REF_REGISTRY) - set(REGISTRY) == {"whisper-tiny", "pixtral-12b"}
+    assert set(REF_REGISTRY) == set(REGISTRY)
 
 
 # ---------------------------------------------------------------------------

@@ -836,3 +836,36 @@ def test_cuda_head_dim_80_and_rolling_window(cuda_device):
                      decode_attention_int8_ref(*args, logit_cap=50.0), tol_for(dtype))
     assert cuda.LAUNCHES["decode_attention"] - before["decode_attention"] == n + 2
     assert cuda.LAUNCHES["decode_attention_int8"] - before["decode_attention_int8"] == n + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,nh,nkv,hd,S", [("whisper-tiny", 6, 6, 64, 448), ("pixtral-12b", 32, 8, 128, 2048)])
+def test_cuda_frontend_family_shapes(cuda_device, family, nh, nkv, hd, S):
+    """K1, K4 and K5 at the encoder-decoder and vision-patch families'
+    decode shapes (whisper: 6 heads of 64 over 448 rows, G 1; pixtral: 32
+    query heads over 8 of 128 over 2048 rows, G 4), 8 slots at random
+    lengths (one at the cache's end, one at 1), f32 and bf16, each against
+    its plain version."""
+    dev = cuda_device
+    rng = np.random.default_rng(hd)
+    before = dict(cuda.LAUNCHES)
+    B, ps = 8, 16
+    nblk = S // ps
+    q, k, v = _contiguous_inputs(rng, B, nh, nkv, hd, S)
+    (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
+    lens = rng.integers(1, S + 1, size=B).astype(np.int32)
+    lens[0], lens[1] = S, 1
+    bt = (rng.permutation(B * nblk).reshape(B, nblk) + 1).astype(np.int32)
+    kp = np.zeros((B * nblk + 1, ps, nkv, hd), np.float32)
+    vp = np.zeros_like(kp)
+    kp[bt.reshape(-1)] = k.reshape(B * nblk, ps, nkv, hd)
+    vp[bt.reshape(-1)] = v.reshape(B * nblk, ps, nkv, hd)
+    for dtype in ("float32", "bfloat16"):
+        args = [_t(a, dtype, dev) for a in (q, kp, vp)] + [_t(bt, device=dev), _t(lens, device=dev)]
+        assert_close(paged_decode_attention(*args), paged_decode_attention_ref(*args), tol_for(dtype))
+        args = [_t(a, dtype, dev) for a in (q, k, v)] + [_t(lens, device=dev)]
+        assert_close(decode_attention(*args), decode_attention_ref(*args), tol_for(dtype))
+        args = [_t(q, dtype, dev)] + [_t(a, device=dev) for a in (kq, vq, ks, vs)] + [_t(lens, device=dev)]
+        assert_close(decode_attention_int8(*args), decode_attention_int8_ref(*args), tol_for(dtype))
+    for name in ("paged_decode_attention", "decode_attention", "decode_attention_int8"):
+        assert cuda.LAUNCHES[name] - before[name] == 2, name

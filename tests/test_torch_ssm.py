@@ -67,7 +67,7 @@ def test_init_mamba_layout_equals_reference(name, dtype):
 def test_init_ssm_state_equals_reference(name):
     ref_cfg, cfg, _, _ = _setup(name)
     want = ref_ssm.init_ssm_state(ref_cfg, 3)
-    got = ssm.init_ssm_state(cfg, 3)
+    got = ssm.init_ssm_state(cfg, 3, device="cpu")
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape and str(g.dtype).endswith(str(w.dtype))
         assert not g.any()
@@ -153,7 +153,7 @@ def test_mamba_step_equals_reference_and_continues_seq(name):
         assert_close(state, ref_state, TOL["f32_layer"])
         assert_close(tail, ref_tail, TOL["f32_op"])
     ys, want_state, _ = ssm.mamba_seq(p, torch.from_numpy(u), cfg)
-    state, conv = ssm.init_ssm_state(cfg, 2)
+    state, conv = ssm.init_ssm_state(cfg, 2, device="cpu")
     for t in range(9):
         y, conv, state = ssm.mamba_step(p, torch.from_numpy(u[:, t : t + 1]), conv, state, cfg)
         assert_close(y, ys[:, t : t + 1], TOL["f32_layer"])
