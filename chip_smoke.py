@@ -39,7 +39,9 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      rolling buffer (valid_len = W) and at zamba2's shared block (8 x 512,
      32 heads of 80, the head_dim-80 instances); then (3g) the shapes 5i
      serves: K1, K4 and K5 at whisper-tiny's decoder (8 x 448 rows, 6 heads
-     of 64) and pixtral-12b's (8 x 2048, 32 heads over 8 of 128);
+     of 64) and pixtral-12b's (8 x 2048, 32 heads over 8 of 128); then (3h)
+     K1, K3, K4 and K5 each given an input that requires grad with grad mode
+     on: the wrapper raises and launches nothing;
   4. reduced parity: dsv2-lite-reduced in float32 through the plain versions
      on the CPU and through the kernels on the card, same seeded weights and
      requests, for four KV layouts: paged (K1), contiguous (K4), int8
@@ -79,7 +81,12 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      the engine's ``extra_builder`` (a seeded frontend stub): whisper paged,
      contiguous, int8 contiguous and paged behind a prefill pool
      (pipelined), pixtral paged and contiguous: streams and cache state
-     (``enc_out`` included) CPU = card, launches exact;
+     (``enc_out`` included) CPU = card, launches exact; then the training
+     path on dsv2-lite, gemma2, falcon-mamba and whisper (a stub of its
+     encoder frames), reduced: the loss (the load-balance loss in it) and
+     every gradient leaf with remat, and params and moments after each of
+     three ``make_train_step`` steps, CPU = card within TOL["f32_layer"], no
+     kernel launched; and a checkpoint round trip on the card, bit for bit;
   5. full-width serving: dsv2-lite (27 layers, d 2048, 64 experts top-6 + 2
      shared, vocab 102400) with random bf16 weights drawn once on the card
      from a seed, AEBS over a 4 x 17-slot replica layout, 12 requests, served
@@ -143,12 +150,21 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      widths through ``extra_builder``: whisper-tiny (encoder_seq 1500,
      8 x 448 rows) paged (K1) and int8 contiguous (K5), pixtral-12b (8 x
      2048 rows, 256 patch rows a prompt) paged (K1), launches exact by
-     kernel, 4 decode steps profiled;
+     kernel, 4 decode steps profiled; then (5j) training at published
+     widths: dsv2-lite cut to 6 of its 27 layers (3.74 B parameters), bf16,
+     8 steps of ``make_train_step`` on 4 x 512 tokens of
+     ``TokenPipeline(seed=0)`` with remat: step ms (CUDA events), tokens/s,
+     device ms and ops a step (2 steps profiled) and idle share, peak
+     memory, losses, grad norms and the bound a step; finite loss and grad
+     norms, every leaf moved, peak below 80 GB, no kernel launched;
   6. the CLI: ``repro_torch.launch.serve.main`` on the card with the
      reference's defaults, then disagg paged, the dense GQA config, the
      token-hash baseline, gemma2-2b paged and pixtral-12b's text-only
      prompts (the reference's CLI passes no frontend), every request
-     completed;
+     completed; then ``python -m repro_torch.launch.train --arch dsv2-lite
+     --reduced --steps 20`` in its own process, at 4 x 64 tokens (it must
+     print the ``done:`` line) and at the default 8 x 128 (its last loss
+     must also be below its first);
   7. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
@@ -384,6 +400,11 @@ def main():
     from repro_torch.serving.kv_cache import PagedKVCache
     from repro_torch.serving.request import Request, WorkloadSpec, sample_requests, shared_prefix_spec
     from repro_torch.serving.trace import TenantSpec, TraceSpec
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+    from repro_torch.training.data import DataConfig, TokenPipeline
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32 (parity phase)
     torch.backends.cudnn.allow_tf32 = False
@@ -1105,6 +1126,41 @@ def main():
     attention_shape_case("pixtral-12b: 32 heads over 8 of 128, 8 x 2048, random lengths", 32, 8, 128, 2048,
                          rng_3g.integers(1, 2049, size=8), 0.0, ("paged", "contiguous", "int8"))
 
+    # ---- 3h. the float kernels' wrappers refuse autograd: with grad mode on
+    # and an input that requires grad, K1, K3, K4 and K5 raise before they
+    # launch (a ctypes launch's result has no grad_fn; training runs the
+    # einsum dispatch and attention_full, which reach no kernel)
+    g_rng = torch.Generator(device=dev).manual_seed(24)
+    qg = torch.randn((2, 8, 64), device=dev, generator=g_rng).requires_grad_(True)
+    kc, vc = (torch.randn((2, 32, 8, 64), device=dev, generator=g_rng) for _ in range(2))
+    (k8, ks), (v8, vs) = quantize_kv(kc), quantize_kv(vc)
+    lens = torch.tensor([32, 5], dtype=torch.int32, device=dev)
+    null_page = torch.zeros((1, 16, 8, 64), device=dev)
+    kp, vp = (torch.cat([null_page, c.reshape(4, 16, 8, 64)]) for c in (kc, vc))
+    bt = torch.arange(1, 5, dtype=torch.int32, device=dev).reshape(2, 2)
+    wg, wu = (torch.randn((4, 64, 32), device=dev, generator=g_rng) for _ in range(2))
+    wd = torch.randn((4, 32, 64), device=dev, generator=g_rng)
+    xe = torch.randn((4, 4, 64), device=dev, generator=g_rng)
+    s2e = torch.arange(4, dtype=torch.int32, device=dev)
+    refusals = {
+        "paged_decode_attention": lambda: paged_decode_attention(qg, kp, vp, bt, lens),
+        "decode_attention": lambda: decode_attention(qg, kc, vc, lens),
+        "decode_attention_int8": lambda: decode_attention_int8(qg, k8, v8, ks, vs, lens),
+        "expert_ffn": lambda: expert_ffn_grouped(xe, wg.requires_grad_(True), wu, wd, s2e, torch.ones_like(s2e)),
+    }
+    refused = {}
+    for name, call in refusals.items():
+        before = cuda.LAUNCHES[name]
+        try:
+            call()
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "no backward pass" in str(e) and cuda.LAUNCHES[name] == before
+    log({"phase": "autograd_refused", "refused": refused, "card": card})
+    if not all(refused.values()):
+        raise AssertionError(f"phase 3h: a kernel wrapper took an input that requires grad: {refused}")
+    del qg, kc, vc, k8, ks, v8, vs, kp, vp, wg, wu, wd, xe
+
     # ---- 4. reduced parity: plain versions on the CPU vs kernels on the card
     attn_kernels = ("paged_decode_attention", "decode_attention", "decode_attention_int8")
     moe_kernels = ("aebs_schedule", "expert_ffn")
@@ -1798,6 +1854,86 @@ def main():
                 dict(kv_page_size=16, n_prefill=1, step_time_fn=lambda n: 2e-3, prefill_time_fn=lambda n: 1e-4 * n))
     period_case("pixtral_paged", "pixtral-12b-reduced", False, dict(kv_page_size=16))
     period_case("pixtral_contiguous", "pixtral-12b-reduced", False, {})
+
+    # the training path, reduced, in float32 (CPU = card): dsv2-lite (MoE,
+    # the load-balance loss), gemma2 (window, softcaps), falcon-mamba (the
+    # Mamba token loop) and whisper (the encoder over a seeded stub of
+    # encoder_frames), each from the same torch weights on both sides.  The
+    # loss and every gradient leaf (remat on) within TOL["f32_layer"], then
+    # three make_train_step steps with params and moments within it after
+    # each, no kernel launched on the card; then a checkpoint round trip of
+    # the card's dsv2-lite params and state, bit for bit
+    def excess(got, want):
+        """Largest |got - want| over TOL["f32_layer"] (1 + |want|): <= 1 within
+        tolerance (atol = rtol, as tests/_torch_parity.py's assert_close)."""
+        g, w = got.detach().float().cpu(), want.detach().float().cpu()
+        return float(((g - w).abs() / (TOL["f32_layer"] * (1.0 + w.abs()))).max())
+
+    def tree_excess(a, b):
+        return max(excess(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    T_B, T_S = 2, 32
+    for name in ("dsv2-lite-reduced", "gemma2-2b-reduced", "falcon-mamba-7b-reduced", "whisper-tiny-reduced"):
+        tcfg = dataclasses.replace(get_config(name), dtype="float32")
+        pipe = TokenPipeline(DataConfig(tcfg.vocab_size, T_S, T_B, seed=0))
+        frames = None
+        if tcfg.encoder_layers:
+            frames = 0.1 * np.random.default_rng(3).standard_normal(
+                (T_B, tcfg.encoder_seq, tcfg.d_model)).astype(np.float32)
+        sides = {}
+        for where in ("cpu", "cuda"):
+            p_ = model_mod.init_params(tcfg, seed=0, device="cpu")
+            p_ = p_ if where == "cpu" else to_dev(p_)
+            extra = None if frames is None else {"encoder_frames": torch.from_numpy(frames).to(where)}
+            toks, labels = (torch.from_numpy(a).to(where) for a in pipe.batch(0))
+            cuda.reset_launch_counts()
+            leaves = tree_leaves(p_)
+            for p in leaves:
+                p.requires_grad_(True)
+            loss, aux = model_mod.loss_fn(p_, toks, labels, tcfg, extra=extra, remat=True)
+            grads = torch.autograd.grad(loss, leaves)
+            for p in leaves:
+                p.requires_grad_(False)
+            step_fn = make_train_step(tcfg, AdamWConfig(total_steps=3), extra=extra)
+            state = init_opt_state(p_)
+            steps_ = []
+            for i in range(3):
+                toks, labels = (torch.from_numpy(a).to(where) for a in pipe.batch(i))
+                p_, state, info = step_fn(p_, state, toks, labels)
+                steps_.append(([t.clone() for t in tree_leaves(p_)], [t.clone() for t in tree_leaves(state.mu)],
+                               [t.clone() for t in tree_leaves(state.nu)], {k: float(v) for k, v in info.items()}))
+            sides[where] = dict(loss=loss.detach(), lb=aux["lb_loss"].detach(), grads=grads, steps=steps_, params=p_, state=state,
+                                launches=sum(cuda.LAUNCHES.values()))
+        c, g = sides["cpu"], sides["cuda"]
+        errs = {"loss": excess(g["loss"], c["loss"]), "lb_loss": excess(g["lb"], c["lb"]),
+                "grads": tree_excess(g["grads"], c["grads"]),
+                "steps": [{"params": tree_excess(gs[0], cs[0]), "mu": tree_excess(gs[1], cs[1]),
+                           "nu": tree_excess(gs[2], cs[2])} for gs, cs in zip(g["steps"], c["steps"])]}
+        worst = max([errs["loss"], errs["lb_loss"], errs["grads"]] + [v for st in errs["steps"] for v in st.values()])
+        log({"phase": "reduced_parity_train", "model": tcfg.name, "dtype": "float32", "batch": [T_B, T_S],
+             "remat": True, "loss_cpu": float(c["loss"]), "loss_cuda": float(g["loss"]),
+             "lb_loss_cuda": float(g["lb"]), "grad_leaves": len(g["grads"]),
+             "info_cuda": [st[3] for st in g["steps"]], "info_cpu": [st[3] for st in c["steps"]],
+             "excess_over_tolerance": errs, "tolerance": TOL["f32_layer"], "launches_cuda": g["launches"],
+             "card": card})
+        if worst > 1.0 or g["launches"] or not all(np.isfinite(st[3]["loss"]) for st in g["steps"]):
+            raise AssertionError(f"phase 4 training ({tcfg.name}): the card parts from the CPU beyond "
+                                 f"TOL['f32_layer'] ({errs}) or launched {g['launches']} kernels")
+        if name == "dsv2-lite-reduced":
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as ckdir:
+                fname = save_checkpoint(ckdir, 3, g["params"], g["state"])
+                back, opt_back = load_checkpoint(latest_checkpoint(ckdir), device=dev)
+            pairs = [(g["params"], back), (g["state"].mu, opt_back["mu"]), (g["state"].nu, opt_back["nu"])]
+            exact = all(x.device == y.device and x.dtype == y.dtype and torch.equal(x, y)
+                        for a, b in pairs for x, y in zip(tree_leaves(a), tree_leaves(b)))
+            exact = exact and int(opt_back["step"]) == 3 and opt_back["step"].is_cuda
+            log({"phase": "checkpoint_round_trip", "model": tcfg.name, "file": os.path.basename(fname),
+                 "leaves": len(tree_leaves(back)), "bitwise": exact, "card": card})
+            if not exact:
+                raise AssertionError("phase 4: the checkpoint round trip on the card is not exact")
+        del sides, c, g
 
     del p_gpu, d_gpu
 
@@ -2962,6 +3098,124 @@ def main():
              "runs": {k: {f: v.get(f) for f in keys_5g + ("ttft_ms_mean", "launches", "decode_steps")}
                       for k, v in summaries[phase].items()}})
 
+    # ---- 5j. training at published widths --------------------------------
+    # dsv2-lite (d 2048, 16 heads of 128, 64 experts top-6 + 2 shared,
+    # expert width 1408, vocab 102400) cut to 6 of its 27 layers: at 12 bytes
+    # a parameter (bf16 params and grads, f32 moments) the whole model's 16.0
+    # B parameters would need 192 GB.  bf16 weights drawn on the card from
+    # seed 0, TokenPipeline(seed=0) batches of 4 x 512 tokens, remat on, 8
+    # steps of make_train_step under AdamWConfig(total_steps=8): steps 1-5
+    # timed with CUDA events (step 0 pays first-call costs), steps 6-7
+    # profiled (device ms and ops a step).  No kernel may launch: the MoE
+    # layers run the einsum dispatch, attention runs attention_full
+    from torch.profiler import ProfilerActivity, profile
+
+    TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 6, 4, 512, 8
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    if base_gb > 1.0:
+        raise AssertionError(f"phase 5j: {base_gb:.2f} GB still allocated before training: {cuda_tensors_gb()}")
+    torch.cuda.reset_peak_memory_stats()
+    jcfg = dataclasses.replace(get_config("dsv2-lite"), num_layers=TRAIN_LAYERS)
+    params_j = model_mod.init_params(jcfg, seed=0, device=dev)
+    parts = {"embed": params_j["embed"].numel(), "attention": 0, "shared_ffn": 0, "experts": 0, "router_norms": 0}
+    for lp in params_j["layers"]:
+        parts["attention"] += numel(lp["attn"])
+        parts["shared_ffn"] += numel(lp["moe"]["shared"])
+        parts["experts"] += sum(lp["moe"][k].numel() for k in ("w_gate", "w_up", "w_down"))
+        parts["router_norms"] += lp["moe"]["router"].numel() + numel(lp["ln1"]) + numel(lp["ln2"])
+    parts["router_norms"] += numel(params_j["final_norm"])
+    n_train = numel(params_j)
+    state_j = init_opt_state(params_j)
+    leaves_j = tree_leaves(params_j)
+    samples = [t.reshape(-1)[:4096].clone() for t in leaves_j]  # each leaf's first elements, to see it move
+    pipe_j = TokenPipeline(DataConfig(jcfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+    step_j = make_train_step(jcfg, AdamWConfig(total_steps=TRAIN_STEPS), remat=True)
+    tokens_n = TRAIN_B * TRAIN_S
+    # the bound a step: bytes = the optimizer's 22 B a parameter (read p, g,
+    # mu, nu; write p, mu, nu) + the bf16 weights read in the forward, the
+    # recompute and the backward (6 B) + the grads written (2 B); operations
+    # = 2 (forward) + 4 (backward) x the active parameters x tokens, + 2 for
+    # the layers' recompute, + the attention scores; the einsum dispatch's
+    # two [T.k, E, cap] one-hot products (forward, recompute, one grad each:
+    # the one-hot needs none) counted apart
+    E_j, k_j = jcfg.num_experts, jcfg.top_k
+    cap_j = moe_mod.default_capacity(tokens_n, k_j, E_j, jcfg.capacity_factor)
+    layer_active = (parts["attention"] + parts["shared_ffn"] + parts["experts"] * k_j / E_j
+                    + TRAIN_LAYERS * jcfg.d_model * E_j)
+    attn_flops = TRAIN_LAYERS * 4 * TRAIN_B * TRAIN_S * TRAIN_S * jcfg.num_heads * jcfg.resolved_head_dim
+    model_flops = (6 * (layer_active + parts["embed"]) + 2 * layer_active) * tokens_n + 4 * attn_flops
+    dispatch_flops = TRAIN_LAYERS * 3 * 2 * (2 * tokens_n * k_j * E_j * cap_j * jcfg.d_model)
+    bound_bytes = 22 * n_train + 6 * n_train + 2 * n_train
+    bound_ms_j, bound_by_j = bound(bound_bytes, model_flops, BF16_FLOPS)
+    bound_all_ms, bound_all_by = bound(bound_bytes, model_flops + dispatch_flops, BF16_FLOPS)
+
+    # the optimizer's share of a timed step: adamw_update between two events
+    from repro_torch.training import train_loop as train_loop_mod
+
+    real_adamw, opt_ms_j, opt_events = train_loop_mod.adamw_update, [], []
+
+    def timed_adamw(*args, **kwargs):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        out = real_adamw(*args, **kwargs)
+        ev[1].record()
+        opt_events.append(ev)
+        return out
+
+    cuda.reset_launch_counts()
+    infos, wall_ms_j, dev_ms_j, dev_ops_j = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        toks, labels = (torch.from_numpy(a).to(dev) for a in pipe_j.batch(i))
+        if i < TRAIN_STEPS - 2:
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            train_loop_mod.adamw_update = timed_adamw if i else real_adamw
+            ev0.record()
+            params_j, state_j, info = step_j(params_j, state_j, toks, labels)
+            ev1.record()
+            torch.cuda.synchronize()
+            train_loop_mod.adamw_update = real_adamw
+            wall_ms_j.append(ev0.elapsed_time(ev1))
+        else:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                params_j, state_j, info = step_j(params_j, state_j, toks, labels)
+                torch.cuda.synchronize()
+            dev_ms_j.append(sum(e.self_device_time_total for e in prof.key_averages()) / 1e3)
+            dev_ops_j.append(sum(e.count for e in prof.key_averages()))
+        infos.append({k: float(v) for k, v in info.items()})
+    launches_j = dict(cuda.LAUNCHES)
+    peak_gb_j = torch.cuda.max_memory_allocated() / 1e9
+    opt_ms_j = [a.elapsed_time(b) for a, b in opt_events]
+    # the last profiled step's heaviest device ops (ms and calls a step)
+    top_j = [{"op": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count}
+             for e in sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:15]]
+    moved = [float((t.reshape(-1)[:4096] != s0).float().mean()) for t, s0 in zip(tree_leaves(params_j), samples)]
+    step_ms = float(np.mean(wall_ms_j[1:]))
+    device_ms = float(np.mean(dev_ms_j))
+    log({"phase": "train_full_width", "card": card, "model": jcfg.name,
+         "layers": f"{TRAIN_LAYERS} of {get_config('dsv2-lite').num_layers} (cut in depth; widths published)",
+         "params": n_train, "params_by_part": parts, "batch": [TRAIN_B, TRAIN_S], "dtype": jcfg.dtype,
+         "remat": True, "steps": TRAIN_STEPS, "step_ms_first": wall_ms_j[0], "step_ms": wall_ms_j[1:],
+         "step_ms_mean": step_ms, "optimizer_ms": opt_ms_j, "tokens_per_s": tokens_n / step_ms * 1e3,
+         "device_ms_per_step": dev_ms_j, "device_ops_per_step": dev_ops_j,
+         "device_idle_share": 1.0 - device_ms / step_ms, "peak_gb": peak_gb_j,
+         "state_gb": (2 * n_train + 2 * n_train + 8 * n_train) / 1e9,
+         "first_loss": infos[0]["loss"], "last_loss": infos[-1]["loss"], "lb_loss": [x["lb_loss"] for x in infos],
+         "grad_norm": [x["grad_norm"] for x in infos], "lr": [x["lr"] for x in infos],
+         "bound_ms": bound_ms_j, "bound_by": bound_by_j, "bound_bytes_gb": bound_bytes / 1e9,
+         "model_tflop": model_flops / 1e12, "dispatch_tflop": dispatch_flops / 1e12, "dispatch_capacity": cap_j,
+         "bound_with_dispatch_ms": bound_all_ms, "bound_with_dispatch_by": bound_all_by,
+         "moved_share_min": min(moved), "moved_share_mean": float(np.mean(moved)), "launches": launches_j,
+         "top_device_ops": top_j})
+    bad_steps = [x for x in infos if not (np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]) and x["grad_norm"] > 0)]
+    if bad_steps or any(launches_j.values()) or min(moved) <= 0.0 or peak_gb_j >= 80.0:
+        raise AssertionError(f"phase 5j: non-finite loss or grad norm {bad_steps}, launches {launches_j}, "
+                             f"a leaf that did not move ({min(moved)}) or peak {peak_gb_j:.1f} GB")
+    del params_j, state_j, samples, leaves_j, step_j, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 6. the CLI: repro_torch.launch.serve on the card ------------------
     # the reference's defaults (qwen2-moe-a2.7b, reduced, random torch
     # weights from seed 0), then disagg with paged KV, the dense GQA config
@@ -2999,6 +3253,29 @@ def main():
                 or any(launches[n] < 1 for n in path):
             raise AssertionError(f"phase 6 ({case}): {m['completed']} of {n_req} requests completed; "
                                  f"launches {launches}, path {path}")
+
+    # the training CLI, as a user runs it (its own process, on the card):
+    # 20 steps at 4 x 64 tokens, where the first and last batches' losses
+    # differ by batch noise (the reference's own run at these flags ends
+    # above its first loss, 6.3132 -> 6.3188 on the CPU), so only the run
+    # and its done line are held; then 20 steps at the CLI's default batch
+    # (8 x 128), whose last loss must be below its first
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    for case, extra_argv, gate_loss in (("batch_4x64", ["--batch", "4", "--seq", "64"], False),
+                                        ("defaults", [], True)):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dsv2-lite", "--reduced", "--steps",
+               "20", *extra_argv]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env)
+        wall = time.perf_counter() - t0
+        done = [ln for ln in run.stdout.splitlines() if ln.startswith("done: loss ")]
+        losses = [float(x) for x in re.findall(r"done: loss (\S+) → (\S+) in", done[-1])[0]] if done else []
+        log({"phase": "cli_train", "case": case, "argv": cmd[3:], "card": card, "returncode": run.returncode,
+             "wall_s": wall, "done": done[-1] if done else None, "loss_lowered": bool(losses) and losses[1] < losses[0],
+             "log": run.stdout.splitlines()[:-1], "stderr": run.stderr[-2000:]})
+        if run.returncode or not losses or (gate_loss and not losses[1] < losses[0]):
+            raise AssertionError(f"phase 6 ({case}): the training CLI failed or did not lower the loss: {done} "
+                                 f"(exit {run.returncode})")
 
     # ---- 7. results ------------------------------------------------------
     log({"kernels": [rows[n] for n in cuda.LAUNCHES]})

@@ -136,6 +136,17 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad: a launch
+    through ``ctypes`` returns a tensor with no ``grad_fn``, and the kernels
+    have no backward pass, so such a result must never pass as one.  The
+    float kernels' wrappers (K1, K3, K4, K5) call it; K2 takes int32 tensors
+    alone, which cannot require grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward pass; call it under torch.no_grad() "
+                           "or on tensors that do not require grad (training runs the einsum dispatch)")
+
+
 def check_tensors(tensors: Dict[str, torch.Tensor], device: torch.device) -> None:
     """Every tensor a launcher reads or writes: on ``device`` and contiguous."""
     for name, t in tensors.items():

@@ -240,6 +240,7 @@ def paged_decode_attention(
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths, logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+    cuda.refuse_autograd("paged_decode_attention", q, k_pages, v_pages)
     B, nh, hd = q.shape
     P, ps, nkv, hd_k = k_pages.shape
     nblk = block_tables.shape[1] if block_tables.dim() == 2 else -1
@@ -292,6 +293,7 @@ def decode_attention(
         return decode_attention_ref(q, k_cache, v_cache, valid_len, logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    cuda.refuse_autograd("decode_attention", q, k_cache, v_cache)
     _check_cache("decode_attention", q, k_cache, v_cache, q.dtype)
     B, nh, hd = q.shape
     S, nkv = k_cache.shape[1], k_cache.shape[2]
@@ -329,6 +331,7 @@ def decode_attention_int8(
         return decode_attention_int8_ref(q, k_cache, v_cache, k_scale, v_scale, valid_len, logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_int8: unsupported device {q.device}")
+    cuda.refuse_autograd("decode_attention_int8", q, k_cache, v_cache, k_scale, v_scale)
     _check_cache("decode_attention_int8", q, k_cache, v_cache, torch.int8)
     B, nh, hd = q.shape
     S, nkv = k_cache.shape[1], k_cache.shape[2]

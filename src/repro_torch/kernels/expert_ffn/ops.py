@@ -59,6 +59,7 @@ def expert_ffn_grouped(
         return expert_ffn_grouped_ref(x, w_gate, w_up, w_down, slot_to_expert, active)
     if x.device.type != "cuda":
         raise ValueError(f"expert_ffn_grouped: unsupported device {x.device}")
+    cuda.refuse_autograd("expert_ffn_grouped", x, w_gate, w_up, w_down)
     S, CAP, d = x.shape
     E, d_w, f = w_gate.shape
     if d_w != d or w_up.shape != w_gate.shape or w_down.shape != (E, f, d):

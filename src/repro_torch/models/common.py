@@ -4,7 +4,7 @@ helpers (``repro.models.common``).  Parameters are nested dicts of tensors."""
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -31,6 +31,31 @@ def tree_to(tree, dev: torch.device):
     if tree is None:
         return None
     return tree.to(dev)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a tree of dicts and lists, in insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``tree`` with ``fn`` applied to each tensor, its dicts and lists kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_unflatten(tree, leaves: Sequence[torch.Tensor]):
+    """A tree of ``tree``'s structure over ``leaves`` (in :func:`tree_leaves`
+    order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def init_rmsnorm(d: int, device) -> Params:

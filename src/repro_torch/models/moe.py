@@ -54,6 +54,16 @@ def route(router_w: torch.Tensor, x2d: torch.Tensor, top_k: int) -> Tuple[torch.
     return gates, eids.to(torch.int32), probs
 
 
+def load_balance_loss(probs: torch.Tensor, eids: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Switch-transformer auxiliary loss ``E * sum_e f_e * P_e``
+    (``moe.py:84``): ``f_e`` the share of tokens routed to expert ``e`` (top-k
+    picks summed over k), ``P_e`` its mean router probability; the gradient
+    flows through ``probs`` alone."""
+    onehot = _one_hot(eids.reshape(-1), num_experts, torch.float32).reshape(*eids.shape, num_experts)
+    frac_tokens = onehot.sum(dim=1).mean(dim=0)  # [E]
+    return num_experts * (frac_tokens * probs.mean(dim=0)).sum()
+
+
 def sort_dispatch_plan(
     flat_ids: torch.Tensor,  # [I] bucket id per item (may be -1 / invalid)
     num_buckets: int,
@@ -266,12 +276,14 @@ def moe_layer(
     """Route + (optional scheduling) + dispatch + shared experts
     (``moe.py:403``).  The port's default dispatch is ``grouped``, the
     reference's serving path (the reference defaults ad-hoc calls to its
-    einsum oracle); expert parallelism (``"ep"``) is not ported.
-    ``with_aux`` adds the scheduler's ``load`` and ``a_max``."""
+    einsum oracle; training asks for it, ``model.loss_fn``); expert
+    parallelism (``"ep"``) is not ported.  ``with_aux`` adds the
+    :func:`load_balance_loss` ``lb_loss`` and the scheduler's ``load`` and
+    ``a_max``."""
     check_dispatch(dispatch)
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
-    gates, eids, _ = route(params["router"], x2d, cfg.top_k)
+    gates, eids, probs = route(params["router"], x2d, cfg.top_k)
     weights = {k: params[k] for k in ("w_gate", "w_up", "w_down")}
 
     aux: Dict[str, torch.Tensor] = {}
@@ -305,4 +317,7 @@ def moe_layer(
     if "shared" in params:
         y2d = y2d + ffn(params["shared"], x2d, "swiglu")
     y = y2d.reshape(b, s, d)
-    return (y, aux) if with_aux else y
+    if with_aux:
+        aux["lb_loss"] = load_balance_loss(probs, eids, cfg.num_experts)
+        return y, aux
+    return y

@@ -124,7 +124,8 @@ def _scan(step, h: torch.Tensor, xs):
     each ``t`` of the ``[b, s, ...]`` inputs ``xs``.  Returns ``(final h,
     ys [b, s, ...])``.  The reference scans in checkpointed chunks of 128
     tokens (``ssm.py:132``), a memory bound for training's backward pass
-    with the same values; here there is no backward pass."""
+    with the same values; here autograd keeps every step's state, and
+    training bounds it by recomputing each layer period (``remat``)."""
     ys = []
     for t in range(xs[0].shape[1]):
         y, h = step(h, *(a[:, t] for a in xs))

@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -270,12 +271,14 @@ def _window(kind: str, cfg) -> Optional[int]:
     return cfg.sliding_window if kind == "dense_local" else None
 
 
-def _layer_full(kind, lp, x, cfg, positions, shared_attn, enc_out, moe_ctx, collect: bool):
+def _layer_full(kind, lp, x, cfg, positions, shared_attn, enc_out, moe_ctx, collect: bool,
+                with_aux: bool = False):
     """One layer over a whole sequence (``transformer.py:322``).  Returns
-    ``(x, cache)``; with ``collect``, ``cache`` holds ``"kv"``, the post-rope
-    ``(k, v)`` of its attention (the shared block's for ``ssm_hybrid``),
-    and for Mamba layers ``"ssm"`` (the final state) and ``"conv"`` (the
-    conv tail)."""
+    ``(x, cache, lb_loss or None)``; with ``collect``, ``cache`` holds
+    ``"kv"``, the post-rope ``(k, v)`` of its attention (the shared block's
+    for ``ssm_hybrid``), and for Mamba layers ``"ssm"`` (the final state) and
+    ``"conv"`` (the conv tail); with ``with_aux`` an ``moe`` layer gives its
+    load-balance loss."""
     cache: Dict[str, Any] = {}
     if kind in ("ssm", "ssm_hybrid"):
         if kind == "ssm_hybrid":
@@ -286,34 +289,60 @@ def _layer_full(kind, lp, x, cfg, positions, shared_attn, enc_out, moe_ctx, coll
         y, state, tail = ssm_mod.mamba_seq(lp["mamba"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg)
         if collect:
             cache["ssm"], cache["conv"] = state, tail
-        return x + y, cache
+        return x + y, cache, None
     x, h2, kv = attention_stage_full(lp, x, cfg, positions, window=_window(kind, cfg),
                                      enc_out=enc_out if kind == "encdec" else None, return_kv=collect)
     if collect:
         cache["kv"] = kv
-    return moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None), cache
+    if kind != "moe" or not with_aux:
+        return moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None), cache, None
+    y, aux = moe_mod.moe_layer(lp["moe"], h2, cfg, with_aux=True, **(moe_ctx or {}))
+    return x + y, cache, aux["lb_loss"]
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg, extra: Optional[Dict[str, Any]] = None,
-            collect_caches: bool = False):
+            collect_caches: bool = False, remat: bool = False, with_aux: bool = False):
     """Whole-sequence pass (``transformer.py:359``).  Returns ``(hidden [b,
     s, d], caches)``, ``caches`` a list of each layer's :func:`_layer_full`
-    cache with ``collect_caches`` (else of empty dicts).  The audio family
-    adds sinusoidal positions to its embeddings, and its layers attend the
-    encoder's output (:func:`_encoder_output`).  The reference's
-    load-balance loss (training) is not ported."""
+    cache with ``collect_caches`` (else of empty dicts); ``with_aux`` adds the
+    reference's aux, ``{"lb_loss": the MoE layers' load-balance losses summed
+    and divided by max(1, num_layers), "enc_out": the encoder's output or
+    None}``.  The audio family adds sinusoidal positions to its embeddings,
+    and its layers attend the encoder's output (:func:`_encoder_output`).
+    ``remat`` runs each layer period under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of its scan body), so a backward pass
+    keeps one period's activations at a time and recomputes the rest."""
     moe_ctx = (extra or {}).get("moe_ctx")
     x = embed_tokens(params, tokens, cfg, extra)
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.family == "audio":
         x = x + sinusoidal_at(positions, cfg.d_model).to(x.dtype)
     enc_out = _encoder_output(params, cfg, extra)
+    shared_attn = params.get("shared_attn")
+    kinds = decoder_kinds(cfg)
+    period = len(period_pattern(cfg)[0])
+
+    def body(x, lb, lo):
+        caches = []
+        for kind, lp in zip(kinds[lo : lo + period], params["layers"][lo : lo + period]):
+            x, cache, layer_lb = _layer_full(kind, lp, x, cfg, positions, shared_attn, enc_out, moe_ctx,
+                                             collect_caches, with_aux)
+            caches.append(cache)
+            if layer_lb is not None:
+                lb = lb + layer_lb
+        return x, lb, caches
+
+    lb = torch.zeros((), dtype=torch.float32, device=x.device) if with_aux else None
     out = []
-    for kind, lp in zip(decoder_kinds(cfg), params["layers"]):
-        x, cache = _layer_full(kind, lp, x, cfg, positions, params.get("shared_attn"), enc_out, moe_ctx,
-                               collect_caches)
-        out.append(cache)
-    return x, out
+    for lo in range(0, len(kinds), period):
+        if remat:
+            x, lb, caches = torch.utils.checkpoint.checkpoint(body, x, lb, lo, use_reentrant=False)
+        else:
+            x, lb, caches = body(x, lb, lo)
+        out.extend(caches)
+    if not with_aux:
+        return x, out
+    return x, out, {"lb_loss": lb / max(1, cfg.num_layers), "enc_out": enc_out}
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg, cache_len: int,

@@ -869,3 +869,42 @@ def test_cuda_frontend_family_shapes(cuda_device, family, nh, nkv, hd, S):
         assert_close(decode_attention_int8(*args), decode_attention_int8_ref(*args), tol_for(dtype))
     for name in ("paged_decode_attention", "decode_attention", "decode_attention_int8"):
         assert cuda.LAUNCHES[name] - before[name] == 2, name
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_refuse_autograd(cuda_device):
+    """K1, K3, K4 and K5 raise when grad mode is on and an input requires
+    grad (a ``ctypes`` launch gives a result with no ``grad_fn``), and
+    launch nothing; the same calls run under ``torch.no_grad()``."""
+    dev = cuda_device
+    rng = np.random.default_rng(7)
+    B, nh, nkv, hd, S, ps = 2, 8, 8, 64, 32, 16
+    q, k, v = _contiguous_inputs(rng, B, nh, nkv, hd, S)
+    (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
+    lens = np.asarray([S, 5], np.int32)
+    bt = (np.arange(B * S // ps).reshape(B, S // ps) + 1).astype(np.int32)
+    kp = np.concatenate([np.zeros((1, ps, nkv, hd), np.float32), k.reshape(-1, ps, nkv, hd)])
+    vp = np.concatenate([np.zeros((1, ps, nkv, hd), np.float32), v.reshape(-1, ps, nkv, hd)])
+    E, CAP, d, f = 4, 4, 64, 32
+    x = _t(rng.standard_normal((E, CAP, d)).astype(np.float32), device=dev)
+    w = [_t((rng.standard_normal(s) * 0.1).astype(np.float32), device=dev) for s in ((E, d, f), (E, d, f), (E, f, d))]
+    s2e = torch.arange(E, dtype=torch.int32, device=dev)
+    active = torch.ones(E, dtype=torch.int32, device=dev)
+    calls = {
+        "paged_decode_attention": lambda qq: paged_decode_attention(
+            qq, _t(kp, device=dev), _t(vp, device=dev), _t(bt, device=dev), _t(lens, device=dev)),
+        "decode_attention": lambda qq: decode_attention(qq, _t(k, device=dev), _t(v, device=dev), _t(lens, device=dev)),
+        "decode_attention_int8": lambda qq: decode_attention_int8(
+            qq, *(_t(a, device=dev) for a in (kq, vq, ks, vs)), _t(lens, device=dev)),
+        "expert_ffn": lambda qq: expert_ffn_grouped(x, w[0].requires_grad_(qq.requires_grad), w[1], w[2], s2e, active),
+    }
+    for name, call in calls.items():
+        before = cuda.LAUNCHES[name]
+        q_grad = _t(q, device=dev).requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward pass"):
+            call(q_grad)
+        assert cuda.LAUNCHES[name] == before, name
+        with torch.no_grad():
+            call(q_grad)
+        call(_t(q, device=dev).requires_grad_(False))
+        assert cuda.LAUNCHES[name] == before + 2, name
