@@ -8,7 +8,16 @@ encoder-decoder ``whisper-tiny`` and the vision-patch ``pixtral-12b``.
 
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig, cache_specs
+from repro_torch.configs.base import (
+    LONG_CONTEXT_ARCHS,
+    SHAPES,
+    InputShape,
+    ModelConfig,
+    cache_specs,
+    empty_inputs,
+    input_specs,
+    shape_supported,
+)
 from repro_torch.configs.dsv2 import CONFIG as DSV2
 from repro_torch.configs.dsv2_lite import CONFIG as DSV2_LITE
 from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
@@ -45,9 +54,15 @@ def get_config(name: str) -> ModelConfig:
 
 __all__ = [
     "ASSIGNED",
+    "InputShape",
+    "LONG_CONTEXT_ARCHS",
     "PAPER_MODELS",
     "REGISTRY",
+    "SHAPES",
     "ModelConfig",
     "cache_specs",
+    "empty_inputs",
     "get_config",
+    "input_specs",
+    "shape_supported",
 ]

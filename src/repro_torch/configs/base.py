@@ -7,7 +7,10 @@ attention block); a config with ``encoder_layers`` (whisper) runs its
 ``dense`` decoder layers with cross attention over an encoder's output, and
 a ``vision_patches`` frontend (pixtral) splices patch embeddings over a
 prompt's first rows.  ``cache_specs`` mirrors the reference's
-``_cache_specs`` layout.
+``_cache_specs`` layout; ``InputShape``, ``SHAPES``, ``shape_supported`` and
+``input_specs`` are the reference's inputs of the sharded steps
+(``base.py:267-364``), with ``(shape, dtype)`` pairs in place of
+``jax.ShapeDtypeStruct`` and :func:`empty_inputs` to make tensors of them.
 """
 
 from __future__ import annotations
@@ -258,3 +261,71 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Tuple
     if cfg.encoder_layers:
         specs["enc_out"] = ((batch, cfg.encoder_seq, cfg.d_model), dt)
     return specs
+
+
+# ---------------------------------------------------------------------------
+# Input shapes of the sharded steps (``base.py:267``)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# Sub-quadratic families allowed to run long_500k; gemma2 qualifies because
+# its local layers use a sliding window.
+LONG_CONTEXT_ARCHS = ("falcon-mamba-7b", "zamba2-2.7b", "gemma2-2b")
+
+
+def shape_supported(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Whether (arch, shape) runs, and the reason if not (``base.py:287``)."""
+    if shape.name == "long_500k" and cfg.name not in LONG_CONTEXT_ARCHS:
+        if cfg.name.endswith("-reduced") and cfg.name[: -len("-reduced")] in LONG_CONTEXT_ARCHS:
+            return True, ""
+        return False, "pure full-attention arch: long_500k requires sub-quadratic attention"
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """The inputs the train, prefill and serve steps of this architecture
+    consume (``base.py:301``), ``{name: (shape, dtype)}``: ``tokens`` (and
+    ``labels`` for training) ``[B, S]`` int32; for decode ``tokens [B, 1]``,
+    the scalar ``cache_index`` and the decode state of :func:`cache_specs`
+    at ``S`` rows; the frontend stubs' precomputed embeddings
+    (``encoder_frames``, ``patch_embeds``) outside decode, which reads the
+    cached ``enc_out`` instead."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    specs: Dict[str, Tuple[tuple, torch.dtype]] = {}
+    if shape.kind == "train":
+        specs["tokens"] = ((B, S), i32)
+        specs["labels"] = ((B, S), i32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = ((B, S), i32)
+    else:  # decode: one new token against a cache of S rows
+        specs["tokens"] = ((B, 1), i32)
+        specs["cache_index"] = ((), i32)
+        specs.update(cache_specs(cfg, B, S))
+    if cfg.frontend == "audio_frames" and shape.kind != "decode":
+        specs["encoder_frames"] = ((B, cfg.encoder_seq, cfg.d_model), cfg.torch_dtype)
+    elif cfg.frontend == "vision_patches" and shape.kind != "decode":
+        specs["patch_embeds"] = ((B, cfg.num_patch_tokens, cfg.d_model), cfg.torch_dtype)
+    return specs
+
+
+def empty_inputs(specs: Dict[str, Tuple[tuple, torch.dtype]], device="meta") -> Dict[str, torch.Tensor]:
+    """An uninitialised tensor for each spec: ``meta`` tensors by default
+    (shapes and dtypes only), or fake tensors of ``device`` when called
+    under a ``FakeTensorMode``."""
+    return {name: torch.empty(shape, dtype=dtype, device=device) for name, (shape, dtype) in specs.items()}

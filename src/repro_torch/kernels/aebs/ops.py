@@ -2,7 +2,10 @@
 
 ``aebs_schedule`` runs the one kernel of ``csrc/aebs.cu`` (bitmap, both
 greedy passes and the rewrite, one launch) for CUDA tensors and the plain
-:func:`repro_torch.core.aebs.aebs_assign` for CPU tensors.
+:func:`repro_torch.core.aebs.aebs_assign` for CPU tensors, both through the
+custom op ``repro_torch::aebs_schedule``, whose fake implementation gives
+the outputs' shapes and dtypes, so the scheduler also runs on fake tensors
+(the dry run) and nothing launches there.
 """
 
 from __future__ import annotations
@@ -38,13 +41,20 @@ def aebs_schedule(
     num_instances: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Algorithm 1: ``(slot_ids [T, k], load [n_e], act_rep [E])``, int32."""
-    if eids.device.type == "cpu":
-        return aebs_assign(eids, tables, num_instances)
-    if eids.device.type != "cuda":
+    if eids.device.type not in ("cpu", "cuda"):
         raise ValueError(f"aebs_schedule: unsupported device {eids.device}")
-    hosts = tables["expert_hosts"]
-    counts = tables["replica_counts"]
-    slot_of = tables["slot_of"]
+    return torch.ops.repro_torch.aebs_schedule(
+        eids, tables["expert_hosts"], tables["replica_counts"], tables["slot_of"], num_instances
+    )
+
+
+@torch.library.custom_op("repro_torch::aebs_schedule", mutates_args=())
+def _aebs_schedule_op(
+    eids: torch.Tensor, hosts: torch.Tensor, counts: torch.Tensor, slot_of: torch.Tensor, num_instances: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if eids.device.type == "cpu":
+        return aebs_assign(eids, {"expert_hosts": hosts, "replica_counts": counts, "slot_of": slot_of},
+                           num_instances)
     E, R = hosts.shape
     n_e = num_instances
     if not 1 <= E <= MAX_EXPERTS:
@@ -78,6 +88,12 @@ def aebs_schedule(
     cuda.check("aebs", err, "aebs_schedule")
     cuda.count("aebs_schedule")
     return slot_ids, load, act_rep
+
+
+@_aebs_schedule_op.register_fake
+def _(eids, hosts, counts, slot_of, num_instances):
+    return (torch.empty_like(eids, dtype=torch.int32), eids.new_empty((num_instances,), dtype=torch.int32),
+            eids.new_empty((hosts.shape[0],), dtype=torch.int32))
 
 
 # same Algorithm-1 contract as aebs_assign: one replica per activated expert

@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, Tuple, Union
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import cuda
 
@@ -295,9 +296,15 @@ def decode_attention(
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     cuda.refuse_autograd("decode_attention", q, k_cache, v_cache)
     _check_cache("decode_attention", q, k_cache, v_cache, q.dtype)
+    lengths = _lengths(valid_len, q.shape[0], q.device)
+    return torch.ops.repro_torch.decode_attention(q, k_cache, v_cache, lengths, float(logit_cap))
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor,
+                         logit_cap: float) -> torch.Tensor:
     B, nh, hd = q.shape
     S, nkv = k_cache.shape[1], k_cache.shape[2]
-    lengths = _lengths(valid_len, B, q.device)
     code = _check_launch("decode_attention", q, nkv,
                          {"q": q, "k_cache": k_cache, "v_cache": v_cache, "lengths": lengths})
     n_split, cps, part = _split_launch(q, nkv, S, SPLIT_CHUNK)
@@ -306,7 +313,7 @@ def decode_attention(
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), part.data_ptr(), B, nh, nkv, hd, S, n_split, cps,
-        hd**-0.5, float(logit_cap), code, q.device.index, cuda.stream_of(q),
+        hd**-0.5, logit_cap, code, q.device.index, cuda.stream_of(q),
     )
     cuda.check("decode_attention", err, "decode_attention")
     cuda.count("decode_attention")
@@ -333,13 +340,22 @@ def decode_attention_int8(
         raise ValueError(f"decode_attention_int8: unsupported device {q.device}")
     cuda.refuse_autograd("decode_attention_int8", q, k_cache, v_cache, k_scale, v_scale)
     _check_cache("decode_attention_int8", q, k_cache, v_cache, torch.int8)
-    B, nh, hd = q.shape
+    B = q.shape[0]
     S, nkv = k_cache.shape[1], k_cache.shape[2]
     if k_scale.shape != (B, S, nkv) or v_scale.shape != (B, S, nkv):
         raise ValueError(f"decode_attention_int8: scales must be [{B}, {S}, {nkv}]")
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise TypeError("decode_attention_int8: scales must be float32")
     lengths = _lengths(valid_len, B, q.device)
+    return torch.ops.repro_torch.decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                                                       float(logit_cap))
+
+
+@torch.library.custom_op("repro_torch::decode_attention_int8", mutates_args=())
+def _decode_attention_int8_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor, lengths: torch.Tensor, logit_cap: float) -> torch.Tensor:
+    B, nh, hd = q.shape
+    S, nkv = k_cache.shape[1], k_cache.shape[2]
     code = _check_launch("decode_attention_int8", q, nkv,
                          {"q": q, "k_cache": k_cache, "v_cache": v_cache, "k_scale": k_scale,
                           "v_scale": v_scale, "lengths": lengths})
@@ -349,9 +365,39 @@ def decode_attention_int8(
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), part.data_ptr(), B, nh, nkv,
-        hd, S, n_split, cps, hd**-0.5, float(logit_cap), code, q.device.index,
+        hd, S, n_split, cps, hd**-0.5, logit_cap, code, q.device.index,
         cuda.stream_of(q),
     )
     cuda.check("decode_attention", err, "decode_attention_int8")
     cuda.count("decode_attention_int8")
     return out
+
+
+@_decode_attention_op.register_fake
+def _(q, k_cache, v_cache, lengths, logit_cap):
+    return torch.empty_like(q)
+
+
+@_decode_attention_int8_op.register_fake
+def _(q, k_cache, v_cache, k_scale, v_scale, lengths, logit_cap):
+    return torch.empty_like(q)
+
+
+def _attended_rows(lengths: torch.Tensor, S: int) -> int:
+    """Rows the slots attend: ``S`` each for a fake tensor (its lengths are
+    unknown), else the sum of ``min(length, S)``."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(lengths):
+        return lengths.shape[0] * S
+    return int(lengths.clamp(max=S).sum())
+
+
+@register_flop_formula([torch.ops.repro_torch.decode_attention, torch.ops.repro_torch.decode_attention_int8],
+                       get_raw=True)
+def _decode_attention_flops(q, k_cache, *args, out_val=None, **kwargs) -> int:
+    """Scores and the weighted sum: 2 * 2 * nh * hd per attended row of a
+    slot (a slot's rows are read once for all its query heads)."""
+    lengths = args[-2]
+    _, nh, hd = q.shape
+    return 4 * nh * hd * _attended_rows(lengths, k_cache.shape[1])

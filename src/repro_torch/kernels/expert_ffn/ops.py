@@ -1,7 +1,10 @@
 """K3 grouped expert FFN: CUDA kernel wrapper and its plain versions.
 
-``expert_ffn_grouped`` launches ``csrc/expert_ffn.cu`` for CUDA tensors and
-runs :func:`expert_ffn_grouped_ref` for CPU tensors.  The model's CPU path
+``expert_ffn_grouped`` launches ``csrc/expert_ffn.cu`` for CUDA tensors,
+through the custom op ``repro_torch::expert_ffn`` (its fake implementation
+gives the output's shape, so fake tensors reach it and launch nothing; its
+FLOP formula is the bound's count), and runs :func:`expert_ffn_grouped_ref`
+for CPU tensors.  The model's CPU path
 with bucket-stacked weights uses :func:`expert_ffn_einsum` instead, as the
 reference does (``moe.py:306-309``).
 """
@@ -12,6 +15,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import cuda
 
@@ -60,6 +64,12 @@ def expert_ffn_grouped(
     if x.device.type != "cuda":
         raise ValueError(f"expert_ffn_grouped: unsupported device {x.device}")
     cuda.refuse_autograd("expert_ffn_grouped", x, w_gate, w_up, w_down)
+    return torch.ops.repro_torch.expert_ffn(x, w_gate, w_up, w_down, slot_to_expert, active)
+
+
+@torch.library.custom_op("repro_torch::expert_ffn", mutates_args=())
+def _expert_ffn_op(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+                   slot_to_expert: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     S, CAP, d = x.shape
     E, d_w, f = w_gate.shape
     if d_w != d or w_up.shape != w_gate.shape or w_down.shape != (E, f, d):
@@ -98,3 +108,25 @@ def expert_ffn_grouped(
     cuda.check("expert_ffn", err, "expert_ffn")
     cuda.count("expert_ffn")
     return out
+
+
+@_expert_ffn_op.register_fake
+def _(x, w_gate, w_up, w_down, slot_to_expert, active):
+    return torch.empty_like(x)
+
+
+def _active_slots(slot_to_expert: torch.Tensor, active: torch.Tensor) -> int:
+    """Slots that read weights: every slot of a fake tensor (its values are
+    unknown), else the active ones with an expert."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(active):
+        return int(active.shape[0])
+    return int(((active.int() > 0) & (slot_to_expert >= 0)).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.expert_ffn, get_raw=True)
+def _expert_ffn_flops(x, w_gate, w_up, w_down, slot_to_expert, active, out_val=None, **kwargs) -> int:
+    """SwiGLU's three products per active slot: 2 * 3 * CAP * d * f."""
+    _, cap, d = x.shape
+    return 6 * _active_slots(slot_to_expert, active) * cap * d * w_gate.shape[2]

@@ -8,9 +8,12 @@ trains on the card (``--device cuda``, the default); ``--device cpu`` trains
 on the host.  Weights are drawn in torch from ``--seed`` on that device, so
 they (and the losses) differ from the reference's, which draws them from
 JAX's PRNG; the token batches are the reference's for the same seed.
-``--dry-run`` (lower and compile the production mesh step, with
-``--shape`` and ``--multi-pod``) raises ``NotImplementedError``: it comes
-with the SPMD slice.
+
+``--dry-run`` traces the ``--shape`` step on the production mesh (16 x 16,
+or 2 x 16 x 16 with ``--multi-pod``) over the fake process group, without a
+card, and writes its record to ``results/dryrun`` (``launch/dryrun.py``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-34b --shape train_4k --dry-run
 """
 
 from __future__ import annotations
@@ -38,10 +41,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run (the production mesh's lowering, --shape, --multi-pod) is not ported yet: "
-            "it comes with the SPMD slice (sharding/rules.py, launch/mesh.py, launch/dryrun.py)"
-        )
+        from repro_torch.launch.dryrun import run_one
+
+        return run_one(args.arch, args.shape, args.multi_pod, "results/dryrun")
 
     from repro_torch.configs import get_config
     from repro_torch.training.train_loop import train

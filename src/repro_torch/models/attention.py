@@ -23,7 +23,7 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention_int8,
     paged_decode_attention,
 )
-from repro_torch.models.common import Params, apply_rope, dense_init
+from repro_torch.models.common import Params, apply_rope, dense_init, is_dtensor
 
 NEG_INF = -2.0e38  # the reference's dense-path mask constant (attention.py:24)
 
@@ -110,6 +110,10 @@ def attention_decode(
     as the reference does (``attention.py:425-441``); the JAX package has no
     page-indirect int8 kernel.  Returns ``(out [b, 1, d], cache_k, cache_v)``,
     plus ``(k_scale, v_scale)`` when the cache is int8."""
+    if is_dtensor(x):
+        from repro_torch.models import spmd
+
+        return spmd.attention_decode(params, x, cache_k, cache_v, cache_index, cfg, window, k_scale, v_scale)
     b = x.shape[0]
     paged = block_tables is not None
     quant = cache_k.dtype == torch.int8
@@ -203,8 +207,20 @@ def attention_full(
     256) the queries attend in blocks of 256 rows, as the reference's
     ``_attend_qchunked`` does: each block's scores alone are live, and every
     row's softmax is the unchunked one's."""
+    if is_dtensor(x):
+        from repro_torch.models import spmd
+
+        return spmd.attention_full(params, x, cfg, positions, window, causal, return_kv)
+    q, k, v = full_qkv(params, x, cfg, positions)
+    out = full_attend(q, k, v, cfg, window, causal)
+    y = _out_proj(out, params["wo"])
+    return (y, (k, v)) if return_kv else y
+
+
+def full_qkv(params: Params, x: torch.Tensor, cfg, positions: Optional[torch.Tensor] = None):
+    """The post-rope ``q [b, s, nh, hd]``, ``k`` and ``v [b, s, nkv, hd]`` of
+    :func:`attention_full` (heads as many as the weights hold)."""
     b, s, _ = x.shape
-    nkv = cfg.num_kv_heads
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q = _project(x, params["wq"])
@@ -213,19 +229,24 @@ def attention_full(
     if cfg.use_rope:
         q = apply_rope(q, positions.expand(b, s), cfg.rope_theta)
         k = apply_rope(k, positions.expand(b, s), cfg.rope_theta)
+    return q, k, v
+
+
+def full_attend(q, k, v, cfg, window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+    """:func:`attention_full`'s attention of ``q`` over ``k``/``v``, ``[b, s,
+    nh, hd]``: each KV head serves ``nh / nkv`` query heads (``nkv`` from
+    ``k``'s shape), query-chunked past 2048 tokens."""
+    b, s, nkv = k.shape[0], q.shape[1], k.shape[2]
     qg = q.reshape(b, s, nkv, q.shape[2] // nkv, q.shape[3])
-    idx = torch.arange(s, device=x.device)
+    idx = torch.arange(s, device=q.device)
     if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
-        out = torch.cat([
+        return torch.cat([
             _attend(qg[:, lo : lo + Q_CHUNK], k, v,
                     _causal_mask(idx[lo : lo + Q_CHUNK], idx, window, causal)[None, None, None],
                     cfg.attn_logit_softcap)
             for lo in range(0, s, Q_CHUNK)
         ], dim=1)
-    else:
-        out = _attend(qg, k, v, _causal_mask(idx, idx, window, causal)[None, None, None], cfg.attn_logit_softcap)
-    y = _out_proj(out, params["wo"])
-    return (y, (k, v)) if return_kv else y
+    return _attend(qg, k, v, _causal_mask(idx, idx, window, causal)[None, None, None], cfg.attn_logit_softcap)
 
 
 def attention_cross(
@@ -237,6 +258,10 @@ def attention_cross(
     """Encoder-decoder cross attention (``attention.py:157``): K/V projected
     from ``kv_src`` on every call, no positions on them, no mask.  Plain
     PyTorch on every device, as the reference has no kernel for it."""
+    if is_dtensor(x):
+        from repro_torch.models import spmd
+
+        return spmd.attention_cross(params, x, kv_src, cfg)
     nkv = cfg.num_kv_heads
     q = _project(x, params["wq"])
     k = _project(kv_src, params["wk"])

@@ -20,6 +20,12 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (the sharded steps' tensors): the layers
+    then run their SPMD version (:mod:`repro_torch.models.spmd`)."""
+    return hasattr(t, "placements")
+
+
 def tree_to(tree, dev: torch.device):
     """``tree`` (dicts and lists of tensors, ``None`` leaves) on ``dev``; a
     tensor already there is returned as is, so a pool that aliases a device

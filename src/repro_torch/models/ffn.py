@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Params, dense_init
+from repro_torch.models.common import Params, dense_init, is_dtensor
 
 ACTIVATIONS = ("swiglu", "geglu", "gelu")
 
@@ -33,6 +33,10 @@ def init_ffn(d_model: int, d_ff: int, activation: str, gen, dtype, device) -> Pa
 
 def ffn(params: Params, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
     _check(activation)
+    if is_dtensor(x):
+        from repro_torch.models import spmd
+
+        return spmd.ffn(params, x, activation)
     up = x @ params["w_up"]
     if activation == "swiglu":
         h = F.silu(x @ params["w_gate"]) * up

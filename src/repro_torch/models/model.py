@@ -9,7 +9,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import cache_specs
 from repro_torch.models import transformer
-from repro_torch.models.common import Params, resolve_device
+from repro_torch.models.common import Params, is_dtensor, resolve_device
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> Params:
@@ -43,6 +43,10 @@ def logits_fn(params, tokens, cfg, extra=None, remat: bool = False) -> Tuple[tor
 
 def _xent_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """``logsumexp(logits) - logits[label]`` at every position."""
+    if is_dtensor(logits):
+        from repro_torch.models import spmd
+
+        return spmd.xent_terms(logits, labels)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
 

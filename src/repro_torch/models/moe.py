@@ -16,7 +16,9 @@ Three dispatch paths with one semantics (``DISPATCH_FNS``):
   (:func:`scatter_dispatch_ffn`): the reference's one-hot oracles, plain
   PyTorch on every device (the reference runs them outside any Pallas
   kernel); with a layout they copy each slot's weights
-  (:func:`gather_slot_weights`), the cost the grouped path avoids.
+  (:func:`gather_slot_weights`), the cost the grouped path avoids;
+* ``ep``: expert parallelism over a mesh (:mod:`repro_torch.models.moe_ep`),
+  whose per-rank bodies are ``scatter`` and ``grouped``.
 """
 
 from __future__ import annotations
@@ -188,14 +190,16 @@ def grouped_dispatch_items(
     capacity: int,
     weights: Params,  # stacked [B, ...] (map None) or logical [E, ...] (map given)
     slot_to_expert: Optional[torch.Tensor] = None,  # [B] int32, -1 empty
+    item_mask: Optional[torch.Tensor] = None,  # [T*k] bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Grouped dispatch up to the per-item expert outputs (``moe.py:271``).
-    Returns ``(y_items [T*k, d], keep [T*k])``; rows with ``keep == False``
-    are arbitrary and must be gated to zero."""
+    """Grouped dispatch up to the per-item expert outputs (``moe.py:271``);
+    items outside ``item_mask`` (another expert-parallel rank's) take no
+    capacity row.  Returns ``(y_items [T*k, d], keep [T*k])``; rows with
+    ``keep == False`` are arbitrary and must be gated to zero."""
     k = bucket_ids.shape[1]
     dt = x2d.dtype
     flat = bucket_ids.reshape(-1)
-    plan = sort_dispatch_plan(flat, num_buckets, capacity)
+    plan = sort_dispatch_plan(flat, num_buckets, capacity, item_mask)
     xin = torch.where(plan["row_valid"][..., None], x2d[plan["src"].long() // k], 0).to(dt)
     active = plan["counts"] > 0
     if slot_to_expert is not None:
@@ -224,12 +228,13 @@ def grouped_dispatch_ffn(
     capacity: int,
     weights: Params,
     slot_to_expert: Optional[torch.Tensor] = None,
+    item_mask: Optional[torch.Tensor] = None,  # [T*k] bool
 ) -> torch.Tensor:
     """Sort-based grouped dispatch then the gate-weighted top-k combine."""
     T, k = bucket_ids.shape
     dt = x2d.dtype
     y_items, keep = grouped_dispatch_items(
-        x2d, bucket_ids, num_buckets, capacity, weights, slot_to_expert=slot_to_expert
+        x2d, bucket_ids, num_buckets, capacity, weights, slot_to_expert=slot_to_expert, item_mask=item_mask
     )
     gflat = (gates.reshape(-1) * keep).to(dt)
     return (y_items * gflat[:, None]).reshape(T, k, -1).sum(dim=1)
@@ -252,12 +257,10 @@ DISPATCH_FNS = {
 
 
 def check_dispatch(dispatch: str) -> None:
-    """Raise for a dispatch path the port does not run."""
-    if dispatch == "ep":
-        raise NotImplementedError("dispatch='ep' (expert parallelism) is not ported yet "
-                                  "(comes with SPMD and training)")
-    if dispatch not in DISPATCH_FNS:
-        raise ValueError(f"unknown dispatch {dispatch!r}; choose from {sorted(DISPATCH_FNS)}")
+    """Raise for an unknown dispatch path (``"ep"`` is expert parallelism,
+    :func:`repro_torch.models.moe_ep.moe_layer_ep`)."""
+    if dispatch != "ep" and dispatch not in DISPATCH_FNS:
+        raise ValueError(f"unknown dispatch {dispatch!r}; choose from {sorted(DISPATCH_FNS) + ['ep']}")
 
 
 def moe_layer(
@@ -265,22 +268,32 @@ def moe_layer(
     x: torch.Tensor,  # [b, s, d]
     cfg,
     *,
-    dispatch: str = "grouped",  # grouped | einsum | scatter
+    dispatch: str = "grouped",  # grouped | einsum | scatter | ep
     layout_tables: Optional[Dict[str, torch.Tensor]] = None,
     slot_to_expert: Optional[torch.Tensor] = None,  # flat [S_total] int32
     num_instances: int = 0,
     scheduler=None,
     capacity: Optional[int] = None,
     with_aux: bool = False,
+    ep_ctx: Optional[Dict] = None,  # mesh / dp_axes / model_axis / mode for dispatch="ep"
 ):
     """Route + (optional scheduling) + dispatch + shared experts
     (``moe.py:403``).  The port's default dispatch is ``grouped``, the
     reference's serving path (the reference defaults ad-hoc calls to its
-    einsum oracle; training asks for it, ``model.loss_fn``); expert
-    parallelism (``"ep"``) is not ported.  ``with_aux`` adds the
-    :func:`load_balance_loss` ``lb_loss`` and the scheduler's ``load`` and
-    ``a_max``."""
+    einsum oracle; training asks for it, ``model.loss_fn``).  ``"ep"`` runs
+    :func:`repro_torch.models.moe_ep.moe_layer_ep` with ``ep_ctx`` (its
+    mesh, axes, mode and body), as the reference does (``moe.py:427``);
+    without a mesh that call raises ``TypeError``, as the reference's does.
+    ``with_aux`` adds the :func:`load_balance_loss` ``lb_loss`` and the
+    scheduler's ``load`` and ``a_max``."""
     check_dispatch(dispatch)
+    if dispatch == "ep":
+        from repro_torch.models import moe_ep
+
+        return moe_ep.moe_layer_ep(
+            params, x, cfg, scheduler=scheduler, layout_tables=layout_tables, slot_to_expert=slot_to_expert,
+            num_instances=num_instances, with_aux=with_aux, **(ep_ctx or {}),
+        )
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     gates, eids, probs = route(params["router"], x2d, cfg.top_k)

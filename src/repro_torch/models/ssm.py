@@ -21,7 +21,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Params, dense_init, resolve_device
+from repro_torch.models.common import Params, dense_init, is_dtensor, resolve_device
 
 
 def init_mamba(cfg, gen, dtype, device) -> Params:
@@ -39,7 +39,9 @@ def init_mamba(cfg, gen, dtype, device) -> Params:
             "x_proj": dense_init(gen, (di, dt_rank + 2 * N), fan_in=di, dtype=dtype, device=device),
             "dt_proj": dense_init(gen, (dt_rank, di), fan_in=dt_rank, dtype=f32, device=device),
             "dt_bias": torch.zeros(di, dtype=f32, device=device),
-            "A_log": torch.log(torch.arange(1, N + 1, dtype=f32, device=device)).expand(di, N).contiguous(),
+            # log(1..N) in float64, rounded once to float32: the host's libm
+            # float32 log is one ulp off at some n (XLA's and torch's differ)
+            "A_log": torch.log(torch.arange(1, N + 1, dtype=torch.float64)).to(f32).to(device).expand(di, N).contiguous(),
             "D": torch.ones(di, dtype=f32, device=device),
             "out_proj": dense_init(gen, (di, d), fan_in=di, dtype=dtype, device=device),
         }
@@ -216,8 +218,16 @@ def mamba2_step(p: Params, u: torch.Tensor, conv_state: torch.Tensor, ssm_state:
 
 
 def mamba_seq(p: Params, u: torch.Tensor, cfg):
+    if is_dtensor(u):
+        from repro_torch.models import spmd
+
+        return spmd.mamba_seq(p, u, cfg)
     return (mamba1_seq if cfg.ssm_version == 1 else mamba2_seq)(p, u, cfg)
 
 
 def mamba_step(p: Params, u: torch.Tensor, conv_state: torch.Tensor, ssm_state: torch.Tensor, cfg):
+    if is_dtensor(u):
+        from repro_torch.models import spmd
+
+        return spmd.mamba_step(p, u, conv_state, ssm_state, cfg)
     return (mamba1_step if cfg.ssm_version == 1 else mamba2_step)(p, u, conv_state, ssm_state, cfg)

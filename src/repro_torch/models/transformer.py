@@ -32,7 +32,7 @@ import torch.utils.checkpoint
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import Params, embed_init, init_rmsnorm, rmsnorm, sinusoidal_at, softcap
+from repro_torch.models.common import Params, embed_init, init_rmsnorm, is_dtensor, rmsnorm, sinusoidal_at, softcap
 from repro_torch.models.ffn import ffn, init_ffn
 
 
@@ -119,7 +119,12 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg, extra: Optional[Dict
     for the audio family; a ``vision_patches`` config given
     ``extra["patch_embeds"]`` ``[b, n_p, d]`` takes those rows in place of
     the first ``n_p`` positions' (a prompt shorter than ``n_p`` raises)."""
-    x = params["embed"][tokens.long()]
+    if is_dtensor(params["embed"]):
+        from repro_torch.models import spmd
+
+        x = spmd.embed_lookup(params["embed"], tokens)
+    else:
+        x = params["embed"][tokens.long()]
     if cfg.family != "audio":
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     if extra and cfg.frontend == "vision_patches" and "patch_embeds" in extra:
@@ -134,6 +139,10 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg, extra: Optional[Dict
 def lm_head(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """Tied head: logits in the activation dtype, then cast to f32."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if is_dtensor(x):
+        from repro_torch.models import spmd
+
+        return softcap(spmd.lm_logits(x, params["embed"]).float(), cfg.final_logit_softcap)
     logits = (x @ params["embed"].T).float()
     return softcap(logits, cfg.final_logit_softcap)
 
@@ -311,8 +320,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg, extra: Optional[Dict[str,
     and its layers attend the encoder's output (:func:`_encoder_output`).
     ``remat`` runs each layer period under ``torch.utils.checkpoint`` (the
     reference's ``jax.checkpoint`` of its scan body), so a backward pass
-    keeps one period's activations at a time and recomputes the rest."""
+    keeps one period's activations at a time and recomputes the rest.
+    ``extra["act_constraint"]`` (optional) is applied to the residual after
+    each period (``transformer.py:369``): the sharded train step lays the
+    residual out sequence-parallel with it."""
     moe_ctx = (extra or {}).get("moe_ctx")
+    act_constraint = (extra or {}).get("act_constraint")
     x = embed_tokens(params, tokens, cfg, extra)
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.family == "audio":
@@ -330,6 +343,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg, extra: Optional[Dict[str,
             caches.append(cache)
             if layer_lb is not None:
                 lb = lb + layer_lb
+        if act_constraint is not None:
+            x = act_constraint(x)
         return x, lb, caches
 
     lb = torch.zeros((), dtype=torch.float32, device=x.device) if with_aux else None
@@ -370,8 +385,13 @@ def prefill(params: Params, tokens: torch.Tensor, cfg, cache_len: int,
             return
         for name, i in (("k", 0), ("v", 1)):
             full = torch.stack([kv[i] for kv in kvs])  # [n, b, s, nkv, hd]
-            buf = torch.zeros((full.shape[0], b, rows, *full.shape[3:]), dtype=full.dtype, device=full.device)
-            place(buf, full)
+            if is_dtensor(full):
+                from repro_torch.models import spmd
+
+                buf = spmd.assemble_cache(full, rows, place)
+            else:
+                buf = torch.zeros((full.shape[0], b, rows, *full.shape[3:]), dtype=full.dtype, device=full.device)
+                place(buf, full)
             if cfg.kv_quant:
                 out[f"kv_{name}{suffix}"], out[f"kv_{name}{suffix}_scale"] = attn_mod.quantize_kv(buf)
             else:

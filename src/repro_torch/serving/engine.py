@@ -68,8 +68,10 @@ disaggregated one (``executor="disagg"``).
   every request).  The encoder's output lands in the slot's row of
   ``enc_out`` beside the KV caches, and each decode step attends it.
 
-Expert-parallel dispatch (``dispatch="ep"``), which the SPMD slice brings,
-raises ``NotImplementedError``.
+Expert-parallel dispatch (``dispatch="ep"``) needs a mesh, which the engine
+does not pass: its first MoE layer raises ``TypeError``, as the reference's
+engine does (``moe_layer_ep`` called without ``mesh``); the sharded steps of
+``launch/steps.py`` run it.
 """
 
 from __future__ import annotations

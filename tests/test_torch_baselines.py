@@ -225,8 +225,11 @@ def test_moe_layer_schedulers_and_dispatch_equal_reference(dispatch, dtype):
 
 
 def test_moe_layer_refuses_expert_parallel_dispatch():
+    """``dispatch="ep"`` needs ``ep_ctx`` (a mesh and its axes): without one
+    ``moe_layer_ep`` raises ``TypeError``, as the reference's does; an
+    unknown dispatch raises ``ValueError``."""
     cfg = get_config("qwen2-moe-a2.7b-reduced")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh"):
         moe.moe_layer({}, torch.zeros((1, 1, cfg.d_model)), cfg, dispatch="ep")
     with pytest.raises(ValueError):
         moe.moe_layer({}, torch.zeros((1, 1, cfg.d_model)), cfg, dispatch="dense")

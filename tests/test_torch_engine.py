@@ -147,9 +147,12 @@ def test_engine_paged_equals_contiguous():
 
 @pytest.mark.parametrize("option", [dict(dispatch="ep")])
 def test_engine_rejects_unported_options(option):
-    """Options of the reference's engine that a later slice ports raise
-    instead of being ignored: expert-parallel dispatch (SPMD); their
-    defaults, and the options this port runs, are accepted."""
+    """No option of the reference's engine is left unported: every one is
+    accepted.  Expert-parallel dispatch needs a mesh, which the engine does
+    not pass (the sharded steps of ``launch/steps.py`` run it), so with a
+    replica layout its first decode step raises ``TypeError`` from
+    ``moe_layer_ep``, as the reference's engine does; an unknown dispatch
+    raises ``ValueError``."""
     from repro_torch.models import model
 
     cfg = get_config("dsv2-lite-reduced")
@@ -157,10 +160,15 @@ def test_engine_rejects_unported_options(option):
     ServingEngine(cfg, params, device="cpu", executor="mono", admission="blocking",
                   sched="fifo", prefix_cache=False, spec_k=0, n_prefill=0, extra_builder=None)
     for ported in (dict(dispatch="einsum"), dict(dispatch="scatter"), dict(scheduler="random"),
-                   dict(scheduler="token_hash")):
+                   dict(scheduler="token_hash"), option):
         ServingEngine(cfg, params, device="cpu", **ported)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, params, device="cpu", **option)
+    with pytest.raises(ValueError, match="unknown dispatch"):
+        ServingEngine(cfg, params, device="cpu", dispatch="alltoall")
+    layout = build_layout(make_routing_trace(512, cfg.num_experts, cfg.top_k, skew=0.8, seed=0), cfg.num_experts, 2, 3)
+    eng = ServingEngine(cfg, params, device="cpu", layout=layout, **dict(ENGINE_KW, **option))
+    reqs = sample_requests(WorkloadSpec(vocab_size=cfg.vocab_size, **SPEC), np.zeros(2), True)
+    with pytest.raises(TypeError, match="mesh"):
+        eng.run(reqs, max_steps=50)
 
 
 @pytest.mark.parametrize("name", ["whisper-tiny-reduced", "pixtral-12b-reduced"])

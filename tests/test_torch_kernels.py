@@ -908,3 +908,54 @@ def test_cuda_wrappers_refuse_autograd(cuda_device):
             call(q_grad)
         call(_t(q, device=dev).requires_grad_(False))
         assert cuda.LAUNCHES[name] == before + 2, name
+
+
+@pytest.mark.gpu
+def test_custom_ops_under_fake_tensors_launch_nothing(cuda_device):
+    """K2, K3, K4 and K5 are custom ops (``repro_torch::*``): under a
+    ``FakeTensorMode`` their fake implementations give the real launches'
+    shapes and dtypes (and K3's and K4's FLOP formulas count), and nothing
+    launches; the same calls on real tensors launch once each."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core.aebs import ReplicaLayout
+
+    dev = cuda_device
+    rng = np.random.default_rng(11)
+    B, nh, nkv, hd, S = 2, 8, 4, 64, 64
+    q, k, v = _contiguous_inputs(rng, B, nh, nkv, hd, S)
+    (kq, ks), (vq, vs) = _quantised(k), _quantised(v)
+    E, CAP, d, f = 4, 4, 64, 32
+    x = (rng.standard_normal((E, CAP, d)) * 0.5).astype(np.float32)
+    ws = [(rng.standard_normal(s) * 0.1).astype(np.float32) for s in ((E, d, f), (E, d, f), (E, f, d))]
+    tables_np = {n: t.numpy() for n, t in ReplicaLayout.round_robin(E, 2, 3).device_tables("cpu").items()}
+    eids = np.array([[0, 1], [2, 3], [1, 0]], np.int32)
+
+    def calls(to):
+        tables = {n: to(t) for n, t in tables_np.items()}
+        lens = to(np.asarray([S, 5], np.int32))
+        s2e = to(np.arange(E, dtype=np.int32))
+        return {
+            "decode_attention": lambda: decode_attention(to(q), to(k), to(v), lens),
+            "decode_attention_int8": lambda: decode_attention_int8(to(q), to(kq), to(vq), to(ks), to(vs), lens),
+            "expert_ffn": lambda: expert_ffn_grouped(to(x), *(to(w) for w in ws), s2e, to(np.ones(E, np.int32))),
+            "aebs_schedule": lambda: aebs_schedule(to(eids), tables, 2),
+        }
+
+    with torch.no_grad():
+        real = {name: call() for name, call in calls(lambda a: _t(a, device=dev)).items()}
+        torch.cuda.synchronize()
+        before = dict(cuda.LAUNCHES)
+        fake_mode = FakeTensorMode()
+        with fake_mode:
+            fakes = calls(lambda a: torch.empty(a.shape, dtype=_t(a).dtype, device=dev))
+            with FlopCounterMode(display=False) as counter:
+                out = {name: call() for name, call in fakes.items()}
+    assert cuda.LAUNCHES == before
+    for name, got in out.items():
+        want = real[name]
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            assert g.shape == w.shape and g.dtype == w.dtype and g.device == w.device, name
+    # every slot of the fake K3 call counts; K4 and K5 count S rows a slot
+    assert counter.get_total_flops() == 6 * E * CAP * d * f + 2 * 4 * nh * hd * B * S

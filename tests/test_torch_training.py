@@ -15,6 +15,10 @@ round trip and resume (six steps = three, save, load, three); ``train``
 lowering the loss; and the CLI on ``--device cpu``."""
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -407,12 +411,24 @@ def test_cli_prints_done_line(capsys):
     assert out[0].startswith("step     0  loss ")
 
 
-def test_cli_flags_follow_reference_and_dry_run_raises():
+def test_cli_flags_follow_reference_and_dry_run_raises(tmp_path):
+    """The reference's flags and defaults; ``--dry-run`` traces the step on
+    the 16 x 16 fake mesh in its own process (the fake group of 256 ranks is
+    per process) and writes the reference's record under
+    ``results/dryrun``; the default device is the card."""
     args = train_cli.parse_args(["--arch", "yi-34b"])
     assert (args.steps, args.batch, args.seq, args.seed, args.ckpt_dir, args.shape, args.device) == (
         100, 8, 128, 0, None, "train_4k", "cuda")
-    with pytest.raises(NotImplementedError, match="SPMD"):
-        train_cli.main(["--arch", "yi-34b", "--shape", "train_4k", "--dry-run"])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", "dsv2-lite-reduced",
+                          "--shape", "decode_32k", "--dry-run"], cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
+    assert "[dryrun] dsv2-lite-reduced × decode_32k × 16x16:" in run.stdout
+    with open(tmp_path / "results" / "dryrun" / "dsv2-lite-reduced__decode_32k__16x16.json") as f:
+        rec = json.load(f)
+    assert rec["chips"] == 256 and rec["peak_memory_per_device"] > 0 and rec["flops_per_device"] > 0
     if not torch.cuda.is_available():  # the default device is the card: no quiet CPU fallback
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli.main(["--arch", "dsv2-lite", "--reduced", "--steps", "1"])
