@@ -172,9 +172,18 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      scheduler and capacity (logits within TOL["bf16"]), its prefill step (2
      x 2048) and train step (6 of 27 layers, 4 x 512), no launch; host ms,
      device ms and peak GB of each; beside them the dry run of
-     qwen2-moe-a2.7b x decode_32k in its own process (fake cuda tensors over
-     a fake group of 256 ranks), which must exit 0 with a peak per rank
-     below 80 GB;
+     qwen2-moe-a2.7b x decode_32k and of falcon-mamba-7b x prefill_32k
+     (its Mamba scan counted one step ``s`` times), each in its own process
+     (fake cuda tensors over a fake group of 256 ranks), each of which must
+     exit 0 with a peak per rank below 80 GB; then (5l) the analysis slice
+     on the host, no card needed: ``ClusterSimulator`` on dsv2-lite at the
+     H100 spec (data-sheet constants, so every figure is analytic) compares
+     Janus with the sglang, megascale and xdeepserve policies over a 6-hour
+     diurnal profile and replays a 10k-request ``TraceSpec``; GPU-hours,
+     SLO attainment, mean GPUs and attainment per device a policy, and the
+     phase's seconds, logged; it fails unless each result has one record a
+     window, every record meeting the SLO has ``tpot <= slo`` and every
+     record's GPUs are ``n_a + n_e``;
   6. the CLI: ``repro_torch.launch.serve.main`` on the card with the
      reference's defaults, then disagg paged, the dense GQA config, the
      token-hash baseline, gemma2-2b paged and pixtral-12b's text-only
@@ -3395,7 +3404,8 @@ def main():
     # row 4000; AEBS over serving_layout(cfg, 1): 65 slots pinned, the
     # logical expert weights freed layer by layer as they are pinned),
     # prefill step (2 x 2048) and train step (6 of 27 layers, 4 x 512); the
-    # dry run of qwen2-moe-a2.7b x decode_32k in its own process beside them
+    # dry runs of qwen2-moe-a2.7b x decode_32k and falcon-mamba-7b x
+    # prefill_32k (the counted Mamba scan) each in its own process beside them
     from repro_torch.configs import InputShape
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import spmd as spmd_mod
@@ -3403,9 +3413,10 @@ def main():
 
     t5k = time.perf_counter()
     dry_dir = os.path.join(spmd_dir, "dryrun")
-    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen2-moe-a2.7b",
-                            "--shape", "decode_32k", "--out", dry_dir], cwd=root, env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    dry_runs = {(arch, shape): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--out", dry_dir],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape in (("qwen2-moe-a2.7b", "decode_32k"), ("falcon-mamba-7b", "prefill_32k"))}
     mesh1 = make_host_mesh(1, 1, "cuda")
     kcfg = get_config("dsv2-lite")
     K_B, K_ROWS, K_AT, K_STEPS = 8, 4096, 4000, 16
@@ -3546,16 +3557,67 @@ def main():
     torch.cuda.empty_cache()
     close_group()
 
-    dry_log, _ = dry.communicate(timeout=600)
-    line = [ln for ln in dry_log.splitlines() if ln.startswith("[dryrun] ")]
-    rec_path = os.path.join(dry_dir, "qwen2-moe-a2.7b__decode_32k__16x16.json")
-    rec = json.load(open(rec_path)) if os.path.exists(rec_path) else {}
-    log({"phase": "dryrun", "card": card, "returncode": dry.returncode, "line": line[-1] if line else None,
-         "peak_memory_per_device_gb": rec.get("peak_memory_per_device", 0) / 1e9, "device": rec.get("device"),
-         "dominant": rec.get("dominant"), "collective_count": rec.get("hlo_collective_count"),
-         "phase_5k_and_dryrun_s": time.perf_counter() - t5k, "log": dry_log[-2000:] if dry.returncode else None})
-    if dry.returncode or not rec or rec["peak_memory_per_device"] > 80e9:
-        raise AssertionError(f"the dry run failed (exit {dry.returncode}) or its peak per rank exceeds 80 GB")
+    for (arch, shape), dry in dry_runs.items():
+        dry_log, _ = dry.communicate(timeout=600)
+        line = [ln for ln in dry_log.splitlines() if ln.startswith("[dryrun] ")]
+        rec_path = os.path.join(dry_dir, f"{arch}__{shape}__16x16.json")
+        rec = json.load(open(rec_path)) if os.path.exists(rec_path) else {}
+        log({"phase": "dryrun", "card": card, "arch": arch, "shape": shape, "returncode": dry.returncode,
+             "line": line[-1] if line else None,
+             "peak_memory_per_device_gb": rec.get("peak_memory_per_device", 0) / 1e9, "device": rec.get("device"),
+             "dominant": rec.get("dominant"), "collective_count": rec.get("hlo_collective_count"),
+             "build_s": rec.get("lower_s"), "traced_step_s": rec.get("compile_s"),
+             "flops_per_device": rec.get("flops_per_device"), "bytes_per_device": rec.get("bytes_per_device"),
+             "phase_5k_and_dryrun_s": time.perf_counter() - t5k, "log": dry_log[-2000:] if dry.returncode else None})
+        if dry.returncode or not rec or rec["peak_memory_per_device"] > 80e9:
+            raise AssertionError(f"the dry run of {arch} x {shape} failed (exit {dry.returncode}) or its peak per "
+                                 f"rank exceeds 80 GB")
+
+    # ---- 5l. analysis: the cluster simulator and the scaling policies -----
+    # the reference's tests/test_simulator.py setting at the paper's testbed
+    # spec (hw=H100, as examples/autoscale_trace.py does): dsv2-lite, a
+    # 2048-token routing trace at skew 1.0, MonteCarloAmax(trials=4), 12
+    # slots an instance, s_ctx 512, SLO 0.2 s, n_max 16; compare over a
+    # 6-hour diurnal profile (seed 1, mean 3 requests/s, 256 tokens a
+    # request), then replay tests/test_trace.py's 10k-request TraceSpec in
+    # 10 s windows (n_max 8, a 1024-token trace at skew 0.8).  Host numpy:
+    # every figure is analytic, from H100's data-sheet constants, none
+    # measured on the card
+    from repro_torch.serving.simulator import ClusterSimulator
+    from repro_torch.serving.trace import diurnal_rate_profile
+
+    t5l = time.perf_counter()
+    acfg = get_config("dsv2-lite")
+
+    def simulator(trace_tokens, skew, n_max):
+        tr = make_routing_trace(trace_tokens, acfg.num_experts, acfg.top_k, skew=skew, seed=0)
+        pm = PerfModel(acfg, hw=H100, amax_estimator=MonteCarloAmax(tr, acfg.num_experts, trials=4),
+                       slots_per_instance=12, s_ctx=512)
+        return ClusterSimulator(pm, slo=0.2, n_max=n_max)
+
+    win_t, rates = diurnal_rate_profile(hours=6, mean_rate=3.0, seed=1)
+    compared = simulator(2048, 1.0, 16).compare(win_t, rates, tokens_per_req=256.0)
+    reqs_l = TraceSpec(duration=100.0, seed=2, tenants=[
+        TenantSpec(name="chat", klass="chat", rate=100.0, arrival="bursty", burstiness=3.0),
+        TenantSpec(name="batch", klass="batch-offline", rate=40.0, workload=dict(mean_output=48.0, max_output=128)),
+    ]).build(with_prompts=False)
+    replayed = simulator(1024, 0.8, 8).replay(reqs_l, window_s=10.0)
+    analysis_s = time.perf_counter() - t5l
+    bad = []
+    for run, results, windows in (("compare", compared, len(win_t)), ("replay", replayed, 10)):
+        for policy, res in results.items():
+            log({"phase": "analysis", "run": run, "policy": policy, "model": acfg.name, "hw": "H100 (data sheet)",
+                 "windows": len(res.records), "gpu_hours": res.gpu_hours, "slo_attainment": res.slo_attainment,
+                 "mean_gpus": res.mean_gpus, "slo_per_device": res.slo_per_device,
+                 "requests": len(reqs_l) if run == "replay" else None})
+            if len(res.records) != windows or any(r.slo_ok and r.tpot > 0.2 for r in res.records) \
+                    or any(r.total_gpus != r.n_a + r.n_e for r in res.records):
+                bad.append((run, policy))
+    log({"phase": "analysis", "card": card, "seconds": analysis_s, "policies": sorted(compared),
+         "requests_replayed": len(reqs_l)})
+    policies = {"janus", "sglang", "megascale", "xdeepserve"}
+    if bad or set(compared) != policies or set(replayed) != policies or len(reqs_l) < 10_000:
+        raise AssertionError(f"phase 5l: records inconsistent for {bad}, or the policies or requests are wrong")
 
     # ---- 6. the CLI: repro_torch.launch.serve on the card ------------------
     # the reference's defaults (qwen2-moe-a2.7b, reduced, random torch

@@ -170,6 +170,14 @@ class ModelConfig:
             counts["ffn"] += self.encoder_layers * ffn_p
         return counts
 
+    def total_params(self) -> int:
+        return sum(self.param_counts().values())
+
+    def expert_param_fraction(self) -> float:
+        c = self.param_counts()
+        tot = sum(c.values())
+        return c["expert"] / tot if tot else 0.0
+
     def bytes_per_param(self) -> int:
         return 2 if self.dtype == "bfloat16" else 4
 

@@ -17,13 +17,28 @@ The reference draws the random replica choice from JAX's PRNG,
 ``jax.random.uniform(PRNGKey(0), (E,))`` on every call when no key is given.
 :func:`default_uniform` reproduces that draw bit for bit in numpy
 (Threefry-2x32 in JAX's partitionable counter mode), once per E on the host;
-:func:`random_assign` takes any other ``[E]`` draw as ``u``.  The system
-scaling policies of the reference's module (``MonolithicPolicy`` and the
-rest) belong with the cluster simulator and are not ported yet.
+:func:`random_assign` takes any other ``[E]`` draw as ``u``.
+
+The module also holds the system scaling policies the cluster simulator
+(``serving/simulator.py``, Fig. 11) sets against Janus's
+:class:`~repro_torch.core.scaling.SLOScaler`, each returning a
+:class:`PolicyDecision` from ``decide(scaler, demand, slo)``:
+
+* :class:`MonolithicPolicy` — SGLang style: whole-model replicas in
+  power-of-two GPU tiers, none below the model's memory floor;
+* :class:`CoupledPolicy` — MegaScale-Infer style: the most balanced plan
+  (attention against MoE time) that meets the SLO;
+* :class:`FixedUnitPolicy` — xDeepServe style: fixed units of GPUs, split
+  evenly.
+
+They are host code over the scaler's performance model, with the
+reference's loops and tie-breaks in the same order, so the decisions equal
+the reference's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -162,3 +177,117 @@ def token_hash_numpy(eids: np.ndarray, layout: ReplicaLayout):
     for gg in range(layout.num_instances):
         load[gg] = len(np.unique(flat[g == gg]))
     return slots.reshape(T, k), load, None
+
+
+# ---------------------------------------------------------------------------
+# System scaling policies (cluster simulator; ``baselines.py:143``)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PolicyDecision:
+    n_a: int
+    n_e: int
+    total_gpus: int
+    feasible: bool
+
+
+class MonolithicPolicy:
+    """SGLang-style: whole-model replicas in power-of-two GPU tiers.
+
+    A monolithic deployment must *fit the whole model* on its tier (the
+    paper's motivating example: DeepSeek-V3 needs >= 16 H100s just to load),
+    so tiers below the model's memory floor are infeasible."""
+
+    def __init__(self, tier_sizes=(8, 16, 32, 64, 128)):
+        self.tiers = tier_sizes
+
+    def min_tier(self, scaler) -> int:
+        cfg = scaler.model.cfg
+        model_bytes = cfg.total_params() * cfg.bytes_per_param()
+        floor = model_bytes / (0.6 * scaler.model.hw.mem_bytes)  # 40% for KV/act
+        for t in self.tiers:
+            if t >= floor:
+                return t
+        return self.tiers[-1]
+
+    def decide(self, scaler, demand: float, slo: float) -> PolicyDecision:
+        lo = self.min_tier(scaler)
+        for total in self.tiers:
+            if total < lo:
+                continue
+            # attention and MoE share the tier's GPUs; TPOT is evaluated on a
+            # balanced split of the tier
+            n_e = max(scaler.n_e_min, total // 2)
+            n_a = total - n_e
+            if n_a < 1:
+                continue
+            r = scaler.evaluate(demand, slo, n_a, n_e)
+            if r is not None and r.tpot <= slo:
+                return PolicyDecision(n_a, n_e, n_a + n_e, True)
+        t = self.tiers[-1]
+        n_e = max(scaler.n_e_min, t // 2)
+        return PolicyDecision(max(1, t - n_e), n_e, t, False)
+
+
+class CoupledPolicy:
+    """MegaScale-Infer-style: restrict plans to those balancing attention-side
+    and MoE-side times (for pipelined execution).  Among SLO-feasible plans it
+    picks the *most balanced* (then fewest GPUs), which typically costs more
+    GPUs than Janus's unconstrained min-GPU search; when no balanced feasible
+    plan exists the balanced-but-violating plan with the lowest TPOT is used
+    (the Fig. 8 SLO-violation regime)."""
+
+    def __init__(self, tol: float = 0.3):
+        self.tol = tol
+
+    def _imbalance(self, r) -> float:
+        return abs(r.t_attn - r.t_moe) / max(r.t_attn, r.t_moe, 1e-12)
+
+    def decide(self, scaler, demand: float, slo: float) -> PolicyDecision:
+        balanced_feasible = []
+        feasible = []
+        violating = []
+        for n_a in range(1, scaler.n_max + 1):
+            for n_e in range(scaler.n_e_min, scaler.n_max + 1):
+                r = scaler.evaluate(demand, slo, n_a, n_e)
+                if r is None:
+                    continue
+                imb = self._imbalance(r)
+                if r.tpot <= slo:
+                    feasible.append((imb, n_a + n_e, r))
+                    if imb <= self.tol:
+                        balanced_feasible.append((n_a + n_e, imb, r))
+                elif imb <= self.tol:
+                    violating.append((r.tpot, n_a + n_e, r))
+        if balanced_feasible:
+            _, _, r = min(balanced_feasible, key=lambda t: (t[0], t[1]))
+            return PolicyDecision(r.n_a, r.n_e, r.n_a + r.n_e, True)
+        if feasible:
+            _, _, r = min(feasible, key=lambda t: (t[0], t[1]))  # most balanced
+            return PolicyDecision(r.n_a, r.n_e, r.n_a + r.n_e, True)
+        if violating:
+            _, _, r = min(violating, key=lambda t: (t[0], t[1]))
+            return PolicyDecision(r.n_a, r.n_e, r.n_a + r.n_e, False)
+        return PolicyDecision(scaler.n_max, scaler.n_max, 2 * scaler.n_max, False)
+
+
+class FixedUnitPolicy:
+    """xDeepServe-style: scale in fixed units of ``unit`` GPUs, split evenly."""
+
+    def __init__(self, unit: int = 4):
+        self.unit = unit
+
+    def decide(self, scaler, demand: float, slo: float) -> PolicyDecision:
+        total = self.unit
+        while total <= 2 * scaler.n_max:
+            n_e = max(scaler.n_e_min, total // 2)
+            n_a = total - n_e
+            if n_a < 1:
+                total += self.unit
+                continue
+            r = scaler.evaluate(demand, slo, n_a, n_e)
+            if r is not None and r.tpot <= slo:
+                return PolicyDecision(n_a, n_e, n_a + n_e, True)
+            total += self.unit
+        return PolicyDecision(scaler.n_max, scaler.n_max, 2 * scaler.n_max, False)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import Params, dense_init, is_dtensor, resolve_device
+from repro_torch.roofline.analysis import repeat
 
 
 def init_mamba(cfg, gen, dtype, device) -> Params:
@@ -97,9 +98,10 @@ def _causal_conv_step(x_new: torch.Tensor, conv_state: torch.Tensor, w: torch.Te
 
 def _conv_tail(x_pre: torch.Tensor, K: int) -> torch.Tensor:
     """The last ``K - 1`` pre-conv inputs, zero-padded at the front: ``[b, K
-    - 1, c]`` (``ssm.py:125``)."""
+    - 1, c]`` (``ssm.py:125``), in storage of their own (a slice would keep
+    the whole padded sequence alive with the cache)."""
     s = x_pre.shape[1]
-    return F.pad(x_pre, (0, 0, max(0, K - 1 - s), 0))[:, -(K - 1):]
+    return F.pad(x_pre, (0, 0, max(0, K - 1 - s), 0))[:, -(K - 1):].clone()
 
 
 # ---------------------------------------------------------------------------
@@ -121,18 +123,136 @@ def _m1_core_step(p: Params, x_t: torch.Tensor, h: torch.Tensor, N: int, dt_rank
     return y, h
 
 
-def _scan(step, h: torch.Tensor, xs):
-    """The recurrence over time: ``step(h, inputs at t) -> (y_t, h)`` for
+def _scan(step, h: torch.Tensor, xs, p: Params):
+    """The recurrence over time: ``step(p, h, inputs at t) -> (y_t, h)`` for
     each ``t`` of the ``[b, s, ...]`` inputs ``xs``.  Returns ``(final h,
     ys [b, s, ...])``.  The reference scans in checkpointed chunks of 128
     tokens (``ssm.py:132``), a memory bound for training's backward pass
     with the same values; here autograd keeps every step's state, and
-    training bounds it by recomputing each layer period (``remat``)."""
+    training bounds it by recomputing each layer period (``remat``).  On
+    the dry run's fake tensors the loop is counted, not run
+    (:class:`_CountedScan`)."""
+    if _counts_only(xs[0]):
+        names = sorted(p)
+        return _CountedScan.apply(step, names, len(xs), h, *xs, *(p[k] for k in names))
     ys = []
     for t in range(xs[0].shape[1]):
-        y, h = step(h, *(a[:, t] for a in xs))
+        y, h = step(p, h, *(a[:, t] for a in xs))
         ys.append(y)
     return h, torch.stack(ys, dim=1)
+
+
+def _counts_only(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (shapes only), whose ops the dry run
+    counts and never computes."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+def _storage_id(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+class _CountedScan(torch.autograd.Function):
+    """:func:`_scan`'s loop as the dry run records it, at a cost that does
+    not grow with the sequence: one step runs inside
+    ``roofline.analysis.repeat(s)``, so the FLOP counter and the op recorder
+    count it ``s`` times, and tensors the size of what the loop holds are
+    allocated where the loop holds it, so the memory tracker's peak is the
+    loop's.  Forward: the ``s`` outputs before they are stacked, and under
+    autograd the ``s`` steps' saved tensors (measured on the one step: its
+    saved storages other than its inputs), held until backward, and each
+    input the step saves a slice of.  Backward: the step's gradient ``s``
+    times, the select-backward and out-of-place sum autograd runs for each
+    token's slice of each input (it sums into a fake tensor out of place),
+    and the ``s`` contributions summed into each weight's gradient.  Shapes
+    only: the values are not the loop's."""
+
+    @staticmethod
+    def forward(ctx, step, names, n_x, h, *rest):
+        xs, ws = rest[:n_x], rest[n_x:]
+        s = xs[0].shape[1]
+        x_ts = [a[:, 0] for a in xs]
+        train = any(ctx.needs_input_grad)
+        ctx.set_materialize_grads(False)
+        held, x_saved = 0, set()
+        with repeat(s):
+            if train:
+                saved = []  # kept here, not in the graph; emptied below (the hook outlives the step)
+                with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(saved.append, _never):
+                    y, h_out = step(*_leaves(names, h, x_ts, ws))
+                y, h_out = y.detach(), h_out.detach()
+                inputs = {_storage_id(t) for t in (h, *ws)}
+                x_ids = {_storage_id(a) for a in xs}
+                new = {}
+                for t in saved:
+                    sid = _storage_id(t)
+                    if sid in x_ids:
+                        x_saved.add(sid)
+                    elif sid not in inputs:
+                        new[sid] = t.untyped_storage().nbytes()
+                saved.clear()
+                held = (s - 1) * sum(new.values())
+            else:
+                y, h_out = step(dict(zip(names, ws)), h, *x_ts)
+        with repeat(0):
+            kept = y.new_empty((max(0, s - 1) * y.numel(),))  # the loop's outputs before the stack
+            saved_states = y.new_empty((held,), dtype=torch.uint8)
+        ys = y.unsqueeze(1).expand(y.shape[0], s, *y.shape[1:]).contiguous()  # the stack's bytes
+        del kept
+        if train:
+            ctx.save_for_backward(saved_states, h, *ws, *(a for a in xs if _storage_id(a) in x_saved))
+            ctx.step, ctx.names, ctx.s = step, names, s
+            ctx.x_specs = [(a.shape, a.dtype) for a in xs]
+        return h_out, ys
+
+    @staticmethod
+    def backward(ctx, g_h, g_ys):
+        h, *ws = ctx.saved_tensors[1:1 + 1 + len(ctx.names)]
+        s = ctx.s
+        with repeat(0), torch.enable_grad():
+            x_ts = [h.new_empty((shape[0], *shape[2:]), dtype=dtype) for shape, dtype in ctx.x_specs]
+            args = _leaves(ctx.names, h, x_ts, ws)
+            y, h_out = ctx.step(*args)
+            if g_h is None:
+                g_h = torch.zeros_like(h_out)
+        # the state's gradient too: every step but the first passes one on
+        leaves = [args[1], *args[2:], *(args[0][k] for k in ctx.names)]
+        need = (True, *ctx.needs_input_grad[4:])
+        with repeat(s):
+            grads = torch.autograd.grad((y, h_out), [t for t, n in zip(leaves, need) if n],
+                                        (g_ys[:, 0], g_h), allow_unused=True)
+        it = iter(grads)
+        out = [next(it) if n else None for n in need]
+        if not ctx.needs_input_grad[3]:
+            out[0] = None
+        for i, (shape, _) in enumerate(ctx.x_specs):
+            g = out[1 + i]
+            if g is not None:
+                with repeat(s):
+                    g = torch.ops.aten.select_backward(g, shape, 1, 0)
+                with repeat(0):
+                    other = torch.empty_like(g)
+                with repeat(s - 1):
+                    g = g + other
+                out[1 + i] = g
+        for i in range(1 + len(ctx.x_specs), len(out)):
+            if out[i] is not None:
+                with repeat(s - 1):
+                    out[i] = out[i] + out[i]
+        return (None, None, None, *out)
+
+
+def _never(_):
+    raise RuntimeError("the measured step is never differentiated")
+
+
+def _leaves(names, h, x_ts, ws):
+    """``(p, h, *x_ts)`` for one step, as detached leaves that require grad,
+    so the step builds a graph of its own."""
+    p = {k: w.detach().requires_grad_() for k, w in zip(names, ws)}
+    return (p, h.detach().requires_grad_(), *(x.detach().requires_grad_() for x in x_ts))
 
 
 def mamba1_seq(p: Params, u: torch.Tensor, cfg):
@@ -144,7 +264,7 @@ def mamba1_seq(p: Params, u: torch.Tensor, cfg):
     tail = _conv_tail(x, cfg.ssm_conv)
     x = F.silu(_causal_conv_seq(x, p["conv_w"], p["conv_b"]))
     h0 = torch.zeros((u.shape[0], di, N), dtype=torch.float32, device=u.device)
-    h, ys = _scan(lambda h, x_t: _m1_core_step(p, x_t, h, N, dt_rank), h0, (x,))
+    h, ys = _scan(lambda q, h, x_t: _m1_core_step(q, x_t, h, N, dt_rank), h0, (x,), p)
     y = ys.to(u.dtype) * F.silu(z)
     return y @ p["out_proj"], h, tail
 
@@ -202,7 +322,7 @@ def mamba2_seq(p: Params, u: torch.Tensor, cfg):
     xBC = F.silu(_causal_conv_seq(xBC, p["conv_w"], p["conv_b"]))
     h0 = torch.zeros((u.shape[0], cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32,
                      device=u.device)
-    h, ys = _scan(lambda h, x_t, dt_t: _m2_core_step(p, x_t, dt_t, h, cfg), h0, (xBC, dt))
+    h, ys = _scan(lambda q, h, x_t, dt_t: _m2_core_step(q, x_t, dt_t, h, cfg), h0, (xBC, dt), p)
     y = _gated_rmsnorm(ys, z.float(), p["norm_scale"], cfg.norm_eps)
     return y.to(u.dtype) @ p["out_proj"], h, tail
 

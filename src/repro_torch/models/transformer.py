@@ -269,11 +269,18 @@ def _layer_kv(caches: Dict[str, torch.Tensor], i: int, cfg, suffix: str = "") ->
     return kv
 
 
-def moe_stage(lp, x, h, cfg, moe_ctx: Optional[Dict[str, Any]] = None):
-    """MoE (or dense) FFN on the normalised input ``h``, added to ``x``."""
+def moe_stage(lp, x, h, cfg, moe_ctx: Optional[Dict[str, Any]] = None, with_aux: bool = False):
+    """MoE (or dense) FFN on the normalised input ``h``, added to ``x``
+    (``transformer.py:300``).  With ``with_aux`` it returns ``(x, aux)``:
+    the MoE layer's aux (``load``, ``a_max``, ``lb_loss``), or ``{}`` on a
+    dense layer."""
     if "moe" in lp:
+        if with_aux:
+            y, aux = moe_mod.moe_layer(lp["moe"], h, cfg, with_aux=True, **(moe_ctx or {}))
+            return x + y, aux
         return x + moe_mod.moe_layer(lp["moe"], h, cfg, **(moe_ctx or {}))
-    return x + ffn(lp["ffn"], h, cfg.ffn_activation)
+    y = x + ffn(lp["ffn"], h, cfg.ffn_activation)
+    return (y, {}) if with_aux else y
 
 
 def _window(kind: str, cfg) -> Optional[int]:
@@ -305,8 +312,8 @@ def _layer_full(kind, lp, x, cfg, positions, shared_attn, enc_out, moe_ctx, coll
         cache["kv"] = kv
     if kind != "moe" or not with_aux:
         return moe_stage(lp, x, h2, cfg, moe_ctx if kind == "moe" else None), cache, None
-    y, aux = moe_mod.moe_layer(lp["moe"], h2, cfg, with_aux=True, **(moe_ctx or {}))
-    return x + y, cache, aux["lb_loss"]
+    x, aux = moe_stage(lp, x, h2, cfg, moe_ctx, with_aux=True)
+    return x, cache, aux["lb_loss"]
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg, extra: Optional[Dict[str, Any]] = None,

@@ -20,7 +20,9 @@ kind, as the reference sums the result shapes of the HLO collectives.
 
 ``loop_scale`` stays for the record's keys but is always 1.0: XLA counts a
 loop body once and the reference scaled by the period count, while an eager
-trace counts every layer.
+trace counts every layer.  A loop whose steps are alike may instead run one
+step inside :func:`repeat` (the Mamba scan on fake tensors,
+``models/ssm.py``): both recorders count what runs there that many times.
 
 Hardware constants default to one NVIDIA H100 (``core.comm.H100``): bf16
 peak, HBM, and the inter-node link, since a 16-rank model axis spans two
@@ -29,9 +31,10 @@ peak, HBM, and the inter-node link, since a 16-rank model axis spans two
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -56,18 +59,42 @@ _FUNCOL_KINDS = {
 }
 
 
+# how many times what runs now is counted: the product of the open repeat scopes
+_REPEAT: List[int] = [1]
+
+
+@contextlib.contextmanager
+def repeat(n: int) -> Iterator[None]:
+    """Inside, :class:`LocalFlopCounter` and :class:`OpRecorder` count each op
+    ``n`` times (0: not at all), so one step of a loop of ``n`` like steps
+    records as the loop.  Scopes nest by multiplying."""
+    _REPEAT.append(_REPEAT[-1] * n)
+    try:
+        yield
+    finally:
+        _REPEAT.pop()
+
+
 def _local_nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
 class LocalFlopCounter(FlopCounterMode):
     """``FlopCounterMode`` over one rank's local ops (an op on DTensors is
-    left to DTensor, whose local ops come here)."""
+    left to DTensor, whose local ops come here), each counted as often as
+    the open :func:`repeat` scopes say."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if _is_dtensor_op(types):
             return NotImplemented
         return super().__torch_dispatch__(func, types, args, kwargs)
+
+    def _count_flops(self, func_packet, out, args, kwargs):
+        if func_packet in self.flop_registry:
+            flops = self.flop_registry[func_packet](*args, **kwargs, out_val=out) * _REPEAT[-1]
+            for par in set(self.mod_tracker.parents):
+                self.flop_counts[par][func_packet] += flops
+        return out
 
 
 def _is_dtensor_op(types) -> bool:
@@ -79,9 +106,10 @@ def _is_dtensor_op(types) -> bool:
 class OpRecorder(TorchDispatchMode):
     """Counts, per rank, the bytes every aten op reads and writes (views and
     collectives excluded) and records each functional collective as
-    ``(kind, result bytes)``.  An op on DTensors is left to DTensor, which
-    runs it as local ops (and collectives) that come here one by one, so
-    the counts are one rank's."""
+    ``(kind, result bytes)``, as often as the open :func:`repeat` scopes
+    say.  An op on DTensors is left to DTensor, which runs it as local ops
+    (and collectives) that come here one by one, so the counts are one
+    rank's."""
 
     def __init__(self):
         super().__init__()
@@ -92,14 +120,15 @@ class OpRecorder(TorchDispatchMode):
         if _is_dtensor_op(types):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
+        n = _REPEAT[-1]
         ns, name = func.namespace, func._schema.name.split("::")[-1]
         if ns == "_c10d_functional":
             kind = _FUNCOL_KINDS.get(name)
             if kind is not None:
-                self.collectives.append((kind, sum(_local_nbytes(t) for t in _tensors(out))))
-        elif not func.is_view:
+                self.collectives.extend([(kind, sum(_local_nbytes(t) for t in _tensors(out)))] * n)
+        elif ns != "prim" and not func.is_view and n:  # prim: metadata queries (``prim.device``)
             flat = list(_tensors(args)) + list(_tensors(kwargs or {})) + list(_tensors(out))
-            self.bytes += sum(_local_nbytes(t) for t in flat)
+            self.bytes += n * sum(_local_nbytes(t) for t in flat)
         return out
 
 

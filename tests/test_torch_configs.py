@@ -49,6 +49,16 @@ def test_param_counts_equal_reference(name):
     assert get_config(name).kv_bytes_per_token() == ref_get_config(name).kv_bytes_per_token()
 
 
+@pytest.mark.parametrize("name", [n + s for n in REGISTRY for s in ("", "-reduced")])
+def test_total_params_and_expert_fraction_equal_reference(name):
+    """``total_params`` (an integer, exact) and ``expert_param_fraction``
+    (the same float division, exact) on every registered config."""
+    port, ref = get_config(name), ref_get_config(name)
+    assert port.total_params() == ref.total_params()
+    assert type(port.total_params()) is int
+    assert port.expert_param_fraction() == ref.expert_param_fraction()
+
+
 @pytest.mark.parametrize("name", [n + s for n in FRONTENDS for s in ("", "-reduced")])
 def test_frontend_configs_equal_reference(name):
     """The encoder-decoder and vision-patch configs, field for field, with

@@ -102,3 +102,47 @@ def test_moe_layer_aebs_matches_reference(kind, dtype):
     )
     assert isinstance(bare, torch.Tensor)
     assert torch.equal(bare, y)
+
+
+@pytest.mark.parametrize("layer", ["moe", "dense"])
+def test_moe_stage_with_aux_matches_reference(layer):
+    """``transformer.moe_stage(..., with_aux=True)``: on a MoE layer of
+    dsv2-lite-reduced (f32, grouped AEBS dispatch over 2 instances) ``(x +
+    y, aux)`` with ``load`` and ``a_max`` exactly the reference's; on a
+    dense layer ``(x + ffn, {})``.  Without ``with_aux`` the bare stream."""
+    from repro.models import ffn as ref_ffn
+    from repro.models import transformer as ref_transformer
+    from repro_torch.kernels.aebs.ops import aebs_schedule
+    from repro_torch.models import transformer
+
+    ref_cfg, cfg, trace, n_e, C, s = _layer_case("dsv2-lite-reduced", "float32")
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    h = (rng.standard_normal((2, s, cfg.d_model)) * 0.5).astype(np.float32)
+    if layer == "moe":
+        ref_lp = {"moe": ref_moe.init_moe(ref_cfg, jax.random.PRNGKey(0), jnp.float32)}
+        layout = build_layout(trace, cfg.num_experts, n_e, C)
+        ref_layout = ref_build_layout(trace, cfg.num_experts, n_e, C)
+        s2e = layout.slot_to_expert.reshape(-1)
+        ref_ctx = dict(dispatch="grouped", layout_tables=ref_layout.device_tables(),
+                       slot_to_expert=jnp.asarray(s2e), num_instances=n_e, scheduler=ref_aebs_assign)
+        ctx = dict(layout_tables=layout.device_tables("cpu"), slot_to_expert=torch.from_numpy(s2e.astype(np.int32)),
+                   num_instances=n_e, scheduler=aebs_schedule)
+    else:
+        ref_lp = {"ffn": ref_ffn.init_ffn(cfg.d_model, cfg.d_ff, cfg.ffn_activation, jax.random.PRNGKey(0),
+                                          jnp.float32)}
+        ref_ctx = ctx = None
+    lp = jax.tree.map(lambda a: tensor_from_numpy(np.asarray(a)), ref_lp)
+    want, ref_aux = ref_transformer.moe_stage(ref_lp, jnp.asarray(x), jnp.asarray(h), ref_cfg, ref_ctx,
+                                              with_aux=True)
+    got, aux = transformer.moe_stage(lp, torch.from_numpy(x), torch.from_numpy(h), cfg, ctx, with_aux=True)
+    assert_close(got, want, TOL["f32_layer"])
+    if layer == "moe":
+        assert set(aux) == set(ref_aux)
+        assert_equal_int(aux["load"], ref_aux["load"])
+        assert int(aux["a_max"]) == int(ref_aux["a_max"])
+        assert_close(aux["lb_loss"], ref_aux["lb_loss"], TOL["f32_op"])
+    else:
+        assert aux == {} and ref_aux == {}
+    bare = transformer.moe_stage(lp, torch.from_numpy(x), torch.from_numpy(h), cfg, ctx)
+    assert isinstance(bare, torch.Tensor) and torch.equal(bare, got)

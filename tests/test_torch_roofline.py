@@ -110,3 +110,87 @@ def test_dry_run_writes_its_record(fake_runs, shape):
     assert rec["peak_memory_per_device"] > 0 and rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
     assert rec["collective_breakdown"]["count"] == rec["hlo_collective_count"] > 0
     assert rec["collective_bytes_per_device"] > 0
+
+
+def test_repeat_scope_scales_both_recorders():
+    """Inside ``analysis.repeat(n)`` the FLOP counter and the op recorder
+    count each op ``n`` times; scopes nest by multiplying, and ``repeat(0)``
+    counts nothing."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        a, b = torch.empty(8, 16), torch.empty(16, 4)
+        flops, rec = analysis.LocalFlopCounter(display=False), analysis.OpRecorder()
+        with flops, rec:
+            a @ b
+            with analysis.repeat(3):
+                a @ b
+                with analysis.repeat(2):
+                    a @ b
+                with analysis.repeat(0):
+                    a @ b
+    one = 2 * 8 * 16 * 4
+    assert flops.get_total_flops() == (1 + 3 + 6) * one
+    assert rec.bytes == (1 + 3 + 6) * (8 * 16 + 16 * 4 + 8 * 4) * 4
+    assert analysis._REPEAT == [1]
+
+
+SCAN = r"""
+import json, sys
+from repro_torch.configs import SHAPES, InputShape
+from repro_torch.launch.dryrun import run_one
+from repro_torch.launch.mesh import make_mesh, open_group
+from repro_torch.models import ssm
+open_group("fake", world_size=16)
+mesh = make_mesh((4, 4), ("data", "model"), "cpu")
+S = int(sys.argv[2])
+SHAPES["train_s"] = InputShape("train_s", S, 8, "train")
+SHAPES["prefill_s"] = InputShape("prefill_s", S, 8, "prefill")
+counted, hits, out = ssm._counts_only, [0], {}
+
+
+def counting(t):
+    hit = counted(t)
+    hits[0] += hit
+    return hit
+
+
+for arch in ("falcon-mamba-7b-reduced", "zamba2-2.7b-reduced"):
+    for shape in ("train_s", "prefill_s"):
+        for mode in ("counted", "loop"):
+            hits[0] = 0
+            ssm._counts_only = counting if mode == "counted" else (lambda t: False)
+            r = run_one(arch, shape, False, sys.argv[1], mesh=mesh)
+            out[f"{arch}|{shape}|{mode}"] = dict(flops=r["flops_per_device"], bytes=r["bytes_per_device"],
+                                                 peak=r["peak_memory_per_device"], hits=hits[0])
+print("SCAN " + json.dumps(out))
+"""
+SCAN_LEN = 64
+
+
+@pytest.fixture(scope="module")
+def scan_runs(tmp_path_factory):
+    """The Mamba configs' train and prefill steps traced on the fake 4 x 4
+    mesh at ``SCAN_LEN`` tokens, once through the counted scan and once
+    through the token loop."""
+    out = tmp_path_factory.mktemp("dryrun_scan")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    run = subprocess.run([sys.executable, "-c", SCAN, str(out), str(SCAN_LEN)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    line = [ln for ln in run.stdout.splitlines() if ln.startswith("SCAN ")][0]
+    return json.loads(line[len("SCAN "):])
+
+
+@pytest.mark.parametrize("shape", ["train_s", "prefill_s"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b-reduced", "zamba2-2.7b-reduced"])
+def test_counted_scan_records_the_token_loop(scan_runs, arch, shape):
+    """The dry run's counted Mamba scan (``models/ssm.py`` ``_CountedScan``:
+    one step inside ``analysis.repeat``) against the token loop it stands
+    for: FLOPs exactly, unfused bytes and the peak a rank within 2%."""
+    got, want = scan_runs[f"{arch}|{shape}|counted"], scan_runs[f"{arch}|{shape}|loop"]
+    assert got["hits"] > 0 and want["hits"] == 0
+    assert got["flops"] == want["flops"] > 0
+    assert abs(got["bytes"] / want["bytes"] - 1) <= 0.02
+    assert abs(got["peak"] / want["peak"] - 1) <= 0.02

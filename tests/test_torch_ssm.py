@@ -101,6 +101,16 @@ def test_causal_conv_and_tail_equal_reference(s):
         assert_close(g, wv, TOL["f32_op"])
 
 
+@pytest.mark.parametrize("s", [2, 7, 300])
+def test_conv_tail_owns_its_storage(s):
+    """The tail the prefill caches holds ``K - 1`` rows of storage of its
+    own, not a view that keeps the whole padded sequence alive."""
+    x = torch.zeros(2, s, 12)
+    tail = ssm._conv_tail(x, 4)
+    assert tail.shape == (2, 3, 12)
+    assert tail.untyped_storage().nbytes() == tail.numel() * tail.element_size()
+
+
 def test_mamba1_core_step_equals_reference():
     ref_cfg, cfg, ref_p, p = _setup("falcon-mamba-7b-reduced")
     dt_rank = max(1, -(-cfg.d_model // 16))
