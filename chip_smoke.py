@@ -138,26 +138,25 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      verify step, TPOT, tokens/s, peak memory and (disagg) bytes per step
      logged, launches exact from the verify steps, draft forwards and
      rebuilds; then a profiled short run of each mono layout, each disagg
-     run, each pool size the fault runs pass through, 5e's prefix and
-     preemption runs and 5f's self-draft runs (device time per step or
-     verify step, idle share); then (5g) every config the port added
+     run and 5c's pools before and after the resize (device time per step,
+     idle share); then (5g) every config the port added
      (qwen2-moe-a2.7b, scaled-ds-1, scaled-ds-2, dsv2, phi3.5-moe, yi-34b,
      phi4-mini, gemma-7b) at published widths, the four that do not fit the
      card cut in depth, each serving 8 requests on mono paged KV with AEBS
      over serving_layout(cfg, 4) and freed before the next, launches exact,
-     4 decode steps profiled; qwen2-moe also under random and token hash,
+     1 decode step profiled; qwen2-moe also under random and token hash,
      and on disagg 2A 4E under AEBS and random over serving_layout and over
      a trace-planned layout with more replicas (a_max); then (5h) the
      periodic and recurrent families whole at published widths, mono, 8
      slots: gemma2-2b at 8192 rows paged (K1 global, K4 local) and int8
      contiguous (K5), with a 4090-token request whose decode wraps the
      4096-row local buffers, falcon-mamba-7b and zamba2-2.7b (K4 at hd 80)
-     contiguous, launches exact by kernel, 4 decode steps profiled; then
+     contiguous, launches exact by kernel, 1 decode step profiled; then
      (5i) the encoder-decoder and vision-patch families whole at published
      widths through ``extra_builder``: whisper-tiny (encoder_seq 1500,
      8 x 448 rows) paged (K1) and int8 contiguous (K5), pixtral-12b (8 x
      2048 rows, 256 patch rows a prompt) paged (K1), launches exact by
-     kernel, 4 decode steps profiled; then (5j) training at published
+     kernel, 1 decode step profiled; then (5j) training at published
      widths: dsv2-lite cut to 6 of its 27 layers (3.74 B parameters), bf16,
      8 steps of ``make_train_step`` on 4 x 512 tokens of
      ``TokenPipeline(seed=0)`` with remat: step ms (CUDA events), tokens/s,
@@ -171,12 +170,18 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      tokens equal to ``model.decode_step``'s over the same pinned weights,
      scheduler and capacity (logits within TOL["bf16"]), its prefill step (2
      x 2048) and train step (6 of 27 layers, 4 x 512), no launch; host ms,
-     device ms and peak GB of each; beside them the dry run of
-     qwen2-moe-a2.7b x decode_32k and of falcon-mamba-7b x prefill_32k
-     (its Mamba scan counted one step ``s`` times), each in its own process
-     (fake cuda tensors over a fake group of 256 ranks), each of which must
-     exit 0 with a peak per rank below 80 GB; then (5l) the analysis slice
-     on the host, no card needed: ``ClusterSimulator`` on dsv2-lite at the
+     device ms and peak GB of each; then (5m) Mamba training at train_4k's
+     rows a rank (16 x 4096 tokens) through the train_4k step on the 1 x 1
+     mesh: falcon-mamba-7b cut to 2 of 64 layers (2 steps) and zamba2-2.7b
+     to one layer period (1 step), bf16, remat: step ms, falcon's device ms
+     of its second step, peak GB, loss and grad norm a step, every scan in
+     checkpointed 128-token chunks, finite, no launch, peak below 80 GB;
+     beside them the dry runs of qwen2-moe-a2.7b x decode_32k and of
+     falcon-mamba-7b x prefill_32k and x train_4k (its Mamba scan counted
+     one step ``s`` times, chunked and recomputed under autograd), each in
+     its own process (fake cuda tensors over a fake group of 256 ranks),
+     each of which must exit 0 with a peak per rank below 80 GB; then (5l)
+     the analysis slice on the host, no card needed: ``ClusterSimulator`` on dsv2-lite at the
      H100 spec (data-sheet constants, so every figure is analytic) compares
      Janus with the sglang, megascale and xdeepserve policies over a 6-hour
      diurnal profile and replays a 10k-request ``TraceSpec``; GPU-hours,
@@ -191,7 +196,12 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      completed; then ``python -m repro_torch.launch.train --arch dsv2-lite
      --reduced --steps 20`` in its own process, at 4 x 64 tokens (it must
      print the ``done:`` line) and at the default 8 x 128 (its last loss
-     must also be below its first);
+     must also be below its first); beside phase 6, (6b) the four
+     ``examples/torch_*.py`` on the card, each in its own process with short
+     settings where it has them (train_moe 120 steps, autoscale_trace over
+     2 hours): each must exit 0 and launch the kernels of its path (K2, K3
+     and K4 for the two serving examples, none for the other two), logged
+     by kernel;
   7. a ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 Without a CUDA card, or outside the repository, it exits non-zero before
@@ -215,10 +225,12 @@ SCALAR_OPS = 67e12  # fp32 / int32 outside the tensor cores
 # one bf16 rounding of an f32 result: an ulp is at most 2^-7 of the value,
 # and f32 summation-order noise is kept under 2^-12 of the largest output
 ROUNDING_REL, ROUNDING_FLOOR = 2.0**-7, 2.0**-12
-# calls of a run that phase 5b profiles (the rest run unprofiled): each
-# costs ~1-4 s of host time under the profiler (a verify step ~8-15 s), and
-# device time a step varies by under 1% across a run
-PROFILE_CALLS = {"decode": 4, "prefill": 2}
+# calls of a run that phase 5b profiles, the run stopped after them: each
+# costs ~1-4 s of host time under the profiler, and device time a step
+# varies by under 1% across a run (4 and 2 until the script grew by phases
+# 5m and 6b)
+PROFILE_CALLS = {"decode": 1, "prefill": 1}
+PROFILE_STEPS_5G = 1  # decode steps profiled a run in phases 5g-5i (4 until then)
 _START = time.perf_counter()
 
 
@@ -2873,7 +2885,7 @@ def main():
     model_mod.greedy_token = greedy
 
     # ---- 5b. where the time goes: device time of the first decode steps and
-    # prefill calls (PROFILE_CALLS) of a short run (8 requests, 16 in, 16
+    # prefill calls (PROFILE_CALLS) of a short run (8 requests, 16 in, 8
     # out) per layout, profiled one call at a time with CUDA activity only
     # (kernels, no double counting)
     from torch.profiler import ProfilerActivity, profile
@@ -2887,31 +2899,9 @@ def main():
     profile_runs += [("autoscaled_before", cfg, dict(as_kw, n_prefill=1, prefill_batch=2), None),
                      ("autoscaled_after", cfg, dict(as_kw, n_attn=after["n_a"], n_prefill=after["n_p"],
                                                     prefill_batch=2, layout=resized_layout), None)]
-    # phase 5d's pools after each recovery (the host times of those runs mix
-    # pool sizes, so these have none): 1A 4E after the attention loss, 1A 3E
-    # on the survivors' layout after the MoE loss, and (b)'s 1A 4E paged
-    # before its degrade and mono paged after it, all at decode capacity 8
-    profile_runs += [("fault_1a4e", cfg, dict(as_kw, n_attn=1), None),
-                     ("fault_1a3e", cfg, dict(as_kw, n_attn=1, layout=layout_for_survivors(E, 3)), None),
-                     ("fault_1a4e_paged", cfg, dict(as_kw, n_attn=1, kv_page_size=16), None),
-                     ("fault_mono_paged", cfg, dict(kw, capacity_tokens=8, kv_page_size=16), None)]
-    # phase 5e's (a) with the prefix cache and (b) with preemption, on their
-    # own traffic ((b) over its first 12 decode steps: the spill comes at
-    # step 8)
-    profile_runs += [("prefix_mono_paged", cfg, dict(pkw, prefix_cache=True), None),
-                     ("priority_mono_paged", cfg, dict(bkw, sched="priority"), None)]
-    # phase 5f's self-draft runs on their own traffic, one profiled call a
-    # verify step with its draft forwards, from the second (the first
-    # rebuilds every slot's draft cache); 4 of them (each costs 8-15 s of
-    # host time under the profiler, and device time a verify step varies by
-    # under 1%)
-    profile_runs += [("spec_a_self_k3", cfg, dict(paged_kw, **self_k3), None),
-                     ("spec_b_self_k3", cfg, dict(disagg_kw, **self_k3), None)]
-    profile_reqs = {"prefix_mono_paged": prefix_requests, "priority_mono_paged": priority_requests,
-                    "spec_a_self_k3": lambda: make_requests(2, 12, 16, 48, 16, 32),
-                    "spec_b_self_k3": lambda: make_requests(2, 12, 16, 48, 16, 32)}
-    profile_decode_steps = {"priority_mono_paged": 12, "spec_a_self_k3": 4, "spec_b_self_k3": 4}
-    profile_skip = {"spec_a_self_k3": 1, "spec_b_self_k3": 1}
+    # PRs 18-20 also profiled 5d's pools after each recovery, 5e's prefix
+    # and priority runs and 5f's verify steps; they are left out for the
+    # script's time limit (their last device times: PERF.md, PR 27)
     served["autoscaled_before"] = {"step_ms": wall_ms["before"], "ttft_ms": half_metrics(first)["ttft_ms_mean"]}
     served["autoscaled_after"] = {"step_ms": wall_ms["after"], "ttft_ms": half_metrics(second)["ttft_ms_mean"]}
     profiled_ms = {}
@@ -2929,15 +2919,10 @@ def main():
         device_ops = {"decode": [], "prefill": []}  # kernels, copies and fills on the card
         kernel_n = {"decode": {}, "prefill": {}}
         kernel_ms = {"decode": {}, "prefill": {}}
-        cap = dict(PROFILE_CALLS, decode=profile_decode_steps.get(name, PROFILE_CALLS["decode"]))
-        skip = {"decode": profile_skip.get(name, 0), "prefill": 0}
 
         def profiled(fn, kind):
             def call(*args, **kwargs):
-                if skip[kind]:
-                    skip[kind] -= 1
-                    return fn(*args, **kwargs)
-                if len(device_ms[kind]) >= cap[kind]:
+                if len(device_ms[kind]) >= PROFILE_CALLS[kind]:
                     return fn(*args, **kwargs)
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     out = fn(*args, **kwargs)
@@ -2955,15 +2940,16 @@ def main():
             return call
 
         engine = ServingEngine(run_cfg, params, **{**kw, **engine_kw})
-        if engine.spec_k:  # draft forwards and the verify, one call
-            engine._spec_iteration = profiled(engine._spec_iteration, "decode")
-        elif engine.disagg is not None:
+        if engine.disagg is not None:
             DisaggExecutor.decode_step = profiled(disagg_step, "decode")
         else:
             model_mod.decode_step = profiled(decode_step, "decode")
         model_mod.prefill_chunk = profiled(prefill_chunk, "prefill")
         model_mod.prefill_chunk_batched = profiled(prefill_chunk_batched, "prefill")
-        engine.run(profile_reqs.get(name, lambda: make_requests(3, 8, 16, 16, 16, 16, rid0=100))())
+        reqs_b = make_requests(3, 8, 16, 16, 8, 8, rid0=100)
+        # no further than the profiled calls need (each request's prefill
+        # and the profiled decode steps, with room to spare)
+        engine.run(reqs_b, max_steps=len(reqs_b) + PROFILE_CALLS["decode"] + 4)
         model_mod.decode_step, model_mod.prefill_chunk = decode_step, prefill_chunk
         model_mod.prefill_chunk_batched = prefill_chunk_batched
         DisaggExecutor.decode_step = disagg_step
@@ -2976,7 +2962,6 @@ def main():
                       "mono_device_idle_share_decode": 1.0 - profiled_ms[mono_name] / served[mono_name]["step_ms"]}
         log({"phase": "profile", "layout": name, "executor": engine_kw.get("executor", "mono"),
              "card": card, "decode_steps": len(device_ms["decode"]),
-             "step": "verify step with its draft forwards" if engine_kw.get("spec_k") else "decode step",
              "device_ms_per_decode_step": busy,
              "device_ops_per_decode_step": float(np.mean(device_ops["decode"])),
              "step_ms_unprofiled": served[name]["step_ms"] if name in served else None,
@@ -3001,15 +2986,8 @@ def main():
          "predicted_tpot_ms_at_batch_8": predicted,
          "device_ms_per_decode_step": {w: profiled_ms[f"autoscaled_{w}"] for w in ("before", "after")},
          "host_wall_ms_per_step": wall_ms})
-    # phase 5d: device ms per decode step at the pools before and after each
-    # recovery, beside what the recoveries took
+    # phase 5d: what the recoveries took
     log({"phase": "fault_recovery_summary", "card": card,
-         "device_ms_per_decode_step": {
-             "disagg": {"1P2A4E (start, after the prefill loss 0P2A4E)": profiled_ms["autoscaled_before"],
-                        "1A4E (after the attention loss)": profiled_ms["fault_1a4e"],
-                        "1A3E (after the MoE loss)": profiled_ms["fault_1a3e"]},
-             "degrade": {"1A4E paged (start)": profiled_ms["fault_1a4e_paged"],
-                         "mono paged (after the degrade)": profiled_ms["fault_mono_paged"]}},
          "recoveries": {run: fault_logs[(run, True)]["recoveries"] for run in fault_kw},
          "fault_stall_s": {run: fault_logs[(run, True)]["fault_stall_s"] for run in fault_kw},
          "replayed_tokens": {run: fault_logs[(run, True)]["replayed_tokens"] for run in fault_kw},
@@ -3017,16 +2995,12 @@ def main():
          "peak_mem_gb": {f"{run}_{'faults' if hit else 'undisturbed'}": v["peak_mem_gb"]
                          for (run, hit), v in fault_logs.items()}})
 
-    # phase 5f: each run beside its greedy run, device ms per verify step
-    # (its draft forwards included) from 5b
+    # phase 5f: each run beside its greedy run
     keys = ("steps", "spec", "host_ms_per_step", "host_ms_per_verify_call", "tpot_ms_mean", "tokens_per_s",
             "peak_mem_gb", "transfer_bytes_per_step", "draft_rebuilds")
     log({"phase": "spec_summary", "card": card,
          "runs": {f"{cell}_{run}": {k: info[k] for k in keys} for (cell, run), info in spec_logs.items()},
-         "device_ms_per_verify_step": {cell: profiled_ms[f"spec_{cell}_self_k3"] for cell in ("a", "b")},
-         "device_ms_per_greedy_step": {"a": profiled_ms["paged"], "b": profiled_ms["disagg_contiguous"]},
-         "device_idle_share_verify": {cell: 1.0 - profiled_ms[f"spec_{cell}_self_k3"]
-                                      / served[f"spec_{cell}_self_k3"]["step_ms"] for cell in ("a", "b")}})
+         "device_ms_per_greedy_step": {"a": profiled_ms["paged"], "b": profiled_ms["disagg_contiguous"]}})
 
     # ---- 5g. every config the port added, at full width -----------------
     # Each newly registered config serves 8 requests (prompts 16-48, 16
@@ -3037,8 +3011,9 @@ def main():
     # (DEPTH_CUTS, about 60 GB of weights or less).  Each model is freed
     # before the next, the allocator back at its start.  Launches exact per
     # run; no logit may be non-finite; each mono run is followed by a short
-    # run of the same requests that profiles 4 decode steps.  qwen2-moe-a2.7b (the CLI's default) also serves under random
-    # and token hash on mono, and on disagg 2A 4E under AEBS and random over
+    # run of the same requests that profiles PROFILE_STEPS_5G decode steps.
+    # qwen2-moe-a2.7b (the CLI's default) also serves under random and
+    # token hash on mono, and on disagg 2A 4E under AEBS and random over
     # two layouts (a_max: the paper's AEBS-versus-random point; token hash
     # is refused on disagg, as in the reference)
     DEPTH_CUTS = {"scaled-ds-1": 14, "scaled-ds-2": 7, "dsv2": 7, "phi3.5-moe-42b-a6.6b": 22}
@@ -3171,11 +3146,11 @@ def main():
         log({"phase": "init_config", "model": name, "num_layers": run_cfg.num_layers,
              "params": numel(params_5g), "seconds": time.perf_counter() - t0,
              "weights_gb": (torch.cuda.memory_allocated() / 1e9) - base_gb, "card": card})
-        summary_5g[name] = serve_5g(run_cfg, params_5g, "mono paged", profile_steps=4)
+        summary_5g[name] = serve_5g(run_cfg, params_5g, "mono paged", profile_steps=PROFILE_STEPS_5G)
         if name == "qwen2-moe-a2.7b":
             for sched in ("random", "token_hash"):
                 summary_5g[f"{name} {sched}"] = serve_5g(run_cfg, params_5g, f"mono paged, {sched}",
-                                                         profile_steps=4, scheduler=sched)
+                                                         profile_steps=PROFILE_STEPS_5G, scheduler=sched)
             # serving_layout replicates 4 of the 60 experts; the layout
             # planned from a skewed routing trace (phase 3e) replicates 36
             # of them, which gives the scheduler room
@@ -3221,7 +3196,7 @@ def main():
     # from seed 3 (phase 4's ``frontend_builder``), mono, whole-prompt
     # prefill (the encoder runs inside it), every request given the one stub
     # (``extra_builder(1)``, as in the reference).
-    # Both phases: launches exact by kernel, 4 decode steps profiled, each
+    # Both phases: launches exact by kernel, 1 decode step profiled, each
     # model freed before the next
     def long_requests(vocab):
         r = np.random.default_rng(6)
@@ -3265,7 +3240,7 @@ def main():
         for what, kv_quant, ekw in runs:
             run_cfg = dataclasses.replace(base_cfg, kv_quant=kv_quant)
             reqs_fn = (lambda v=run_cfg.vocab_size, f=reqs_of: f(v)) if reqs_of else None
-            info = serve_5g(run_cfg, params_fam, what, profile_steps=4, reqs_fn=reqs_fn, want_fn=family_launches,
+            info = serve_5g(run_cfg, params_fam, what, profile_steps=PROFILE_STEPS_5G, reqs_fn=reqs_fn, want_fn=family_launches,
                             phase=phase, extra_builder=frontend_builder(run_cfg, dev), **ekw)
             summaries[phase][f"{name} {what}"] = info
             if name == "gemma2-2b" and info["decode_steps"] < 16:
@@ -3416,7 +3391,8 @@ def main():
     dry_runs = {(arch, shape): subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--out", dry_dir],
         cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for arch, shape in (("qwen2-moe-a2.7b", "decode_32k"), ("falcon-mamba-7b", "prefill_32k"))}
+        for arch, shape in (("qwen2-moe-a2.7b", "decode_32k"), ("falcon-mamba-7b", "prefill_32k"),
+                            ("falcon-mamba-7b", "train_4k"))}
     mesh1 = make_host_mesh(1, 1, "cuda")
     kcfg = get_config("dsv2-lite")
     K_B, K_ROWS, K_AT, K_STEPS = 8, 4096, 4000, 16
@@ -3555,6 +3531,85 @@ def main():
     del params_t, state_t, train_k
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 5m. Mamba training at train_4k's rows a rank ----------------------
+    # train_4k (256 x 4096 tokens) on the 16 x 16 mesh gives each data rank
+    # 16 rows of 4096 tokens; the card takes that batch through the train_4k
+    # step (launch.steps.build_train_step on the 1 x 1 mesh: remat per layer
+    # period, the scan's 128-token chunks checkpointed inside it, 512-position
+    # cross entropy, AdamW): falcon-mamba-7b at published widths cut to 2 of
+    # its 64 layers, 2 steps, and zamba2-2.7b cut to one layer period (6
+    # Mamba-2 layers and the shared attention block), 1 step (~140-160 s:
+    # the scan's eager token loop runs ~2.1 M device ops a step), bf16
+    # weights drawn on the card from seed 0, TokenPipeline(seed=0).  Each
+    # step is timed with CUDA events; falcon's second under the profiler
+    # (device ms: the card's kernels, copies and fills summed from the raw
+    # trace; zamba2's ~2.1 M ops would add ~80 s of tracing).  Before
+    # the scan was chunked a layer's backward held every token's saved
+    # state (falcon: ~17 MiB a token).  Fails on a non-finite loss or grad
+    # norm, a scan that did not chunk, a kernel launch (no kernel is on the
+    # training path) or a peak of 80 GB
+    import contextlib
+
+    from repro_torch.models.transformer import period_pattern
+
+    M_B, M_S = 16, 4096
+    real_loop = ssm_mod._loop
+    for arch, m_steps, profiled in (("falcon-mamba-7b", 2, True), ("zamba2-2.7b", 1, False)):
+        base_m = get_config(arch)
+        mcfg = dataclasses.replace(base_m, num_layers=2 if arch == "falcon-mamba-7b" else len(period_pattern(base_m)[0]))
+        torch.cuda.reset_peak_memory_stats()
+        params_m = model_mod.init_params(mcfg, seed=0, device=dev)
+        state_m = init_opt_state(params_m)
+        train_m, _ = steps_mod.build_train_step(mcfg, mesh1, InputShape("train_4k", M_S, M_B, "train"),
+                                                _AdamW(total_steps=m_steps))
+        pipe_m = TokenPipeline(DataConfig(mcfg.vocab_size, M_S, M_B, seed=0))
+        chunk_lens = set()
+
+        def spied_loop(step, h, xs, p):
+            chunk_lens.add(int(xs[0].shape[1]))
+            return real_loop(step, h, xs, p)
+
+        ssm_mod._loop = spied_loop
+        cuda.reset_launch_counts()
+        info_m, step_ms_m = [], []
+        for i in range(m_steps):
+            toks_m, labels_m = (torch.from_numpy(a).to(dev) for a in pipe_m.batch(i))
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            last = profiled and i == m_steps - 1
+            with profile(activities=[ProfilerActivity.CUDA]) if last else contextlib.nullcontext() as prof_m:
+                ev0.record()
+                params_m, state_m, info = train_m(params_m, state_m, {"tokens": toks_m, "labels": labels_m})
+                ev1.record()
+                torch.cuda.synchronize()
+            step_ms_m.append(ev0.elapsed_time(ev1))
+            info_m.append({k: float(v.full_tensor()) for k, v in info.items()})
+        dev_ms_m = dev_ops_m = None
+        if profiled:
+            on_card = [e for e in prof_m.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA]
+            dev_ms_m, dev_ops_m = sum(e.duration_ns() for e in on_card) / 1e6, len(on_card)
+            del on_card
+        del prof_m
+        ssm_mod._loop = real_loop
+        launches_m = {n: c for n, c in cuda.LAUNCHES.items() if c}
+        peak_m = torch.cuda.max_memory_allocated() / 1e9
+        log({"phase": "train_mamba", "card": card, "model": arch, "layers": f"{mcfg.num_layers} of "
+             f"{base_m.num_layers} (cut in depth; widths published)", "params": numel(params_m), "mesh": "1x1",
+             "batch": [M_B, M_S], "dtype": mcfg.dtype, "remat": True, "xent_chunk": 512, "steps": m_steps,
+             "scan_chunk_lengths": sorted(chunk_lens), "step_ms": step_ms_m,
+             "tokens_per_s": M_B * M_S / step_ms_m[-1] * 1e3, "device_ms_last_step": dev_ms_m,
+             "device_ops_last_step": dev_ops_m,
+             "device_idle_share_last_step": None if dev_ms_m is None else 1.0 - dev_ms_m / step_ms_m[-1],
+             "peak_gb": peak_m, "loss": [x["loss"] for x in info_m], "grad_norm": [x["grad_norm"] for x in info_m],
+             "launches": launches_m})
+        bad_m = [x for x in info_m if not (np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]) and x["grad_norm"] > 0)]
+        if bad_m or chunk_lens != {ssm_mod.SSM_CHUNK} or launches_m or peak_m >= 80.0:
+            raise AssertionError(f"phase 5m ({arch}): non-finite loss or grad norm {bad_m}, scan chunks {chunk_lens}, "
+                                 f"launches {launches_m} or peak {peak_m:.1f} GB")
+        del params_m, state_m, train_m, info
+        gc.collect()
+        torch.cuda.empty_cache()
     close_group()
 
     for (arch, shape), dry in dry_runs.items():
@@ -3619,12 +3674,34 @@ def main():
     if bad or set(compared) != policies or set(replayed) != policies or len(reqs_l) < 10_000:
         raise AssertionError(f"phase 5l: records inconsistent for {bad}, or the policies or requests are wrong")
 
+    # ---- 6b. the examples: examples/torch_*.py on the card -----------------
+    # each as a user runs it, in its own process (the four at once), with
+    # short settings: quickstart whole (K2, K3 and K4 in its engine),
+    # serve_disaggregated whole (demo A: three pools aliasing the card,
+    # K2/K3/K4; demo B: the expert-parallel decode step on a 1 x 1 NCCL
+    # mesh), train_moe 120 steps with a 20-step warmup and its checkpoints
+    # (the example asserts that its last loss is below its first; no kernel),
+    # autoscale_trace over 2 hours at most 8 devices a policy (host numpy, no
+    # kernel).  Each prints its launches by kernel on a line of its own.
+    # They start here and run beside phase 6 (nothing of either is timed
+    # against a limit; their wall seconds are logged)
+    ex_dir = tempfile.mkdtemp(prefix="examples_")
+    examples = {"torch_quickstart": ([], ("aebs_schedule", "expert_ffn", "decode_attention")),
+                "torch_serve_disaggregated": ([], ("aebs_schedule", "expert_ffn", "decode_attention")),
+                "torch_train_moe": (["--steps", "120", "--warmup", "20", "--ckpt-dir", os.path.join(ex_dir, "ckpt")], ()),
+                "torch_autoscale_trace": (["--hours", "2", "--n-max", "8"], ())}
+    counted_run = ("import json, runpy, sys; from repro_torch.kernels import cuda; sys.argv = sys.argv[1:]; "
+                   "runpy.run_path(sys.argv[0], run_name='__main__'); print('LAUNCHES ' + json.dumps(cuda.LAUNCHES))")
+    t6b = time.perf_counter()
+    ex_procs = {name: subprocess.Popen([sys.executable, "-c", counted_run, f"examples/{name}.py", *argv], cwd=root,
+                                       env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for name, (argv, _) in examples.items()}
+
     # ---- 6. the CLI: repro_torch.launch.serve on the card ------------------
     # the reference's defaults (qwen2-moe-a2.7b, reduced, random torch
     # weights from seed 0), then disagg with paged KV, the dense GQA config
     # without a scheduler and the token-hash baseline; every request must
     # complete and the path's kernels launch (token hash launches no K2)
-    import contextlib
     import io
 
     from repro_torch.launch import serve as serve_cli
@@ -3679,6 +3756,23 @@ def main():
         if run.returncode or not losses or (gate_loss and not losses[1] < losses[0]):
             raise AssertionError(f"phase 6 ({case}): the training CLI failed or did not lower the loss: {done} "
                                  f"(exit {run.returncode})")
+
+    # ---- 6b (continued): the examples' results ----------------------------
+    failed = []
+    for name, proc in ex_procs.items():
+        out, err = proc.communicate(timeout=600)
+        lines = out.splitlines()
+        launched = [json.loads(ln[len("LAUNCHES "):]) for ln in lines if ln.startswith("LAUNCHES ")]
+        launches = {n: c for n, c in (launched[0] if launched else {}).items() if c}
+        path = examples[name][1]
+        log({"phase": "example", "example": f"examples/{name}.py", "argv": examples[name][0], "card": card,
+             "returncode": proc.returncode, "wall_s": time.perf_counter() - t6b, "launches": launches,
+             "output": [ln for ln in lines if not ln.startswith("LAUNCHES ")][-12:],
+             "stderr": err[-2000:] if proc.returncode else None})
+        if proc.returncode or not launched or set(launches) != set(path):
+            failed.append((name, proc.returncode, launches))
+    if failed:
+        raise AssertionError(f"phase 6b: examples failed or launched off their path: {failed}")
 
     # ---- 7. results ------------------------------------------------------
     log({"kernels": [rows[n] for n in cuda.LAUNCHES]})

@@ -23,7 +23,7 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention_int8,
     paged_decode_attention,
 )
-from repro_torch.models.common import Params, apply_rope, dense_init, is_dtensor
+from repro_torch.models.common import Params, apply_rope, checkpointed, dense_init, is_dtensor
 
 NEG_INF = -2.0e38  # the reference's dense-path mask constant (attention.py:24)
 
@@ -240,10 +240,12 @@ def full_attend(q, k, v, cfg, window: Optional[int] = None, causal: bool = True)
     qg = q.reshape(b, s, nkv, q.shape[2] // nkv, q.shape[3])
     idx = torch.arange(s, device=q.device)
     if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
+        # under autograd each block's scores are recomputed in backward: the
+        # sequence's float32 probabilities would otherwise all be kept
+        cap = cfg.attn_logit_softcap
         return torch.cat([
-            _attend(qg[:, lo : lo + Q_CHUNK], k, v,
-                    _causal_mask(idx[lo : lo + Q_CHUNK], idx, window, causal)[None, None, None],
-                    cfg.attn_logit_softcap)
+            checkpointed(lambda qb, k, v, m: _attend(qb, k, v, m, cap), qg[:, lo : lo + Q_CHUNK], k, v,
+                         _causal_mask(idx[lo : lo + Q_CHUNK], idx, window, causal)[None, None, None])
             for lo in range(0, s, Q_CHUNK)
         ], dim=1)
     return _attend(qg, k, v, _causal_mask(idx, idx, window, causal)[None, None, None], cfg.attn_logit_softcap)

@@ -7,8 +7,23 @@ import math
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 
 Params = Dict[str, Any]
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, recomputed in the backward pass when autograd records
+    (grad mode on and an argument that requires grad), so that what it
+    holds for backward is its arguments alone; else a plain call.  Every
+    tensor ``fn`` reads is an argument, so an enclosing checkpoint (a layer
+    period under ``remat``) frees and recomputes them too.  Values and
+    gradients are ``fn``'s, bit for bit.  The port's stand-in for the
+    fusions XLA makes in the reference: its eager float32 elementwise chains
+    would otherwise each keep a full-size copy for backward."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -1,11 +1,12 @@
 """Mamba-1 (falcon-mamba) and Mamba-2 (zamba2) blocks (``repro.models.ssm``).
 
-Sequence mode (whole-prompt prefill) runs the recurrence one token at a time
-over the sequence; decode mode is one step against the carried
-``(conv_state, ssm_state)``.  States are float32; activations follow the
-model dtype.  The reference computes these with ``jnp`` outside any Pallas
-kernel, so the port's versions are plain PyTorch on every device: the scan
-is a Python loop over tokens, the projections ``torch.matmul``.
+Sequence mode (whole-prompt prefill, training) runs the recurrence one token
+at a time over the sequence, in checkpointed chunks of ``SSM_CHUNK`` tokens
+under autograd; decode mode is one step against the carried ``(conv_state,
+ssm_state)``.  States are float32; activations follow the model dtype.  The
+reference computes these with ``jnp`` outside any Pallas kernel, so the
+port's versions are plain PyTorch on every device: the scan is a Python loop
+over tokens, the projections ``torch.matmul``.
 
 Layouts (the reference's):
   Mamba-1 state: ``[batch, d_inner, state]``
@@ -21,7 +22,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Params, dense_init, is_dtensor, resolve_device
+from repro_torch.models.common import Params, checkpointed, dense_init, is_dtensor, resolve_device
 from repro_torch.roofline.analysis import repeat
 
 
@@ -87,6 +88,13 @@ def _causal_conv_seq(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
     return (out + b.float()).to(x.dtype)
 
 
+def _conv_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``silu(conv(x))`` of the sequence blocks (under autograd recomputed in
+    backward: each of the conv's ``K`` float32 products keeps a copy of the
+    input otherwise)."""
+    return F.silu(_causal_conv_seq(x, w, b))
+
+
 def _causal_conv_step(x_new: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
                       b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x_new [b, c]``, ``conv_state [b, K - 1, c]`` (oldest first) ->
@@ -123,18 +131,44 @@ def _m1_core_step(p: Params, x_t: torch.Tensor, h: torch.Tensor, N: int, dt_rank
     return y, h
 
 
+SSM_CHUNK = 128  # the reference's time chunk for the scan under autograd (``ssm.py:129``)
+
+
 def _scan(step, h: torch.Tensor, xs, p: Params):
     """The recurrence over time: ``step(p, h, inputs at t) -> (y_t, h)`` for
     each ``t`` of the ``[b, s, ...]`` inputs ``xs``.  Returns ``(final h,
-    ys [b, s, ...])``.  The reference scans in checkpointed chunks of 128
-    tokens (``ssm.py:132``), a memory bound for training's backward pass
-    with the same values; here autograd keeps every step's state, and
-    training bounds it by recomputing each layer period (``remat``).  On
-    the dry run's fake tensors the loop is counted, not run
-    (:class:`_CountedScan`)."""
+    ys [b, s, ...])``.  Under autograd a sequence of two or more whole
+    chunks runs as the reference's ``_chunked_scan`` (``ssm.py:132``): each
+    ``SSM_CHUNK`` tokens under a non-reentrant checkpoint, so backward keeps
+    the carry at each chunk's start and recomputes one chunk's steps at a
+    time, where the token loop would keep every step's saved state; values
+    and gradients are the loop's, bit for bit (the autograd graph is the
+    loop's).  Inside a recomputed layer period (``remat``) the chunks nest
+    as ``jax.checkpoint`` does.  Without autograd (prefill, decode) the loop
+    runs as it is.  On the dry run's fake tensors the scan is counted, not
+    run (:class:`_CountedScan`)."""
+    s = xs[0].shape[1]
+    chunked = (s > SSM_CHUNK and s % SSM_CHUNK == 0 and torch.is_grad_enabled()
+               and any(t.requires_grad for t in (h, *xs, *p.values())))
     if _counts_only(xs[0]):
         names = sorted(p)
-        return _CountedScan.apply(step, names, len(xs), h, *xs, *(p[k] for k in names))
+        return _CountedScan.apply(step, names, len(xs), SSM_CHUNK if chunked else s, h, *xs,
+                                  *(p[k] for k in names))
+    if not chunked:
+        return _loop(step, h, xs, p)
+    names, ys = sorted(p), []
+    for lo in range(0, s, SSM_CHUNK):
+        h, y = checkpointed(_chunk, step, names, len(xs), h, *(a[:, lo : lo + SSM_CHUNK] for a in xs),
+                            *(p[k] for k in names))
+        ys.append(y)
+    return h, torch.cat(ys, dim=1)
+
+
+def _chunk(step, names, n_x, h, *rest):
+    return _loop(step, h, rest[:n_x], dict(zip(names, rest[n_x:])))
+
+
+def _loop(step, h: torch.Tensor, xs, p: Params):
     ys = []
     for t in range(xs[0].shape[1]):
         y, h = step(p, h, *(a[:, t] for a in xs))
@@ -155,28 +189,32 @@ def _storage_id(t: torch.Tensor) -> int:
 
 
 class _CountedScan(torch.autograd.Function):
-    """:func:`_scan`'s loop as the dry run records it, at a cost that does
-    not grow with the sequence: one step runs inside
+    """:func:`_scan` as the dry run records it, at a cost that does not
+    grow with the sequence: one step runs inside
     ``roofline.analysis.repeat(s)``, so the FLOP counter and the op recorder
-    count it ``s`` times, and tensors the size of what the loop holds are
-    allocated where the loop holds it, so the memory tracker's peak is the
-    loop's.  Forward: the ``s`` outputs before they are stacked, and under
-    autograd the ``s`` steps' saved tensors (measured on the one step: its
-    saved storages other than its inputs), held until backward, and each
-    input the step saves a slice of.  Backward: the step's gradient ``s``
-    times, the select-backward and out-of-place sum autograd runs for each
-    token's slice of each input (it sums into a fake tensor out of place),
-    and the ``s`` contributions summed into each weight's gradient.  Shapes
-    only: the values are not the loop's."""
+    count it ``s`` times, and tensors the size of what the scan holds are
+    allocated where the scan holds it, so the memory tracker's peak is the
+    scan's.  Forward: the ``s`` outputs before they are stacked (by chunk,
+    then concatenated, when ``chunk < s``), and under autograd what is held
+    until backward: the token loop's ``s`` steps' saved tensors (measured on
+    the one step: its saved storages other than its inputs), or the chunked
+    scan's carries at the chunks' starts; and each input the step saves a
+    slice of (every input, when chunked).  Backward: when chunked, each
+    chunk's recompute (``s`` more steps, one chunk's saved tensors held);
+    the step's gradient ``s`` times, the select-backward and out-of-place
+    sum autograd runs for each token's slice of each input (it sums into a
+    fake tensor out of place), and the ``s`` contributions summed into each
+    weight's gradient.  Shapes only: the values are not the scan's."""
 
     @staticmethod
-    def forward(ctx, step, names, n_x, h, *rest):
+    def forward(ctx, step, names, n_x, chunk, h, *rest):
         xs, ws = rest[:n_x], rest[n_x:]
         s = xs[0].shape[1]
+        n_chunks = s // chunk
         x_ts = [a[:, 0] for a in xs]
         train = any(ctx.needs_input_grad)
         ctx.set_materialize_grads(False)
-        held, x_saved = 0, set()
+        held, per_step, x_saved = 0, 0, set()
         with repeat(s):
             if train:
                 saved = []  # kept here, not in the graph; emptied below (the hook outlives the step)
@@ -193,55 +231,88 @@ class _CountedScan(torch.autograd.Function):
                     elif sid not in inputs:
                         new[sid] = t.untyped_storage().nbytes()
                 saved.clear()
-                held = (s - 1) * sum(new.values())
+                per_step = sum(new.values())
+                if n_chunks > 1:
+                    held, x_saved = (n_chunks - 1) * h.untyped_storage().nbytes(), x_ids
+                else:
+                    held = (s - 1) * per_step
             else:
                 y, h_out = step(dict(zip(names, ws)), h, *x_ts)
         with repeat(0):
-            kept = y.new_empty((max(0, s - 1) * y.numel(),))  # the loop's outputs before the stack
+            kept = y.new_empty(((s - chunk if n_chunks > 1 else max(0, s - 1)) * y.numel(),))  # outputs before a stack
             saved_states = y.new_empty((held,), dtype=torch.uint8)
-        ys = y.unsqueeze(1).expand(y.shape[0], s, *y.shape[1:]).contiguous()  # the stack's bytes
+        with repeat(n_chunks):  # the stacks' bytes
+            ys = y.unsqueeze(1).expand(y.shape[0], chunk, *y.shape[1:]).contiguous()
+        if n_chunks > 1:
+            ys = torch.cat([ys] * n_chunks, dim=1)
         del kept
         if train:
             ctx.save_for_backward(saved_states, h, *ws, *(a for a in xs if _storage_id(a) in x_saved))
-            ctx.step, ctx.names, ctx.s = step, names, s
+            ctx.step, ctx.names, ctx.s, ctx.chunk, ctx.per_step = step, names, s, chunk, per_step
+            ctx.y_bytes = y.numel() * y.element_size()
             ctx.x_specs = [(a.shape, a.dtype) for a in xs]
         return h_out, ys
 
     @staticmethod
     def backward(ctx, g_h, g_ys):
-        h, *ws = ctx.saved_tensors[1:1 + 1 + len(ctx.names)]
-        s = ctx.s
-        with repeat(0), torch.enable_grad():
+        s, chunk = ctx.s, ctx.chunk
+        n_chunks = s // chunk
+        saved = ctx.saved_tensors  # chunked: the carries and inputs stay until the chunks have run
+        h, *ws = saved[1:1 + 1 + len(ctx.names)]
+        if n_chunks == 1:
+            del saved
+        with repeat(0):
             x_ts = [h.new_empty((shape[0], *shape[2:]), dtype=dtype) for shape, dtype in ctx.x_specs]
+            # chunked: the later chunks' gradient of each input, then one
+            # chunk's recompute (its saved tensors and outputs)
+            later = [h.new_empty(shape, dtype=dtype) for (shape, dtype), need_x in zip(
+                ctx.x_specs, ctx.needs_input_grad[5:]) if n_chunks > 1 and need_x]
+            recomputed = h.new_empty(((chunk - 1) * (ctx.per_step + ctx.y_bytes) if n_chunks > 1 else 0,),
+                                     dtype=torch.uint8)
+        with repeat(s if n_chunks > 1 else 0), torch.enable_grad():  # each chunk's recompute
             args = _leaves(ctx.names, h, x_ts, ws)
             y, h_out = ctx.step(*args)
-            if g_h is None:
+        if g_h is None:
+            with repeat(0):
                 g_h = torch.zeros_like(h_out)
         # the state's gradient too: every step but the first passes one on
         leaves = [args[1], *args[2:], *(args[0][k] for k in ctx.names)]
-        need = (True, *ctx.needs_input_grad[4:])
+        need = (True, *ctx.needs_input_grad[5:])
         with repeat(s):
             grads = torch.autograd.grad((y, h_out), [t for t, n in zip(leaves, need) if n],
                                         (g_ys[:, 0], g_h), allow_unused=True)
         it = iter(grads)
         out = [next(it) if n else None for n in need]
-        if not ctx.needs_input_grad[3]:
+        if not ctx.needs_input_grad[4]:
             out[0] = None
+        # each input's gradient: its tokens' summed, then (chunked) the chunks'
+        del recomputed
         for i, (shape, _) in enumerate(ctx.x_specs):
             g = out[1 + i]
             if g is not None:
                 with repeat(s):
-                    g = torch.ops.aten.select_backward(g, shape, 1, 0)
+                    g = torch.ops.aten.select_backward(g, (shape[0], chunk, *shape[2:]), 1, 0)
                 with repeat(0):
                     other = torch.empty_like(g)
-                with repeat(s - 1):
-                    g = g + other
-                out[1 + i] = g
+                with repeat(s - n_chunks):
+                    out[1 + i] = g + other
+        del later
+        if n_chunks > 1:
+            del saved
+        for i, (shape, _) in enumerate(ctx.x_specs):
+            g = out[1 + i]
+            if g is not None and n_chunks > 1:
+                with repeat(n_chunks):
+                    g = torch.ops.aten.slice_backward(g, shape, 1, 0, chunk, 1)
+                with repeat(0):
+                    other = torch.empty_like(g)
+                with repeat(n_chunks - 1):
+                    out[1 + i] = g + other
         for i in range(1 + len(ctx.x_specs), len(out)):
             if out[i] is not None:
                 with repeat(s - 1):
                     out[i] = out[i] + out[i]
-        return (None, None, None, *out)
+        return (None, None, None, None, *out)
 
 
 def _never(_):
@@ -262,7 +333,7 @@ def mamba1_seq(p: Params, u: torch.Tensor, cfg):
     dt_rank = max(1, math.ceil(d / 16))
     x, z = torch.split(u @ p["in_proj"], [di, di], dim=-1)
     tail = _conv_tail(x, cfg.ssm_conv)
-    x = F.silu(_causal_conv_seq(x, p["conv_w"], p["conv_b"]))
+    x = checkpointed(_conv_silu, x, p["conv_w"], p["conv_b"])
     h0 = torch.zeros((u.shape[0], di, N), dtype=torch.float32, device=u.device)
     h, ys = _scan(lambda q, h, x_t: _m1_core_step(q, x_t, h, N, dt_rank), h0, (x,), p)
     y = ys.to(u.dtype) * F.silu(z)
@@ -319,12 +390,15 @@ def mamba2_seq(p: Params, u: torch.Tensor, cfg):
     (``ssm.py:224``)."""
     z, xBC, dt = _m2_split(cfg, u @ p["in_proj"])
     tail = _conv_tail(xBC, cfg.ssm_conv)
-    xBC = F.silu(_causal_conv_seq(xBC, p["conv_w"], p["conv_b"]))
+    xBC = checkpointed(_conv_silu, xBC, p["conv_w"], p["conv_b"])
     h0 = torch.zeros((u.shape[0], cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32,
                      device=u.device)
     h, ys = _scan(lambda q, h, x_t, dt_t: _m2_core_step(q, x_t, dt_t, h, cfg), h0, (xBC, dt), p)
-    y = _gated_rmsnorm(ys, z.float(), p["norm_scale"], cfg.norm_eps)
-    return y.to(u.dtype) @ p["out_proj"], h, tail
+
+    def out(ys, z, scale, w):
+        return _gated_rmsnorm(ys, z.float(), scale, cfg.norm_eps).to(u.dtype) @ w
+
+    return checkpointed(out, ys, z, p["norm_scale"], p["out_proj"]), h, tail
 
 
 def mamba2_step(p: Params, u: torch.Tensor, conv_state: torch.Tensor, ssm_state: torch.Tensor, cfg):

@@ -1,8 +1,10 @@
 """The port covers the reference: every module of ``src/repro/`` has its
 counterpart in ``src/repro_torch/``, every public function and class
 defined there exists in the counterpart (and every public member of such a
-class on the port's class), or stands below with its reason; and neither
-the port nor ``chip_smoke.py`` imports ``jax`` or ``repro``.
+class on the port's class), or stands below with its reason; every example
+``examples/<name>.py`` has its port ``examples/torch_<name>.py``; and
+neither the port, its examples nor ``chip_smoke.py`` imports ``jax`` or
+``repro``.
 
 The modules are read as source (``ast``), walked by file: ``serving/`` has
 no ``__init__.py``, so ``pkgutil`` would skip it."""
@@ -15,6 +17,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 REF, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+EXAMPLES = ROOT / "examples"
 
 # the Pallas kernels and their oracles have CUDA ports under csrc/ with the
 # plain versions in kernels/*/ops.py; the architecture list is folded into
@@ -116,7 +119,20 @@ def test_not_ported_names_are_really_absent():
         assert name not in _bound_names(ast.parse((PORT / rel).read_text()).body), (rel, name)
 
 
+REF_EXAMPLES = sorted(p.name for p in EXAMPLES.glob("*.py") if not p.name.startswith("torch_"))
+
+
+def test_reference_examples_are_found():
+    assert {"quickstart.py", "serve_disaggregated.py", "train_moe.py", "autoscale_trace.py"} <= set(REF_EXAMPLES)
+
+
+@pytest.mark.parametrize("name", REF_EXAMPLES)
+def test_example_has_its_port(name):
+    assert (EXAMPLES / f"torch_{name}").exists(), f"examples/torch_{name} is missing"
+
+
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
+                         + sorted(p.relative_to(ROOT).as_posix() for p in EXAMPLES.glob("torch_*.py"))
                          + ["chip_smoke.py"])
 def test_port_imports_neither_jax_nor_the_reference(path):
     text = (ROOT / path).read_text()

@@ -137,16 +137,18 @@ def test_repeat_scope_scales_both_recorders():
 
 
 SCAN = r"""
-import json, sys
+import dataclasses, json, sys
 from repro_torch.configs import SHAPES, InputShape
-from repro_torch.launch.dryrun import run_one
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh, open_group
 from repro_torch.models import ssm
 open_group("fake", world_size=16)
 mesh = make_mesh((4, 4), ("data", "model"), "cpu")
-S = int(sys.argv[2])
+arch, S = sys.argv[2], int(sys.argv[3])
 SHAPES["train_s"] = InputShape("train_s", S, 8, "train")
 SHAPES["prefill_s"] = InputShape("prefill_s", S, 8, "prefill")
+config = dryrun.get_config
+dryrun.get_config = lambda name: dataclasses.replace(config(name), num_layers=1)  # one layer period
 counted, hits, out = ssm._counts_only, [0], {}
 
 
@@ -156,39 +158,48 @@ def counting(t):
     return hit
 
 
-for arch in ("falcon-mamba-7b-reduced", "zamba2-2.7b-reduced"):
-    for shape in ("train_s", "prefill_s"):
-        for mode in ("counted", "loop"):
-            hits[0] = 0
-            ssm._counts_only = counting if mode == "counted" else (lambda t: False)
-            r = run_one(arch, shape, False, sys.argv[1], mesh=mesh)
-            out[f"{arch}|{shape}|{mode}"] = dict(flops=r["flops_per_device"], bytes=r["bytes_per_device"],
-                                                 peak=r["peak_memory_per_device"], hits=hits[0])
+for shape in ("train_s", "prefill_s"):
+    for mode in ("counted", "loop"):
+        hits[0] = 0
+        ssm._counts_only = counting if mode == "counted" else (lambda t: False)
+        r = dryrun.run_one(arch, shape, False, sys.argv[1], mesh=mesh)
+        out[f"{arch}|{shape}|{mode}"] = dict(flops=r["flops_per_device"], bytes=r["bytes_per_device"],
+                                             peak=r["peak_memory_per_device"], hits=hits[0])
 print("SCAN " + json.dumps(out))
 """
-SCAN_LEN = 64
+SCAN_LEN = 2 * 128  # two chunks of the scan under autograd (ssm.SSM_CHUNK)
+SCAN_ARCHS = ("falcon-mamba-7b-reduced", "zamba2-2.7b-reduced")
 
 
 @pytest.fixture(scope="module")
 def scan_runs(tmp_path_factory):
-    """The Mamba configs' train and prefill steps traced on the fake 4 x 4
-    mesh at ``SCAN_LEN`` tokens, once through the counted scan and once
-    through the token loop."""
-    out = tmp_path_factory.mktemp("dryrun_scan")
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    run = subprocess.run([sys.executable, "-c", SCAN, str(out), str(SCAN_LEN)], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=600)
-    assert run.returncode == 0, run.stderr[-4000:]
-    line = [ln for ln in run.stdout.splitlines() if ln.startswith("SCAN ")][0]
-    return json.loads(line[len("SCAN "):])
+    """The Mamba configs' train and prefill steps, cut to one layer period,
+    traced on the fake 4 x 4 mesh at ``SCAN_LEN`` tokens, once through the
+    counted scan and once through the scan itself (the chunked,
+    checkpointed scan in the train step; the token loop in the prefill),
+    one process a config, both at once."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", SCAN, str(tmp_path_factory.mktemp("dryrun_scan")), arch,
+                               str(SCAN_LEN)], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for arch in SCAN_ARCHS]
+    out = {}
+    for p in procs:
+        stdout, stderr = p.communicate(timeout=600)
+        assert p.returncode == 0, stderr[-4000:]
+        line = [ln for ln in stdout.splitlines() if ln.startswith("SCAN ")][0]
+        out.update(json.loads(line[len("SCAN "):]))
+    return out
 
 
 @pytest.mark.parametrize("shape", ["train_s", "prefill_s"])
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b-reduced", "zamba2-2.7b-reduced"])
+@pytest.mark.parametrize("arch", SCAN_ARCHS)
 def test_counted_scan_records_the_token_loop(scan_runs, arch, shape):
     """The dry run's counted Mamba scan (``models/ssm.py`` ``_CountedScan``:
-    one step inside ``analysis.repeat``) against the token loop it stands
-    for: FLOPs exactly, unfused bytes and the peak a rank within 2%."""
+    one step inside ``analysis.repeat``) against the scan it stands for at
+    a length the train step chunks (two checkpointed chunks of 128 tokens,
+    each recomputed in the backward pass, nested in the layer period's
+    ``remat``; the prefill runs the token loop): FLOPs exactly, unfused
+    bytes and the peak a rank within 2%."""
     got, want = scan_runs[f"{arch}|{shape}|counted"], scan_runs[f"{arch}|{shape}|loop"]
     assert got["hits"] > 0 and want["hits"] == 0
     assert got["flops"] == want["flops"] > 0

@@ -109,3 +109,57 @@ def test_loss_grads_and_update_equal_reference(name, remat):
     assert np.isfinite(float(info["grad_norm"])) and float(info["grad_norm"]) > 0
     assert int(state.step) == 1
     assert any(not torch.equal(a, b) for a, b in zip(before, leaves))
+
+
+@functools.lru_cache(maxsize=None)
+def mamba_reference_case(name, s):
+    """``reference_case`` for a Mamba config at ``s`` tokens, one sequence."""
+    ref_cfg = dataclasses.replace(ref_get_config(name + "-reduced"), dtype="float32")
+    cfg = dataclasses.replace(get_config(name + "-reduced"), dtype="float32")
+    ref_params = ref_model.init_params(ref_cfg, 0)
+    tokens = np.random.default_rng(s).integers(0, cfg.vocab_size, (1, s)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    (loss, _), grads = jax.value_and_grad(
+        lambda p: ref_model.loss_fn(p, jnp.asarray(tokens), jnp.asarray(labels), ref_cfg), has_aux=True)(ref_params)
+    return ref_params, cfg, tokens, labels, loss, grads
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["remat-off", "remat-on"])
+@pytest.mark.parametrize("s", [200, 256])
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_mamba_loss_and_grads_at_chunk_lengths_equal_reference(name, s, remat):
+    """The Mamba families' loss and every gradient against the reference's
+    at 256 tokens, where both packages scan in checkpointed chunks of 128
+    (nested in each layer period's checkpoint under ``remat``), and at 200,
+    where both run the flat loop."""
+    from repro.models import ssm as ref_ssm
+    from repro_torch.models import ssm
+
+    assert ssm.SSM_CHUNK == ref_ssm.SSM_CHUNK
+    ref_params, cfg, tokens, labels, want, ref_grads = mamba_reference_case(name, s)
+    params = bridge.params_from_jax(jax.tree.map(np.asarray, ref_params))
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    chunks = []
+    loop = ssm._loop
+
+    def spy(step, h, xs, q):
+        chunks.append(xs[0].shape[1])
+        return loop(step, h, xs, q)
+
+    ssm._loop = spy
+    try:
+        loss, _ = model.loss_fn(params, torch.from_numpy(tokens), torch.from_numpy(labels), cfg, remat=remat)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        ssm._loop = loop
+        for p in leaves:
+            p.requires_grad_(False)
+    assert set(chunks) == ({ssm.SSM_CHUNK} if s % ssm.SSM_CHUNK == 0 else {s})
+    assert_close(loss, want, TOL["f32_layer"])
+    want_grads = tree_leaves(bridge.params_from_jax(jax.tree.map(np.asarray, ref_grads)))
+    assert len(grads) == len(want_grads)
+    for g, w in zip(grads, want_grads):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert_close(g, w, TOL["f32_layer"])

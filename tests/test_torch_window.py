@@ -72,6 +72,39 @@ def test_attention_full_query_chunked_equals_reference():
     assert_close(got, want, TOL["f32_layer"])
 
 
+def test_attention_full_query_blocks_recompute_under_autograd(monkeypatch):
+    """Under autograd each 256-row query block runs under a checkpoint: the
+    output and the gradients of the input and every weight are bitwise the
+    plain blocks', and what the forward keeps for backward holds no block's
+    scores or probabilities (``saved_tensors_hooks``: under a tenth of the
+    plain blocks' bytes)."""
+    _, cfg, _, p = _setup()
+    cfg = dataclasses.replace(cfg, d_model=32, num_heads=2, num_kv_heads=1, head_dim=16)
+    p = {k: torch.from_numpy(_x(v.shape, 7)) for k, v in
+         attn.init_attention(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu").items()}
+    x = torch.from_numpy(_x((1, 2304, cfg.d_model), 3))
+
+    def run():
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xx = x.clone().requires_grad_()
+        saved = {}
+
+        def pack(t):
+            saved[t.untyped_storage()._cdata] = t.untyped_storage().nbytes()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            y = attn.attention_full(leaves, xx, cfg, window=64)
+        grads = torch.autograd.grad(y.square().sum(), [xx, *leaves.values()])
+        return y, grads, sum(saved.values())
+
+    y, grads, kept = run()
+    monkeypatch.setattr(attn, "checkpointed", lambda fn, *args: fn(*args))
+    want_y, want_grads, plain_kept = run()
+    assert torch.equal(y, want_y) and all(torch.equal(g, w) for g, w in zip(grads, want_grads))
+    assert kept < plain_kept / 10, (kept, plain_kept)
+
+
 def _empty_cache(cfg, S, quant):
     shape = (1, S, cfg.num_kv_heads, cfg.resolved_head_dim)
     if quant:
