@@ -268,6 +268,28 @@ def rounding_excess(got, want):
     return float(((g - w).abs() / allow.clamp(min=1e-30)).max())
 
 
+def ptxas_instances(log_text, kernel):
+    """Registers, spill bytes and stack frame of each instance of ``kernel``
+    in an ``nvcc -Xptxas -v`` log, keyed by its template arguments."""
+    out, name = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or kernel not in name:
+            continue
+        args = "_".join(re.findall(r"Li(\d+)E", name.split(kernel, 1)[1])) or name
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(args, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(args, {})["registers"] = int(m.group(1))
+    return out
+
+
 def bound(nbytes, ops, ops_rate):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -527,6 +549,7 @@ def main():
         paged_decode_attention_ref,
         split_plan,
     )
+    from repro_torch.kernels.expert_ffn import ops as ffn_ops
     from repro_torch.kernels.expert_ffn.ops import expert_ffn_grouped, expert_ffn_grouped_ref
     from repro_torch.core.aebs import aebs_assign
     from repro_torch.core.amax import MonteCarloAmax
@@ -571,6 +594,13 @@ def main():
              "spills": spills})
     log({"phase": "build", "seconds": round(build_s, 3), "built": sorted(cuda.BUILD_LOG),
          "card": card})
+    # K3's wgmma instances (rows a warpgroup, row and column warpgroups):
+    # registers, spills (0 expected) and stack; their shared memory is the
+    # plan's, logged beside each timed shape in phase 3d
+    k3_ptxas = ptxas_instances(cuda.BUILD_LOG.get("expert_ffn", ""), "expert_ffn_wgmma")
+    log({"phase": "ptxas_k3", "instances": k3_ptxas, "card": card})
+    if any(v.get("spill_stores") or v.get("spill_loads") for v in k3_ptxas.values()):
+        raise AssertionError(f"expert_ffn_wgmma spills: {k3_ptxas}")
 
     def time_ms(fn, iters):
         for _ in range(3):
@@ -652,6 +682,17 @@ def main():
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b) / (5 * reps)
+
+    def host_us(fn, n=20):
+        """Host microseconds a call spends enqueueing (the device idle
+        before, so nothing blocks the launches)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -924,12 +965,16 @@ def main():
 
     k3_bytes = n_act * 3 * d * f * 2 + n_act * CAP * d * 2 + E * CAP * d * 2 + 2 * E * 4
     k3_ops = n_act * CAP * 2 * 3 * d * f
+    k3_call = lambda: expert_ffn_grouped(x, wg, wu, wd, s2e, active)  # noqa: E731
     record("expert_ffn", "src/repro_torch/csrc/expert_ffn.cu",
            "src/repro/kernels/expert_ffn/kernel.py:40", err, TOL["bf16"],
-           time_ms(lambda: expert_ffn_grouped(x, wg, wu, wd, s2e, active), 50),
+           time_ms(k3_call, 50),
            time_ms(lambda: expert_ffn_grouped_ref(x, wg, wu, wd, s2e, active), 5),
            bound(k3_bytes, k3_ops, BF16_FLOPS), time_ms(k3_library, 50))
-    log({"phase": "kernel_detail", "kernel": "expert_ffn", "active_experts": n_act, "card": card})
+    log({"phase": "kernel_detail", "kernel": "expert_ffn", "active_experts": n_act,
+         "device_ms": graph_ms(k3_call), "host_us": host_us(k3_call),
+         "plan": ffn_ops.bf16_plan(E, CAP, d, f, n_sms)._asdict(), "card": card})
+    same_bits = torch.equal(got, k3_call())
     # the disaggregated executor's MoE instances (phase 5: the layout's 4 x
     # 17 slots): each runs K3 over its own slots at CAP 4 on the tokens AEBS
     # sends it, reading the logical weights through its row of slot_to_expert
@@ -957,13 +1002,18 @@ def main():
         h = F.silu(torch.bmm(xp, wg)) * torch.bmm(xp, wu)
         torch.bmm(h, wd)
 
+    k3_call = lambda: expert_ffn_grouped(xp, wg, wu, wd, s2e, allp)  # noqa: E731
+    first = k3_call()
+    same_bits = same_bits and torch.equal(first, k3_call())
     record("expert_ffn", "src/repro_torch/csrc/expert_ffn.cu",
            "src/repro/kernels/expert_ffn/kernel.py:40", err, TOL["bf16"],
-           time_ms(lambda: expert_ffn_grouped(xp, wg, wu, wd, s2e, allp), 20),
+           time_ms(k3_call, 20),
            time_ms(lambda: expert_ffn_grouped_ref(xp, wg, wu, wd, s2e, allp), 3),
            bound(3 * E * d * f * 2 + 2 * E * CAPP * d * 2 + 2 * E * 4, E * CAPP * 6 * d * f,
                  BF16_FLOPS),
-           time_ms(k3_library_prefill, 20), f"prefill: CAP {CAPP}, {E} active")
+           time_ms(k3_library_prefill, 20), f"prefill: CAP {CAPP}, {E} active",
+           device_ms=graph_ms(k3_call), host_us=host_us(k3_call),
+           plan=ffn_ops.bf16_plan(E, CAPP, d, f, n_sms)._asdict())
     # batched prefill (phase 5c): two prompts' 64-token chunks in one call,
     # drop-free capacity 2 x 64 = 128 over all experts; timed, as the 64-token
     # chunk is.  Then a whole-prompt call's shape: one 48-token prompt, CAP 48
@@ -976,13 +1026,21 @@ def main():
         h = F.silu(torch.bmm(xb, wg)) * torch.bmm(xb, wu)
         torch.bmm(h, wd)
 
+    k3_call = lambda: expert_ffn_grouped(xb, wg, wu, wd, s2e, allp)  # noqa: E731
+    first = k3_call()
+    same_bits = same_bits and torch.equal(first, k3_call())
     record("expert_ffn", "src/repro_torch/csrc/expert_ffn.cu",
            "src/repro/kernels/expert_ffn/kernel.py:40", err, TOL["bf16"],
-           time_ms(lambda: expert_ffn_grouped(xb, wg, wu, wd, s2e, allp), 20),
+           time_ms(k3_call, 20),
            time_ms(lambda: expert_ffn_grouped_ref(xb, wg, wu, wd, s2e, allp), 3),
            bound(3 * E * d * f * 2 + 2 * E * CAPB * d * 2 + 2 * E * 4, E * CAPB * 6 * d * f,
                  BF16_FLOPS),
-           time_ms(k3_library_batched, 20), f"batched prefill: 2 x 64 tokens, CAP {CAPB}, {E} active")
+           time_ms(k3_library_batched, 20), f"batched prefill: 2 x 64 tokens, CAP {CAPB}, {E} active",
+           device_ms=graph_ms(k3_call), host_us=host_us(k3_call),
+           plan=ffn_ops.bf16_plan(E, CAPB, d, f, n_sms)._asdict())
+    # a call gives the same bits every time: no atomics in any sum, and the
+    # counters that join the phases start each launch at zero
+    check("expert_ffn", "same bits on two calls: decode, CAP 64, CAP 128", 0.0 if same_bits else float("inf"), 0.0)
     xw = torch.randn((E, 48, d), generator=gen, device=dev).to(bf)
     err = float((expert_ffn_grouped(xw, wg, wu, wd, s2e, allp).float()
                  - expert_ffn_grouped_ref(xw, wg, wu, wd, s2e, allp).float()).abs().max())
@@ -2908,7 +2966,7 @@ def main():
     # device ops by kind, first match wins: the port's kernels, cuBLAS,
     # sorting, copies and fills; the rest is PyTorch's elementwise ops and
     # reductions
-    profile_groups = (("K3", ("expert_mma_kernel", "f32_gate_up_kernel", "f32_down_kernel")),
+    profile_groups = (("K3", ("expert_ffn_wgmma", "f32_gate_up_kernel", "f32_down_kernel")),
                       ("K2", ("aebs_schedule_kernel",)),
                       ("attention", ("decode_attention_kernel", "merge_splits_kernel")),
                       ("gemm", ("nvjet", "gemm", "gemv", "cutlass", "xmma")),

@@ -31,9 +31,16 @@ into ``build/`` with the checkout's nvcc flags) in the same harness; K3
 ``expert_ffn_grouped`` at the decode shape (64 slots x CAP 4 x 2048 x 1408,
 the experts that 8 tokens' top-6 activate), at a 64-token prefill
 chunk's (CAP 64, all 64 experts) and at a batched prefill call's (two
-prompts' 64-token chunks, CAP 128).  The inputs are those of
-``chip_smoke.py``'s phase 3.  ``--only`` keeps one group of kernels.  Needs
-one CUDA card; exits non-zero without one.
+prompts' 64-token chunks, CAP 128), as ``chip_smoke.py``'s phase 3d, and
+at phase 3e's shapes of the other MoE configs (qwen2-moe, scaled-ds-1,
+scaled-ds-2, phi3.5-moe, dsv2: 8 tokens' decode over ``serving_layout``'s
+capacity and a 64-token chunk, CAP 64, every expert); beside each, the
+host microseconds a wrapper call spends enqueueing and the same function
+as three ``bmm`` calls and silu * mul on the active experts' pre-gathered
+weights (``bmm``, timed the same two ways).  A group builds only its own
+sources; ``build_s`` gives K3's build alone (``expert_ffn``) and the rest.
+``--only`` keeps one group of kernels.  Needs one CUDA card; exits
+non-zero without one.
 """
 
 import argparse
@@ -43,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 TOL = 3e-2  # bf16, tests/_torch_parity.py
@@ -80,7 +88,9 @@ def child(src, only):
     from repro_torch.kernels import cuda
     from repro_torch.kernels.decode_attention import ops
 
-    build_s = cuda.build_all()
+    groups = {"attention": ("decode_attention",), "aebs": ("aebs",), "ffn": ("expert_ffn",)}
+    build_s = {"expert_ffn": cuda.build_all(("expert_ffn",))} if only in (None, "ffn") else {}
+    build_s["rest"] = cuda.build_all(groups[only] if only else cuda.SOURCES)
     dev = torch.device("cuda", 0)
     bf = torch.bfloat16
     gen = torch.Generator(device=dev)
@@ -234,10 +244,46 @@ def child(src, only):
             for b in bs:
                 aebs_shape(f"fig15_ne{n_e}_B{b}", torch.from_numpy(trace[:b]).to(dev), layout, 200)
 
+    def host_us(fn, n=20):
+        """Host microseconds a call spends enqueueing, the device idle before."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    def ffn_shape(key, x, w3, s2e, active, iters):
+        wg, wu, wd = w3
+        check("expert_ffn", ffn.expert_ffn_grouped(x, wg, wu, wd, s2e, active),
+              ffn.expert_ffn_grouped_ref(x, wg, wu, wd, s2e, active))
+        call = lambda _: ffn.expert_ffn_grouped(x, wg, wu, wd, s2e, active)  # noqa: E731
+        measure(f"expert_ffn/{key}", call, 1, iters)
+        host[f"expert_ffn/{key}"] = host_us(call)
+        idx = torch.nonzero(active & (s2e >= 0))[:, 0]
+        e_idx = s2e[idx].long()
+        xa, ga, ua, da = x[idx], wg[e_idx], wu[e_idx], wd[e_idx]
+
+        def lib(_):
+            torch.bmm(F.silu(torch.bmm(xa, ga)) * torch.bmm(xa, ua), da)
+
+        measure(f"bmm/{key}", lib, 1, iters)
+
+    def ffn_weights(E3, d3, f3):
+        return ((torch.randn((E3, d3, f3), generator=gen, device=dev) * d3**-0.5).to(bf),
+                (torch.randn((E3, d3, f3), generator=gen, device=dev) * d3**-0.5).to(bf),
+                (torch.randn((E3, f3, d3), generator=gen, device=dev) * f3**-0.5).to(bf))
+
+    host = {}
     if only in (None, "ffn"):
-        wg = (torch.randn((E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
-        wu = (torch.randn((E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
-        wd = (torch.randn((E, f, d), generator=gen, device=dev) * f**-0.5).to(bf)
+        import torch.nn.functional as F
+
+        from repro_torch.configs import get_config
+        from repro_torch.launch.steps import serving_layout
+        from repro_torch.models.moe import default_capacity
+
+        w3 = ffn_weights(E, d, f)
         s2e = torch.arange(E, dtype=torch.int32, device=dev)
         eids = torch.from_numpy(make_routing_trace(8, E, top_k, skew=0.8, seed=1)).to(dev)
         counts = torch.bincount(eids.reshape(-1).long(), minlength=E)
@@ -245,12 +291,25 @@ def child(src, only):
         for shape, CAP, active, iters in (("decode", 4, counts > 0, 50), ("prefill", 64, every, 20),
                                           ("batched_prefill", 128, every, 20)):
             x = torch.randn((E, CAP, d), generator=gen, device=dev).to(bf)
-            check("expert_ffn", ffn.expert_ffn_grouped(x, wg, wu, wd, s2e, active),
-                  ffn.expert_ffn_grouped_ref(x, wg, wu, wd, s2e, active))
-            measure(f"expert_ffn/{shape}",
-                    lambda _: ffn.expert_ffn_grouped(x, wg, wu, wd, s2e, active), 1, iters)
+            ffn_shape(shape, x, w3, s2e, active, iters)
+        del w3
+        for name in ("qwen2-moe-a2.7b", "scaled-ds-1", "scaled-ds-2", "phi3.5-moe-42b-a6.6b", "dsv2"):
+            cfg = get_config(name)
+            E3, k3, d3, f3 = cfg.num_experts, cfg.top_k, cfg.d_model, cfg.d_ff_expert
+            w3 = ffn_weights(E3, d3, f3)
+            s2e3 = torch.arange(E3, dtype=torch.int32, device=dev)
+            cap = default_capacity(8, k3, serving_layout(cfg, 4).total_slots, cfg.capacity_factor)
+            counts = torch.bincount(torch.from_numpy(make_routing_trace(8, E3, k3, skew=0.8, seed=1)).to(dev)
+                                    .reshape(-1).long(), minlength=E3)
+            x = torch.randn((E3, cap, d3), generator=gen, device=dev).to(bf)
+            x = torch.where(torch.arange(cap, device=dev)[None, :, None] < counts[:, None, None], x, 0)
+            ffn_shape(f"{name}/decode", x, w3, s2e3, counts > 0, 30)
+            x = torch.randn((E3, 64, d3), generator=gen, device=dev).to(bf)
+            ffn_shape(f"{name}/prefill", x, w3, s2e3, torch.ones(E3, dtype=torch.bool, device=dev), 10)
+            del w3, x
+            torch.cuda.empty_cache()
     print(json.dumps({"card": card_line(), "src": src, "build_s": build_s, "ms": out,
-                      "device_ms": dev_out}), flush=True)
+                      "device_ms": dev_out, "host_us": host}), flush=True)
 
 
 def main():

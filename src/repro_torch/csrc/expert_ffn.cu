@@ -11,60 +11,91 @@
 // and read no weight, so the cost tracks the activated experts (the
 // beta * a_max term of the paper's Eq. 1c).
 //
-// Rounding: phase A rounds h to x.dtype, as the TPU kernel does; phase B
-// accumulates h @ Wd in f32 over all of f inside one block and rounds once.
-// The TPU kernel instead rounds its output block to x.dtype after every
-// d_ff tile (11 tiles of 128 at f = 1408), so the two differ within bf16
-// tolerance, not bitwise.  No sum crosses blocks, so results do not change
-// from run to run.
+// Rounding: h is rounded to x.dtype, as the TPU kernel does; the down
+// product accumulates in f32 over all of f inside one block and rounds once
+// (the TPU kernel rounds its output block after every d_ff tile, so the two
+// differ within bf16 tolerance, not bitwise).  No sum uses atomics or
+// crosses blocks, so a call gives the same bits every time.
 //
 // Bound on the H100: bytes.  Each activated expert streams 3 * d * f
-// weights (17.3 MB in bf16 at dsv2-lite) for CAP rows: 2 * CAP FLOP per
-// weight byte, 8 at decode (CAP 4) and 128 at a 64-token prefill chunk, both
-// below the ~295 FLOP/B where the tensor cores would bind.  So the design
-// streams every weight byte from device memory once per launch, whatever
-// CAP is, with enough bytes in flight to keep the memory busy.
+// weights (17.3 MB in bf16 at dsv2-lite) for CAP rows: CAP FLOP per weight
+// byte (2 FLOP a row for each 2-byte weight), 4 at decode (CAP 4), 64 at a
+// 64-token prefill chunk and 128 at a batched 2 x 64 call, all below the
+// ~295 FLOP/B where the tensor cores would bind (989 TFLOP/s over 3.35
+// TB/s).  At dsv2-lite's decode (~30 experts) that is 520 MB, 0.155 ms; a
+// CAP 64 chunk over all 64 experts, 1.11 GB plus 34 MB of x and out, 0.341
+// ms (the bound counts x and out once; the kernel reads a slot's token
+// rows once a column tile, from L2).  So every weight byte streams from
+// device memory once a call, whatever CAP is, with enough bytes in flight
+// to keep the memory busy, and nothing else (token rows, h) may take the
+// copy or issue slots the weights need.
 //
-// Design (bf16), replacing the first version's plain-FMA kernels, which
-// streamed each weight once per 8 rows (8 times at a 64-token prefill
-// chunk) and loaded 2 bytes a thread (0.37 ms at decode and 5.2 ms at a
-// 64-token prefill chunk on the H100, against 0.20 and 0.45 now): two
-// launches of one GEMM template, phase A (x @ Wg and x @ Wu, silu * mul, h
-// rounded to bf16 into a [S, CAP, f] scratch) and phase B (h @ Wd).  A
-// block owns one slot and a tile of output columns, and ALL of the slot's
-// CAP rows (up to 256): the loop over the reduction axis is the outer and
-// only loop, so each weight tile is read once and used for every row.  A
-// CAP above 256 (a prefill chunk of more than 256 tokens; the engine's is
-// 64) runs as launches over blocks of 256 rows, each streaming the weights
-// once.
-//   * Weight tiles (64 reduction rows x the block's columns) and the
-//     matching slice of the slot's token rows arrive through a ring in
-//     shared memory, fed by 16-byte cp.async copies (cache-global: the
-//     weights are a stream).  Rows are padded by 16 bytes so ldmatrix is
-//     conflict-free.  The ring has 2 stages: what keeps bytes in flight is
-//     the number of resident blocks (5 an SM at decode, each with a stage
-//     in flight while it computes on the other), and on the H100 3, 4 and
-//     6 stages, which fit fewer blocks, were slower.
-//   * Products run on the tensor cores, mma.sync.m16n8k16 bf16 with f32
-//     accumulators, "swap AB": the weights sit on the MMA's 16-row side
-//     (out^T = W^T . x^T, weight fragments by ldmatrix.trans) and the token
-//     rows on its 8-wide side, so CAP pads to a multiple of 8, not 16 or 64.
-//     This mapping serves prefill too: at CAP 64 each weight fragment feeds
-//     8 MMAs, the same operand reuse as putting the rows on M, and the
-//     kernel stays bound by bytes either way.
-//   * The launcher picks the tile from CAP: NT in {1, 2, 4, 8} n-tiles of 8
-//     rows per warp; 4 warps over 64 columns for up to 16 rows (decode), 8
-//     warps over 128 columns up to 128 rows (prefill: twice the warps share
-//     each stage's token slice); 1-4 warp sets over the rows beyond (up to
-//     256 rows a launch).  Blocks of inactive slots exit
-//     before any load (phase B writes their zeros).
-//   * Grid (column tiles, slots): at decode (64 slots, ~30 active) that is
-//     ~660 live blocks for phase A and ~960 for phase B on 132 SMs.
-// The wrapper checks what the 16-byte copies need (d and f multiples of 8,
-// 16-byte-aligned tensors).
+// Design (bf16), replacing PR 13's mma.sync + cp.async kernels (two
+// launches, a 2-stage ring whose bytes in flight were tied to resident
+// blocks, token rows re-staged by every thread, a grid over every slot):
+//   * One launch does both phases (design (a) of the two the redesign
+//     weighed).  Its persistent grid (one block an SM, all resident) walks
+//     a work list built on the device from `active` and `slot_to_expert`
+//     (the host never reads them): every live slot's phase-A items (64 * C
+//     columns of h: x @ Wg and x @ Wu, silu * mul, h rounded to bf16),
+//     then its phase-B items (128 * C columns of out: h @ Wd).  The blocks
+//     take items in list order: at 33+ rows from one counter (an atomic
+//     add that no sum depends on, so the bits do not change), so a block
+//     that finishes an item early takes the next one, phase A or B, and
+//     the blocks end within one item of each other however the items'
+//     lengths differ (a static round robin left up to 9% of a block's
+//     share of imbalance at CAP 64); at decode block b takes items b,
+//     b + G, ..., which keeps a slot's column tiles in lockstep.  Either
+//     way no wave is cut at the phase boundary.  A phase-B item
+//     waits, in its producer, on its slot's count of finished phase-A
+//     items (release / acquire, then a proxy fence before TMA reads h); the
+//     last phase-B item of a slot resets the counts, and the last block to
+//     find the list spent resets its counter, so each launch (and each
+//     replay of a CUDA graph) starts from zero with no memset.  Weight
+//     streaming never drains between the phases: a block that runs out of
+//     phase-A work goes straight on to phase B.  Two launches joined by
+//     programmatic dependent launch (design (b)) would still drain phase
+//     A's last partial wave before phase B's blocks find room.  Slots that
+//     do no work appear in no item; the consumers write their zeros first.
+//     A spin that lasts ~17 s traps: a fault, not a hang.
+//   * Warp specialisation: one producer thread keeps a ring of 4-12 stages
+//     (as many as fit in 227 KB, at most 12) full with TMA loads, each
+//     stage guarded by full / empty mbarriers.  A stage holds 2C weight
+//     boxes (64 columns x 64 reduction rows, 128-byte rows with 128-byte
+//     swizzle; the expert is the third coordinate of a 3-D tensor map over
+//     [E, K, N], so the slot indirection costs nothing; L2 evict-first)
+//     and R boxes of the item's token rows (x, or h in phase B; L2
+//     evict-last, as every column tile of the slot reads them).  TMA uses
+//     no thread's registers or issue slots, so bytes in flight follow the
+//     ring's depth (~190 KB an SM), not the number of resident blocks.
+//   * Products run on wgmma, R x C consumer warpgroups: the weights are A
+//     (64 output columns, MN-major, transposed by the descriptor), the
+//     token rows are B (N = CAP rounded up to 8, 16, 32, 64 or 128,
+//     K-major), f32 accumulators, so a weight box serves every row and rows
+//     pad to 8, not to 64 (out^T = W^T . x^T).  Up to 32 rows one
+//     warpgroup (items stay small, for balance over ~30 live slots at
+//     decode); at 33-128 rows two split the columns (C = 2: a token box
+//     serves 128 columns of h, and the weights stream in 256- and 512-byte
+//     runs of a row, which measured 2-6% faster at prefill); above 128 two
+//     split the rows (R = 2, 256 rows a row block).  A CAP above 256 runs
+//     in row blocks of 256 (an item is one row block), each streaming the
+//     weights once.  No branch surrounds a wgmma (one serialises them), and
+//     no instance needs setmaxnreg: the accumulators take N (<= 128)
+//     registers a thread, and ptxas fits every instance without spills.
+//   * The tensor maps are built once per (address, shape, box) and cached
+//     on the host (an encoding depends on nothing else); the
+//     shared-memory attribute is set once a device and instance.
+// The wrapper checks what TMA needs (d and f multiples of 8, 16-byte-
+// aligned tensors).
 //
 // float32 stays on CUDA cores in full f32 (no TF32): the first version's
 // kernels, two launches of plain FMAs over row groups of 8.
+#include <cuda.h>
+
+#include <functional>
+#include <mutex>
+#include <unordered_map>
+
 #include "common.cuh"
 
 namespace {
@@ -233,284 +264,583 @@ int launch_f32(const void* x, const void* wg, const void* wu, const void* wd, co
 
 // ------------------------------------------------------------------- bf16
 
-constexpr int kPad = 8;  // bf16 padding per shared row: 16 bytes, so ldmatrix is conflict-free
+constexpr int kBox = 64;                       // a TMA box: 64 columns x 64 rows of bf16
+constexpr int kBoxBytes = kBox * kBox * 2;     // 8 KB, 128-byte rows, 128-byte swizzle
+constexpr int kRowBytes = kBox * 2;            // one token row of a box: 64 values
+// The weights' (A, MN-major) descriptor: LBO steps from one 64-column block
+// to the next (unused: a box is one block), SBO from 8 reduction rows to
+// the next (1024 bytes); the token rows' (B, K-major) SBO steps 8 rows.
+constexpr uint32_t kLboA = 1024;
+constexpr long long kSpinCycles = 1LL << 35;   // ~17 s: a wait that long is a fault, not a wait
+constexpr int kQueue = 16;  // item ids in flight from producer to consumers: more than the ring's stages
 
-// A block's tile: WarpsN warps over 16 * WarpsN output columns, TileK
-// reduction rows per ring stage, Ring stages, up to MaxRowWarps warp sets
-// over the rows (512 threads at most).
-template <int WarpsN, int TileK, int Ring>
-struct Tile {
-  static constexpr int kWarpsN = WarpsN;
-  static constexpr int kTileN = 16 * WarpsN;
-  static constexpr int kTileK = TileK;
-  static constexpr int kRing = Ring;
-  static constexpr int kLdW = kTileN + kPad;  // shared row stride of a weight tile
-  static constexpr int kLdX = TileK + kPad;   // shared row stride of the token slice
-  static constexpr int kMaxRowWarps = 16 / WarpsN;
-  static constexpr int kThreads = 32 * WarpsN * kMaxRowWarps;
-  // bf16 elements of one ring stage: kW weight tiles, then the token slice
-  __host__ __device__ static constexpr int stage_elems(int kW, int rows) {
-    return kW * TileK * kLdW + rows * kLdX;
-  }
+// A block: R x C consumer warpgroups and one producer warp (one thread of
+// it issues the loads).  Warpgroup
+// (r, c) owns token rows [r * N, (r + 1) * N) of the item's row block and
+// weight boxes 2c and 2c + 1 of every ring stage.
+template <int N, int R, int C>
+struct Cfg {
+  static_assert(N % 8 == 0 && N >= 8 && N <= 128, "wgmma n: a multiple of 8, at most 128 here");
+  static constexpr int kConsumers = 128 * R * C;
+  static constexpr int kThreads = kConsumers + 32;  // and a producer warp
+  static constexpr int kTokBytes = N * kRowBytes;              // one warpgroup's token box
+  static constexpr int kStageBytes = 2 * C * kBoxBytes + R * kTokBytes;
+  static_assert(kStageBytes % 1024 == 0, "stages stay 1024-aligned for the 128-byte swizzle");
 };
-// Measured on the H100 at dsv2-lite's widths: 64 columns at decode (CAP 4),
-// 128 at a 64-token prefill chunk (twice the warps share each stage's
-// token slice); stages of 64 rows; 2 stages, because a smaller ring fits
-// more blocks on an SM, and resident blocks keep more bytes in flight than
-// a deeper ring does (3, 4 and 6 stages, and stages of 32 rows, were
-// slower at both shapes).
-using DecodeTile = Tile<4, 64, 2>;
-using PrefillTile = Tile<8, 64, 2>;
-constexpr int kMaxCap = DecodeTile::kMaxRowWarps * 64;
+
+struct Params {
+  const int* s2e;
+  const int* active;
+  bf16* h;             // [S, CAP, f]
+  bf16* out;           // [S, CAP, d]
+  unsigned* counters;  // [2, S * n_rb]: phase-A tiles done, phase-B items started
+  int S, CAP, d, f;
+  int n_rb;            // row blocks of R * N rows a slot
+  int tiles_a;         // phase-A items a row block: 64 * C columns of h each
+  int tiles_b;         // phase-B items a row block: 128 * C columns of out each
+  int stages;          // ring depth
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// 16 bytes global -> shared, or 16 zero bytes where !ok (src is not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void spin_check(long long& t0) {
+  if (t0 == 0) t0 = clock64();
+  else if (clock64() - t0 > kSpinCycles) __trap();
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
 }
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    spin_check(t0);
+  }
 }
 
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory, completing its bytes of the barrier's transaction count, with an
+// L2 cache policy
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, uint64_t policy) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
 }
 
-// One phase for one slot and a tile of output columns: out[r, n] over nr
-// rows r of the slot, reducing over K.  GateUp: W0 = Wg, W1 = Wu and
-// out = bf16(silu(x W0) * (x W1)); otherwise out = bf16(x W0).  Slot s's
-// rows start at x + s * CAP * K and out + s * CAP * N (the launcher offsets
-// x and out to a block of rows), the weights are [E, K, N].  blockDim.x =
-// 32 * WarpsN * (row warp sets); each warp set holds NT * 8 rows.
-template <int NT, bool GateUp, class Tl>
-__global__ void __launch_bounds__(Tl::kThreads) expert_mma_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w0, const bf16* __restrict__ w1,
-    const int* __restrict__ s2e, const int* __restrict__ active, bf16* __restrict__ out,
-    int CAP, int nr, int K, int N) {
-  static_assert(NT == 1 || NT % 2 == 0, "row n-tiles are loaded in pairs");
-  constexpr int kW = GateUp ? 2 : 1;
-  const int s = blockIdx.y;
-  const int n0 = blockIdx.x * Tl::kTileN;
-  const int tid = threadIdx.x;
-  bf16* os = out + (size_t)s * CAP * N;
-  if (!slot_live(s2e, active, s)) {
-    if (!GateUp)  // phase B writes the inactive slot's zeros; phase A's h is never read
-      for (int i = tid; i < nr * Tl::kTileN; i += blockDim.x) {
-        const int r = i / Tl::kTileN, c = n0 + i % Tl::kTileN;
-        if (c < N) os[(size_t)r * N + c] = __float2bfloat16_rn(0.f);
-      }
-    return;
-  }
-  const int rows = (blockDim.x / (32 * Tl::kWarpsN)) * NT * 8;  // nr padded, held in the ring
-  const int n_stage = Tl::stage_elems(kW, rows);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
 
-  const size_t e = (size_t)s2e[s];
-  const bf16* wa = w0 + e * K * N;
-  const bf16* wb = GateUp ? w1 + e * K * N : wa;
-  const bf16* xs = x + (size_t)s * CAP * K;
-  const int nk = (K + Tl::kTileK - 1) / Tl::kTileK;
-
-  // stage <- weight rows [k0, k0 + TileK) x columns [n0, n0 + TileN), and
-  // the token slice [rows, k0 : k0 + TileK); out-of-range chunks are
-  // zero-filled
-  auto load_stage = [&](int stage, int kt) {
-    bf16* st = ring + stage * n_stage;
-    const int k0 = kt * Tl::kTileK;
-    constexpr int kChunksW = Tl::kTileK * (Tl::kTileN / 8);
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads or writes across a wgmma
+// that it cannot see writing them
+template <int M>
+__device__ __forceinline__ void fence_regs(float (&d)[M]) {
 #pragma unroll
-    for (int m = 0; m < kW; ++m) {
-      const bf16* w = m == 0 ? wa : wb;
-      for (int i = tid; i < kChunksW; i += blockDim.x) {
-        const int r = i / (Tl::kTileN / 8), c = (i % (Tl::kTileN / 8)) * 8;
-        const bool ok = k0 + r < K && n0 + c < N;
-        cp_async16(st + (m * Tl::kTileK + r) * Tl::kLdW + c,
-                   ok ? w + (size_t)(k0 + r) * N + n0 + c : w, ok);
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x N] += A[64 x 16] . B[16 x N]: A (the weights) MN-major, B (the
+// token rows) K-major, both from shared memory; f32 accumulators
+template <int N>
+__device__ __forceinline__ void wgmma_tn(float (&d)[N / 2], uint64_t da, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_tn<8>(float (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<16>(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<32>(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<64>(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<128>(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The work list, the same in every block and in the Python model
+// (ops.py:work_items): the live slots in order, each in n_rb row blocks
+// ("units"); first every unit's tiles_a phase-A items, then every unit's
+// tiles_b phase-B items.  The blocks take items in this order from one
+// counter, or block b items b, b + G, ... (the producer's next()).
+struct Item {
+  bool a;
+  int s, rb, ct, unit;
+};
+
+__device__ __forceinline__ Item item_at(const Params& p, const int* live, int items_a, int it) {
+  Item t;
+  t.a = it < items_a;
+  const int j = t.a ? it : it - items_a;
+  const int tiles = t.a ? p.tiles_a : p.tiles_b;
+  const int q = j / tiles;
+  t.ct = j % tiles;
+  t.s = live[q / p.n_rb];
+  t.rb = q % p.n_rb;
+  t.unit = t.s * p.n_rb + t.rb;
+  return t;
+}
+
+// first output column of weight box b (0 .. 2C - 1) of an item, and its width
+template <int C>
+__device__ __forceinline__ int box_col(const Params& p, const Item& t, int b) {
+  return t.a ? t.ct * 64 * C + 64 * (b / 2) : t.ct * 128 * C + 64 * b;
+}
+
+// The producer: one thread keeps the ring full, item after item.
+template <int N, int R, int C>
+__device__ __forceinline__ void produce(const Params& p, const int* live, int items_a, int items,
+                                        int* queue, unsigned char* ring, uint64_t* full, uint64_t* empty,
+                                        const CUtensorMap* map_wg, const CUtensorMap* map_wu,
+                                        const CUtensorMap* map_wd, const CUtensorMap* map_x,
+                                        const CUtensorMap* map_h) {
+  using K = Cfg<N, R, C>;
+  unsigned* done_a = p.counters;
+  unsigned* started_b = p.counters + p.S * p.n_rb;
+  // the weights stream through L2 once: evict them first, so the token
+  // rows and h, which every column tile of a slot reads, stay
+  uint64_t stream_once, keep;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(stream_once));
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(keep));
+  unsigned* next_item = p.counters + 2 * p.S * p.n_rb;
+  unsigned* blocks_out = next_item + 1;
+  int stage = 0, seq = 0;
+  uint32_t phase = 0;
+  // The next item: with two column warpgroups (33+ rows: long items), the
+  // next of the list for whichever block asks first, claimed while the
+  // current item's last stage waits for room (the atomic's latency hides
+  // behind that wait), so the blocks end within one item of each other;
+  // with one (decode), items b, b + G, ... in lockstep, so the column tiles
+  // of a slot stream each weight row together (2-3% faster there than
+  // claiming, which is 2-3% faster at 64 and 128 rows).  The consumers
+  // learn it through the queue, published by its first stage's barrier.
+  auto next = [&]() { return C > 1 ? (int)atomicAdd(next_item, 1u) : blockIdx.x + seq * gridDim.x; };
+  int it = next();
+  while (true) {
+    mbar_wait(smem_u32(empty + stage), phase ^ 1);
+    queue[seq % kQueue] = it < items ? it : -1;
+    if (it >= items) {  // the list is spent: tell the consumers; the last
+      // block out resets the counter for the next launch
+      if (C > 1 && atomicAdd(blocks_out, 1u) == gridDim.x - 1) {
+        atomicExch(next_item, 0u);
+        atomicExch(blocks_out, 0u);
+      }
+      mbar_arrive(smem_u32(full + stage));
+      return;
+    }
+    ++seq;
+    const Item t = item_at(p, live, items_a, it);
+    const int e = p.s2e[t.s];
+    const int n_out = t.a ? p.f : p.d;
+    const int nk = ((t.a ? p.d : p.f) + kBox - 1) / kBox;
+    if (!t.a) {  // h of this unit: every phase-A tile written
+      long long t0 = 0;
+      while (true) {
+        unsigned v;
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(done_a + t.unit) : "memory");
+        if (v >= (unsigned)p.tiles_a) break;
+        spin_check(t0);
+      }
+      asm volatile("fence.proxy.async;\n" ::: "memory");  // h's stores, then TMA's reads of h
+      if (atomicAdd(started_b + t.unit, 1u) == (unsigned)p.tiles_b - 1) {
+        atomicExch(done_a + t.unit, 0u);
+        atomicExch(started_b + t.unit, 0u);
       }
     }
-    bf16* xt = st + kW * Tl::kTileK * Tl::kLdW;
-    for (int i = tid; i < rows * (Tl::kTileK / 8); i += blockDim.x) {
-      const int r = i / (Tl::kTileK / 8), c = (i % (Tl::kTileK / 8)) * 8;
-      const bool ok = r < nr && k0 + c < K;
-      cp_async16(xt + r * Tl::kLdX + c, ok ? xs + (size_t)r * K + k0 + c : xs, ok);
+    uint32_t bytes = R * K::kTokBytes;
+#pragma unroll
+    for (int b = 0; b < 2 * C; ++b)
+      if (box_col<C>(p, t, b) < n_out) bytes += kBoxBytes;
+    const CUtensorMap* tok = t.a ? map_x : map_h;
+    const int row0 = t.rb * R * N;
+    int claimed = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      if (kt == nk - 1) claimed = next();
+      if (kt > 0) mbar_wait(smem_u32(empty + stage), phase ^ 1);
+      const uint32_t bar = smem_u32(full + stage);
+      const uint32_t st = smem_u32(ring + stage * K::kStageBytes);
+      mbar_expect_tx(bar, bytes);
+#pragma unroll
+      for (int b = 0; b < 2 * C; ++b) {
+        const int col = box_col<C>(p, t, b);
+        if (col < n_out)
+          tma_load(st + b * kBoxBytes, t.a ? (b % 2 ? map_wu : map_wg) : map_wd, bar, col,
+                   kt * kBox, e, stream_once);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        tma_load(st + 2 * C * kBoxBytes + r * K::kTokBytes, tok, bar, kt * kBox, row0 + r * N, t.s,
+                 keep);
+      if (++stage == p.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
-  };
-
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wn = warp % Tl::kWarpsN;  // this warp's 16 columns
-  const int wr = warp / Tl::kWarpsN;  // this warp's NT * 8 rows
-  float acc[kW][NT][4];
-#pragma unroll
-  for (int m = 0; m < kW; ++m)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
-
-  // ldmatrix addresses: lane l gives row (l & 7) of 8x8 matrix (l >> 3).
-  // Weight fragment (ldmatrix.trans of the [k][n] tile): matrices
-  // (k 0-7, n 0-7), (k 0-7, n 8-15), (k 8-15, n 0-7), (k 8-15, n 8-15).
-  const int a_off =
-      (((lane >> 4) << 3) + (lane & 7)) * Tl::kLdW + wn * 16 + ((lane >> 3) & 1) * 8;
-  // Row fragments of n-tiles j, j + 1: (j, k 0-7), (j, k 8-15), (j+1, k 0-7), (j+1, k 8-15).
-  const int l = NT == 1 ? (lane & 15) : lane;
-  const int b_off = (wr * NT * 8 + ((l >> 4) << 3) + (l & 7)) * Tl::kLdX + ((l >> 3) & 1) * 8;
-
-#pragma unroll
-  for (int i = 0; i < Tl::kRing - 1; ++i) {
-    if (i < nk) load_stage(i, i);
-    cp_async_commit();
+    it = claimed;
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<Tl::kRing - 2>();  // stage kt has landed (for this thread) ...
-    __syncthreads();             // ... for every thread, and stage kt - 1 is consumed
-    const int next = kt + Tl::kRing - 1;
-    if (next < nk) load_stage(next % Tl::kRing, next);
-    cp_async_commit();
-    const bf16* st = ring + (kt % Tl::kRing) * n_stage;
-    const bf16* xt = st + kW * Tl::kTileK * Tl::kLdW;
+}
+
+// The consumers: R x C warpgroups run wgmma on each stage as it lands, then
+// write the item's tile of h (with silu * mul) or of out.
+template <int N, int R, int C>
+__device__ __forceinline__ void consume(const Params& p, const int* live, int items_a,
+                                        const int* queue, unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty) {
+  using K = Cfg<N, R, C>;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  unsigned* done_a = p.counters;
+  const int wg = warp / 4, wr = wg / C, wc = wg % C;
+  const int t128 = tid % 128, w4 = t128 / 32;
+  // zeros for the slots that do no work (read no weights)
+  for (int s = blockIdx.x; s < p.S; s += gridDim.x) {
+    if (p.active[s] != 0 && p.s2e[s] >= 0) continue;
+    uint4* o = reinterpret_cast<uint4*>(p.out + (size_t)s * p.CAP * p.d);
+    const int n16 = p.CAP * p.d / 8;
+    for (int i = tid; i < n16; i += K::kConsumers) o[i] = make_uint4(0, 0, 0, 0);
+  }
+
+  float acc0[N / 2], acc1[N / 2];
+  int stage = 0, seq = 0;
+  uint32_t phase = 0;
+  while (true) {
+    mbar_wait(smem_u32(full + stage), phase);
+    const int it = queue[seq++ % kQueue];
+    if (it < 0) return;
+    const Item t = item_at(p, live, items_a, it);
+    const int nk = ((t.a ? p.d : p.f) + kBox - 1) / kBox;
+    const int col0 = box_col<C>(p, t, 2 * wc), col1 = box_col<C>(p, t, 2 * wc + 1);
 #pragma unroll
-    for (int kk = 0; kk < Tl::kTileK; kk += 16) {
-      uint32_t a[kW][4];
+    for (int i = 0; i < N / 2; ++i) acc0[i] = acc1[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      if (kt > 0) mbar_wait(smem_u32(full + stage), phase);
+      const uint32_t st = smem_u32(ring + stage * K::kStageBytes);
+      const uint32_t w0 = st + (2 * wc) * kBoxBytes, w1 = w0 + kBoxBytes;
+      const uint32_t xb = st + 2 * C * kBoxBytes + wr * K::kTokBytes;
+      // every warpgroup runs both products on every stage, with no branch
+      // around them (a branch serialises wgmma); a box past the output's
+      // edge was not loaded, and its product is never stored
+      fence_regs(acc0);
+      fence_regs(acc1);
+      wgmma_fence();
 #pragma unroll
-      for (int m = 0; m < kW; ++m)
-        ldsm_x4_trans(a[m], st + (m * Tl::kTileK + kk) * Tl::kLdW + a_off);
-      if constexpr (NT == 1) {
-        uint32_t b[2];
-        ldsm_x2(b, xt + b_off + kk);
+      for (int kk = 0; kk < kBox / 16; ++kk) {
+        // weights: 16 reduction rows of 128 bytes from row 16 kk; tokens:
+        // 16 reduction values (32 bytes) of every row from value 16 kk
+        const uint64_t db = desc_sw128(xb + kk * 32, 16, 1024);
+        wgmma_tn<N>(acc0, desc_sw128(w0 + kk * 16 * kRowBytes, kLboA, 1024), db);
+        wgmma_tn<N>(acc1, desc_sw128(w1 + kk * 16 * kRowBytes, kLboA, 1024), db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc0);
+      fence_regs(acc1);
+      if (lane == 0) mbar_arrive(smem_u32(empty + stage));
+      if (++stage == p.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // accumulator i: output column (m) 16 w4 + lane / 4 (+ 8 for i % 4 >= 2),
+    // token row (n) 8 (i / 4) + 2 (lane % 4) (+ 1 for odd i); offsets inside
+    // a slot fit 32 bits (the wrapper checks CAP * max(d, f))
+    const int row_base = t.rb * R * N + wr * N + 2 * (lane & 3);
+    const int m_base = 16 * w4 + (lane >> 2);
+    if (t.a) {
+      bf16* hs = p.h + (size_t)t.s * p.CAP * p.f;
 #pragma unroll
-        for (int m = 0; m < kW; ++m) mma_bf16(acc[m][0], a[m], b[0], b[1]);
-      } else {
+      for (int i = 0; i < N / 2; ++i) {
+        const int row = row_base + 8 * (i >> 2) + (i & 1);
+        const int col = col0 + m_base + 8 * ((i >> 1) & 1);
+        if (row < p.CAP && col < p.f) {
+          const float g = acc0[i];
+          hs[row * p.f + col] = __float2bfloat16_rn(g / (1.f + expf(-g)) * acc1[i]);
+        }
+      }
+      asm volatile("fence.proxy.async;\n" ::: "memory");  // for the TMA reads of h
+      asm volatile("bar.sync 1, %0;\n" ::"r"(K::kConsumers) : "memory");
+      if (tid == 0) {
+        __threadfence();
+        atomicAdd(done_a + t.unit, 1u);
+      }
+    } else {
+      bf16* os = p.out + (size_t)t.s * p.CAP * p.d;
 #pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t b[4];
-          ldsm_x4(b, xt + b_off + j * 8 * Tl::kLdX + kk);
-#pragma unroll
-          for (int m = 0; m < kW; ++m) {
-            mma_bf16(acc[m][j], a[m], b[0], b[1]);
-            mma_bf16(acc[m][j + 1], a[m], b[2], b[3]);
-          }
+      for (int i = 0; i < N / 2; ++i) {
+        const int row = row_base + 8 * (i >> 2) + (i & 1);
+        const int m = m_base + 8 * ((i >> 1) & 1);
+        if (row < p.CAP) {
+          if (col0 + m < p.d) os[row * p.d + col0 + m] = __float2bfloat16_rn(acc0[i]);
+          if (col1 + m < p.d) os[row * p.d + col1 + m] = __float2bfloat16_rn(acc1[i]);
         }
       }
     }
   }
-  cp_async_wait<0>();
-
-  // accumulator (i): column n0 + wn*16 + lane/4 (+8 for i >= 2), row
-  // wr*NT*8 + j*8 + 2*(lane%4) (+1 for odd i)
-  const int col0 = n0 + wn * 16 + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = wr * NT * 8 + j * 8 + 2 * (lane & 3) + (i & 1);
-      const int c = col0 + (i >> 1) * 8;
-      if (r < nr && c < N) {
-        float v = acc[0][j][i];
-        if constexpr (GateUp) v = v / (1.f + expf(-v)) * acc[kW - 1][j][i];
-        os[(size_t)r * N + c] = __float2bfloat16_rn(v);
-      }
-    }
 }
 
-template <int NT, bool GateUp, class Tl>
-cudaError_t launch_mma(int row_warps, const bf16* x, const bf16* w0, const bf16* w1,
-                       const int* s2e, const int* active, bf16* out, int S, int CAP, int r0,
-                       int nr, int K, int N, cudaStream_t st) {
-  constexpr int kW = GateUp ? 2 : 1;
-  const int rows = row_warps * NT * 8;
-  const int smem = Tl::kRing * Tl::stage_elems(kW, rows) * (int)sizeof(bf16);
-  // allow this instance's largest ring on the current device: set at every
-  // launch (a cheap host call), so every device and host thread has it
-  const int most =
-      Tl::kRing * Tl::stage_elems(kW, Tl::kMaxRowWarps * NT * 8) * (int)sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(expert_mma_kernel<NT, GateUp, Tl>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + Tl::kTileN - 1) / Tl::kTileN, S);
-  expert_mma_kernel<NT, GateUp, Tl><<<grid, 32 * Tl::kWarpsN * row_warps, smem, st>>>(
-      x + (size_t)r0 * K, w0, w1, s2e, active, out + (size_t)r0 * N, CAP, nr, K, N);
+// Both phases in one launch over a persistent grid (<= one block an SM, all
+// resident).  Phase A: h[s] = bf16(silu(x[s] Wg[e]) * (x[s] Wu[e])), 64 * C
+// columns an item; phase B: out[s] = bf16(h[s] Wd[e]), 128 * C columns an
+// item; e = slot_to_expert[s].  A phase-B item waits until its unit's
+// tiles_a phase-A items are done (a counter, release/acquire); the last of
+// its tiles_b items resets both counters, so each launch starts from zero.
+// Every item a B item waits on was taken earlier by a running block, whose
+// producer issued all its loads before it took another: no deadlock.
+template <int N, int R, int C>
+__global__ void __launch_bounds__(Cfg<N, R, C>::kThreads, 1)
+    expert_ffn_wgmma(const __grid_constant__ CUtensorMap map_wg,
+                     const __grid_constant__ CUtensorMap map_wu,
+                     const __grid_constant__ CUtensorMap map_wd,
+                     const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_h, const Params p) {
+  using K = Cfg<N, R, C>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * K::kStageBytes);
+  uint64_t* empty = full + p.stages;
+  int* live = reinterpret_cast<int*>(empty + p.stages);  // [S]
+  int* warp_live = live + p.S;                           // [kThreads / 32]
+  int* queue = warp_live + 9;                            // [kQueue] item ids
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == K::kConsumers) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(smem_u32(full + i), 1);
+      mbar_init(smem_u32(empty + i), 4 * R * C);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (const CUtensorMap* m : {&map_wg, &map_wu, &map_wd, &map_x, &map_h})
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)m) : "memory");
+  }
+  // the live slots, in order: every thread tests a slot, warps count theirs
+  int n_live = 0;
+  for (int s0 = 0; s0 < p.S; s0 += K::kThreads) {
+    const int s = s0 + tid;
+    const int a = s < p.S ? p.active[s] : 0, e = s < p.S ? p.s2e[s] : -1;
+    const unsigned m = __ballot_sync(0xffffffffu, a != 0 && e >= 0);
+    if (lane == 0) warp_live[warp] = __popc(m);
+    __syncthreads();
+    int pos = n_live;
+    for (int w = 0; w < K::kThreads / 32; ++w) {
+      if (w == warp) pos = n_live;
+      n_live += warp_live[w];
+    }
+    if (a != 0 && e >= 0) live[pos + __popc(m & ((1u << lane) - 1))] = s;
+    __syncthreads();
+  }
+  const int units = n_live * p.n_rb;
+  const int items_a = units * p.tiles_a;
+  const int items = items_a + units * p.tiles_b;
+  if (tid >= K::kConsumers) {
+    if (tid == K::kConsumers)
+      produce<N, R, C>(p, live, items_a, items, queue, ring, full, empty, &map_wg, &map_wu, &map_wd,
+                       &map_x, &map_h);
+  } else {
+    consume<N, R, C>(p, live, items_a, queue, ring, full, empty);
+  }
+}
+
+// ------------------------------------------------------------------- host
+
+// Tensor maps, cached: an encoding depends only on its key (address, shape,
+// box), so a cached map is never stale; the weights' maps are built once.
+struct MapKey {
+  const void* ptr;
+  uint64_t inner, mid, outer;
+  uint32_t box_mid;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && inner == o.inner && mid == o.mid && outer == o.outer && box_mid == o.box_mid;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<const void*>()(k.ptr);
+    for (uint64_t v : {k.inner, k.mid, k.outer, (uint64_t)k.box_mid}) h = h * 1000003u ^ std::hash<uint64_t>()(v);
+    return h;
+  }
+};
+std::mutex g_mu;
+std::unordered_map<MapKey, CUtensorMap, MapKeyHash> g_maps;
+
+// a bf16 [outer, mid, inner] array, boxes of 64 (inner) x box_mid (mid) x 1
+bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t mid, uint64_t outer,
+                uint32_t box_mid) {
+  const MapKey key{ptr, inner, mid, outer, box_mid};
+  auto hit = g_maps.find(key);
+  if (hit != g_maps.end()) {
+    *out = hit->second;
+    return true;
+  }
+  cuuint64_t dims[3] = {inner, mid, outer};
+  cuuint64_t strides[2] = {inner * 2, inner * mid * 2};
+  cuuint32_t box[3] = {(cuuint32_t)kBox, box_mid, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  if (cuTensorMapEncodeTiled(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (g_maps.size() > 4096) g_maps.clear();
+  g_maps.emplace(key, *out);
+  return true;
+}
+
+constexpr int kMaxDevices = 64;
+
+template <int N, int R, int C>
+cudaError_t launch_wgmma(int device, const CUtensorMap* maps, const Params& p, int grid, int smem,
+                         cudaStream_t st) {
+  static bool ready[kMaxDevices] = {};  // the shared-memory limit, once a device (under g_mu)
+  auto kern = expert_ffn_wgmma<N, R, C>;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return err;
+    ready[device] = true;
+  }
+  kern<<<grid, Cfg<N, R, C>::kThreads, smem, st>>>(maps[0], maps[1], maps[2], maps[3], maps[4], p);
   return cudaGetLastError();
 }
 
-template <int NT, class Tl>
-int launch_bf16_nt(int row_warps, const void* x, const void* wg, const void* wu,
-                   const void* wd, const int* s2e, const int* active, void* h, void* out,
-                   int S, int CAP, int r0, int nr, int d, int f, cudaStream_t st) {
-  cudaError_t err = launch_mma<NT, true, Tl>(row_warps, (const bf16*)x, (const bf16*)wg,
-                                             (const bf16*)wu, s2e, active, (bf16*)h, S, CAP,
-                                             r0, nr, d, f, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_mma<NT, false, Tl>(row_warps, (const bf16*)h, (const bf16*)wd, nullptr,
-                                        s2e, active, (bf16*)out, S, CAP, r0, nr, f, d, st);
-}
-
-// Rows [r0, r0 + nr) of every slot, nr <= kMaxCap.  The tile from nr:
-// n-tiles of 8 rows per warp (1, 2, 4 or 8), the block shape (DecodeTile up
-// to 16 rows, PrefillTile up to 128, DecodeTile with up to 4 warp sets
-// beyond), and warp sets over the rows, so the block holds all nr rows.
-int launch_bf16_rows(const void* x, const void* wg, const void* wu, const void* wd,
-                     const int* s2e, const int* active, void* h, void* out, int S, int CAP,
-                     int r0, int nr, int d, int f, cudaStream_t st) {
-  const int tiles = (nr + 7) / 8;
-  const int nt = tiles <= 1 ? 1 : tiles <= 2 ? 2 : tiles <= 4 ? 4 : 8;
-  const int row_warps = (tiles + nt - 1) / nt;
-#define REPRO_K3(NT, TL) \
-  launch_bf16_nt<NT, TL>(row_warps, x, wg, wu, wd, s2e, active, h, out, S, CAP, r0, nr, d, f, st)
-  if (nt == 1) return REPRO_K3(1, DecodeTile);
-  if (nt == 2) return REPRO_K3(2, DecodeTile);
-  if (nt == 4) return REPRO_K3(4, PrefillTile);
-  if (row_warps <= PrefillTile::kMaxRowWarps) return REPRO_K3(8, PrefillTile);
-  return REPRO_K3(8, DecodeTile);
-#undef REPRO_K3
-}
-
-// Up to kMaxCap rows a block holds all of a slot's rows, so each active
-// slot's weights stream once.  A larger CAP (a prefill chunk of more than
-// 256 tokens) runs in blocks of kMaxCap rows, each streaming the weights
-// once more.
-int launch_bf16(const void* x, const void* wg, const void* wu, const void* wd, const int* s2e,
-                const int* active, void* h, void* out, int S, int CAP, int d, int f,
-                cudaStream_t st) {
-  if (d % 8 || f % 8) return (int)cudaErrorInvalidValue;
-  for (int r0 = 0; r0 < CAP; r0 += kMaxCap) {
-    const int err = launch_bf16_rows(x, wg, wu, wd, s2e, active, h, out, S, CAP, r0,
-                                     CAP - r0 < kMaxCap ? CAP - r0 : kMaxCap, d, f, st);
-    if (err) return err;
-  }
-  return 0;
-}
-
 }  // namespace
+
+// The bf16 path: one launch.  The tile (n_rows = N, row_wgs = R, col_wgs =
+// C), ring depth, shared-memory bytes and grid come from the wrapper's plan
+// (ops.py:bf16_plan); counters is its zeroed [2, S * n_rb] int32 scratch.
+REPRO_EXPORT int expert_ffn_bf16(const void* x, const void* w_gate, const void* w_up,
+                                 const void* w_down, const int* s2e, const int* active, void* h,
+                                 void* out, void* counters, int S, int CAP, int d, int f, int E,
+                                 int n_rows, int row_wgs, int col_wgs, int n_rb, int stages,
+                                 int smem, int grid, int device, void* stream) {
+  REPRO_SET_DEVICE(device);
+  if (S == 0 || CAP == 0) return 0;
+  if (d % 8 || f % 8) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[5];
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    if (!tensor_map(&maps[0], w_gate, f, d, E, kBox) || !tensor_map(&maps[1], w_up, f, d, E, kBox) ||
+        !tensor_map(&maps[2], w_down, d, f, E, kBox) ||
+        !tensor_map(&maps[3], x, d, CAP, S, n_rows) || !tensor_map(&maps[4], h, f, CAP, S, n_rows))
+      return (int)cudaErrorInvalidValue;
+  }
+  Params p{s2e, active, (bf16*)h, (bf16*)out, (unsigned*)counters, S, CAP, d, f, n_rb,
+           (f + 64 * col_wgs - 1) / (64 * col_wgs), (d + 128 * col_wgs - 1) / (128 * col_wgs), stages};
+  cudaStream_t st = (cudaStream_t)stream;
+  std::lock_guard<std::mutex> lock(g_mu);
+#define REPRO_K3(NN, RR, CC) \
+  if (n_rows == NN && row_wgs == RR && col_wgs == CC) return (int)launch_wgmma<NN, RR, CC>(device, maps, p, grid, smem, st)
+  REPRO_K3(8, 1, 1);
+  REPRO_K3(16, 1, 1);
+  REPRO_K3(32, 1, 1);
+  REPRO_K3(64, 1, 2);
+  REPRO_K3(128, 1, 2);
+  REPRO_K3(128, 2, 1);
+#undef REPRO_K3
+  return (int)cudaErrorInvalidValue;
+}
 
 REPRO_EXPORT int expert_ffn(const void* x, const void* w_gate, const void* w_up,
                             const void* w_down, const int* s2e, const int* active, void* h,
@@ -518,10 +848,6 @@ REPRO_EXPORT int expert_ffn(const void* x, const void* w_gate, const void* w_up,
                             void* stream) {
   REPRO_SET_DEVICE(device);
   if (S == 0 || CAP == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == REPRO_BF16)
-    return launch_bf16(x, w_gate, w_up, w_down, s2e, active, h, out, S, CAP, d, f, st);
-  if (dtype == REPRO_F32)
-    return launch_f32(x, w_gate, w_up, w_down, s2e, active, h, out, S, CAP, d, f, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != REPRO_F32) return (int)cudaErrorInvalidValue;
+  return launch_f32(x, w_gate, w_up, w_down, s2e, active, h, out, S, CAP, d, f, (cudaStream_t)stream);
 }

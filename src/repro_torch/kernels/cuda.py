@@ -32,6 +32,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# linker flags of one source: K3 encodes TMA tensor maps through the driver
+# API (cuTensorMapEncodeTiled), which lives in libcuda
+LINK_FLAGS: Dict[str, tuple] = {"expert_ffn": ("-lcuda",)}
 
 LAUNCHES: Dict[str, int] = {
     "paged_decode_attention": 0,
@@ -69,7 +72,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
     h.update((CSRC / "common.cuh").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -85,7 +88,7 @@ def build_all(names: Sequence[str] = SOURCES) -> float:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *LINK_FLAGS.get(name, ())]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs.append((name, proc, tmp, out))
     errors: List[str] = []

@@ -37,7 +37,14 @@ from repro_torch.kernels.decode_attention.ops import (
     split_plan,
     split_rows,
 )
-from repro_torch.kernels.expert_ffn.ops import expert_ffn_grouped, expert_ffn_grouped_ref
+from repro_torch.kernels.expert_ffn.ops import (
+    MAX_STAGES,
+    SMEM_LIMIT,
+    bf16_plan,
+    expert_ffn_grouped,
+    expert_ffn_grouped_ref,
+    work_items,
+)
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -602,6 +609,62 @@ def test_expert_ffn_slot_indirect_plain_matches_reference(S, E, CAP, d, f, dtype
     assert (got.float()[dead] == 0).all()
 
 
+# The bf16 kernel's plan (tile, ring, shared memory, grid) and work list, as
+# the wrapper hands them to the launcher, at every registered MoE config's
+# (d_model, expert width): dsv2-lite and qwen2-moe, dsv2, phi3.5-moe,
+# scaled-ds-1, scaled-ds-2
+K3_WIDTHS = [(2048, 1408), (5120, 1536), (4096, 6400), (4096, 1024), (4096, 1536)]
+
+
+def _k3_instances():
+    """(rows a warpgroup, row warpgroups, column warpgroups) of every kernel
+    instance that ``csrc/expert_ffn.cu``'s launcher dispatches to."""
+    text = (CSRC / "expert_ffn.cu").read_text()
+    return {tuple(map(int, m)) for m in re.findall(r"REPRO_K3\((\d+), (\d+), (\d+)\);", text)}
+
+
+@pytest.mark.parametrize("d,f", K3_WIDTHS)
+def test_expert_ffn_bf16_plan_fits_every_capacity(d, f):
+    instances = _k3_instances()
+    assert len(instances) == 6
+    for S in (1, 17, 64, 272):
+        for cap in range(1, 321):
+            p = bf16_plan(S, cap, d, f, 132)
+            assert (p.n_rows, p.row_wgs, p.col_wgs) in instances
+            assert p.n_rows % 8 == 0 and 8 <= p.n_rows * p.row_wgs <= 256
+            rows = p.n_rows * p.row_wgs
+            assert (p.n_rb - 1) * rows < cap <= p.n_rb * rows  # row blocks cover CAP, none empty
+            assert p.n_rb == 1 or rows == 256
+            assert p.stage_bytes == 2 * p.col_wgs * 8192 + p.row_wgs * p.n_rows * 128
+            assert p.stage_bytes % 1024 == 0  # every stage on the 128-byte swizzle's 1024-byte grid
+            assert 2 <= p.stages <= MAX_STAGES
+            assert p.smem == 1024 + 4 * (S + 25) + p.stages * (p.stage_bytes + 16) <= SMEM_LIMIT
+            assert (p.tiles_a - 1) * 64 * p.col_wgs < f <= p.tiles_a * 64 * p.col_wgs
+            assert (p.tiles_b - 1) * 128 * p.col_wgs < d <= p.tiles_b * 128 * p.col_wgs
+            assert 1 <= p.grid <= 132
+    with pytest.raises(ValueError):  # a slot's offsets are 32-bit in the kernel
+        bf16_plan(1, 2**31 // max(d, f) + 1, d, f, 132)
+
+
+@pytest.mark.parametrize("d,f", K3_WIDTHS)
+def test_expert_ffn_work_items_cover_each_tile_once(d, f):
+    rng = np.random.default_rng(d + f)
+    S = 9
+    for cap in range(1, 321):
+        masks = [rng.random(S) < 0.5, np.ones(S, bool)] + ([np.zeros(S, bool)] if cap in (1, 320) else [])
+        for n_sms, mask in [(132, m) for m in masks] + [(7, masks[0])]:
+            p = bf16_plan(S, cap, d, f, n_sms)
+            live = np.flatnonzero(mask).tolist()
+            items = work_items(p, live)
+            want = {("a", s, rb, ct) for s in live for rb in range(p.n_rb) for ct in range(p.tiles_a)}
+            want |= {("b", s, rb, ct) for s in live for rb in range(p.n_rb) for ct in range(p.tiles_b)}
+            assert len(items) == len(want) and set(items) == want  # each tile of each live slot once
+            # every phase-A item is taken before any phase-B item: a
+            # phase-B item waits only on items already taken
+            phases = [it[0] for it in items]
+            assert phases == sorted(phases)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels against their plain versions, on the card
 # ---------------------------------------------------------------------------
@@ -759,6 +822,30 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                 assert (got.float()[dead] == 0).all()
     torch.cuda.synchronize()
     assert all(cuda.LAUNCHES[n] > before[n] for n in before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,f", K3_WIDTHS)
+def test_cuda_expert_ffn_every_capacity_and_slot_map(cuda_device, d, f):
+    """The bf16 K3 at a config's widths, at every row tile, warpgroup split
+    and row block: two slots sharing an expert, an empty (-1) slot, and
+    partly, wholly and not at all active maps; two calls give the same bits."""
+    dev = cuda_device
+    rng = np.random.default_rng(d * f)
+    S, E = 6, 4
+    w = [(rng.standard_normal(shape) * shape[1] ** -0.5).astype(np.float32)
+         for shape in ((E, d, f), (E, d, f), (E, f, d))]
+    wg, wu, wd = (_t(a, "bfloat16", dev) for a in w)
+    s2e = _t(np.array([2, 2, 0, -1, 3, 1], np.int32), device=dev)
+    for cap in (1, 4, 8, 9, 64, 128, 200, 256, 320):
+        x = _t(rng.standard_normal((S, cap, d)).astype(np.float32), "bfloat16", dev)
+        for act in ([1, 1, 0, 1, 1, 0], [1] * S, [0] * S):
+            a = _t(np.array(act, np.int32), device=dev)
+            got = expert_ffn_grouped(x, wg, wu, wd, s2e, a)
+            assert_close(got, expert_ffn_grouped_ref(x, wg, wu, wd, s2e, a), TOL["bf16"])
+            dead = (a == 0) | (s2e < 0)
+            assert (got[dead] == 0).all()
+            assert torch.equal(got, expert_ffn_grouped(x, wg, wu, wd, s2e, a))
 
 
 # ---------------------------------------------------------------------------
