@@ -6,12 +6,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, in order (any failure raises and exits non-zero; nothing is caught):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
-     source, all at once), with ptxas' register / shared-memory lines;
+     source, all at once), with ptxas' register / shared-memory lines (K3's
+     wgmma instances and K1's bf16 instances must not spill); while nvcc
+     runs, phase 5m (it needs no kernel) trains on the card and 5k's dry
+     runs start in processes of their own;
   3. kernels: each kernel at the serving path's shapes against its plain
      PyTorch version on the same inputs (stated tolerance), timed with CUDA
      events beside its plain version, a PyTorch library yardstick where one
      exists, and the least time the card could take (bytes or FLOPs bound);
-     K1 also at a 32k context at batch 4, K4 and K5 at batch 8 and 1 (each
+     K1 also at a 32k context at batch 4 (and there at 32 query heads over 8,
+     its bf16 Hopper body), K4 and K5 at batch 8 and 1 (each
      with the split-KV plan its wrapper chose), every attention case held
      within one bf16 rounding of its f32 oracle; K3 also at a 64-token
      prefill chunk's shape and at a batched prefill call's (2 x 64 tokens,
@@ -26,7 +30,10 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      over the block tables of phase 5e, built by ``PagedKVCache``'s splice,
      spill and restore: three slots sharing 12 pages, a 200-row prefix with
      a copied-on-write tail page, and a slot restored into another slot
-     index with its page ids out of order; then (3e) the shapes of the
+     index with its page ids out of order; K1 with NaN in every row past
+     each slot's length (finite, within one rounding of the clean pools'),
+     and a bf16 page too large for K1's ring (head_dim 256, 232 rows),
+     which K1 gives to its CUDA-core body; then (3e) the shapes of the
      configs phase 5g serves: K1, K4 and K5 at 8 x 512 for 3, 4 and 7 query
      heads per KV head, head_dim 256 and dsv2's 128 heads, K2 on
      serving_layout at 16, 60, 160 and 200 experts, K3 at each new
@@ -170,17 +177,19 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      tokens equal to ``model.decode_step``'s over the same pinned weights,
      scheduler and capacity (logits within TOL["bf16"]), its prefill step (2
      x 2048) and train step (6 of 27 layers, 4 x 512), no launch; host ms,
-     device ms and peak GB of each; then (5m) Mamba training at train_4k's
-     rows a rank (16 x 4096 tokens) through the train_4k step on the 1 x 1
-     mesh: falcon-mamba-7b cut to 2 of 64 layers (2 steps) and zamba2-2.7b
-     to one layer period (1 step), bf16, remat: step ms, falcon's device ms
-     of its second step, peak GB, loss and grad norm a step, every scan in
-     checkpointed 128-token chunks, finite, no launch, peak below 80 GB;
-     beside them the dry runs of qwen2-moe-a2.7b x decode_32k and of
-     falcon-mamba-7b x prefill_32k and x train_4k (its Mamba scan counted
-     one step ``s`` times, chunked and recomputed under autograd), each in
-     its own process (fake cuda tensors over a fake group of 256 ranks),
-     each of which must exit 0 with a peak per rank below 80 GB; then (5l)
+     device ms and peak GB of each; (5m, run beside phase 2's build) Mamba
+     training at train_4k's rows a rank (16 x 4096 tokens) through the
+     train_4k step on a 1 x 1 mesh: falcon-mamba-7b cut to 1 of 64 layers
+     (2 steps) and zamba2-2.7b to one layer period (1 step), bf16, remat:
+     step ms, falcon's device ms of its second step, peak GB, loss and grad
+     norm a step, every scan in checkpointed 128-token chunks, finite, no
+     launch, peak below 80 GB; the dry runs of qwen2-moe-a2.7b x decode_32k
+     and of falcon-mamba-7b x prefill_32k and x train_4k (its Mamba scan
+     counted one step ``s`` times, chunked and recomputed under autograd),
+     each in its own process (fake cuda tensors over a fake group of 256
+     ranks, one torch thread on the last three cores; started beside phase
+     2 and read after 5k), each of which must exit 0 with a peak per rank
+     below 80 GB; then (5l)
      the analysis slice on the host, no card needed: ``ClusterSimulator`` on dsv2-lite at the
      H100 spec (data-sheet constants, so every figure is analytic) compares
      Janus with the sglang, megascale and xdeepserve policies over a 6-hour
@@ -545,6 +554,8 @@ def main():
         decode_attention_int8,
         decode_attention_int8_ref,
         decode_attention_ref,
+        k1_body,
+        k1_plan,
         paged_decode_attention,
         paged_decode_attention_ref,
         split_plan,
@@ -581,8 +592,138 @@ def main():
     log({"phase": "device", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "device_name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
 
+    # phase 5k's dry runs (host only, fake tensors), each in a process of its
+    # own, started now so that they run beside the build and 5m: one torch
+    # thread each, on the last cores this process may use
+    import tempfile
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    spmd_dir = tempfile.mkdtemp(prefix="spmd_")
+    dry_dir = os.path.join(spmd_dir, "dryrun")
+    dry_env = dict(env, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    cores = sorted(os.sched_getaffinity(0))
+    dry_cores = cores[-3:] if len(cores) > 4 else cores
+    dry_runs = {(arch, shape): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--out", dry_dir],
+        cwd=root, env=dry_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape in (("qwen2-moe-a2.7b", "decode_32k"), ("falcon-mamba-7b", "prefill_32k"),
+                            ("falcon-mamba-7b", "train_4k"))}
+    for dry in dry_runs.values():
+        os.sched_setaffinity(dry.pid, dry_cores)
+
     # ---- 2. build --------------------------------------------------------
-    build_s = cuda.build_all()
+    # one nvcc a source, waited on in a thread while 5m and the dry runs go on
+    built = {}
+
+    def build_in_thread():
+        try:
+            built["s"] = cuda.build_all()
+        except BaseException as e:  # raised again below, in the main thread
+            built["error"] = e
+
+    builder = threading.Thread(target=build_in_thread)
+    builder.start()
+
+    # ---- 5m. Mamba training at train_4k's rows a rank ----------------------
+    # (it needs no kernel of csrc/, so it runs while phase 2's nvcc builds
+    # them, in a thread, and the three dry runs of 5k run in processes of
+    # their own: the card is otherwise idle then, and no phase that times a
+    # kernel or a serving step runs beside them)
+    # train_4k (256 x 4096 tokens) on the 16 x 16 mesh gives each data rank
+    # 16 rows of 4096 tokens; the card takes that batch through the train_4k
+    # step (launch.steps.build_train_step on the 1 x 1 mesh: remat per layer
+    # period, the scan's 128-token chunks checkpointed inside it, 512-position
+    # cross entropy, AdamW): falcon-mamba-7b at published widths cut to 1 of
+    # its 64 layers, 2 steps, and zamba2-2.7b cut to one layer period (6
+    # Mamba-2 layers and the shared attention block), 1 step (~140-160 s:
+    # the scan's eager token loop runs ~2.1 M device ops a step), bf16
+    # weights drawn on the card from seed 0, TokenPipeline(seed=0).  Each
+    # step is timed with CUDA events; falcon's second under the profiler
+    # (device ms: the card's kernels, copies and fills summed from the raw
+    # trace; zamba2's ~2.1 M ops would add ~80 s of tracing).  Before
+    # the scan was chunked a layer's backward held every token's saved
+    # state (falcon: ~17 MiB a token).  Fails on a non-finite loss or grad
+    # norm, a scan that did not chunk, a kernel launch (no kernel is on the
+    # training path) or a peak of 80 GB
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import close_group, make_host_mesh, open_group
+    from repro_torch.models.transformer import period_pattern
+    from repro_torch.training.optimizer import AdamWConfig as _AdamW
+
+    open_group("nccl")
+    mesh_m = make_host_mesh(1, 1, "cuda")
+
+    M_B, M_S = 16, 4096
+    real_loop = ssm_mod._loop
+    for arch, m_steps, profiled in (("falcon-mamba-7b", 2, True), ("zamba2-2.7b", 1, False)):
+        base_m = get_config(arch)
+        mcfg = dataclasses.replace(base_m, num_layers=1 if arch == "falcon-mamba-7b" else len(period_pattern(base_m)[0]))
+        torch.cuda.reset_peak_memory_stats()
+        params_m = model_mod.init_params(mcfg, seed=0, device=dev)
+        state_m = init_opt_state(params_m)
+        train_m, _ = steps_mod.build_train_step(mcfg, mesh_m, InputShape("train_4k", M_S, M_B, "train"),
+                                                _AdamW(total_steps=m_steps))
+        pipe_m = TokenPipeline(DataConfig(mcfg.vocab_size, M_S, M_B, seed=0))
+        chunk_lens = set()
+
+        def spied_loop(step, h, xs, p):
+            chunk_lens.add(int(xs[0].shape[1]))
+            return real_loop(step, h, xs, p)
+
+        ssm_mod._loop = spied_loop
+        cuda.reset_launch_counts()
+        info_m, step_ms_m = [], []
+        for i in range(m_steps):
+            toks_m, labels_m = (torch.from_numpy(a).to(dev) for a in pipe_m.batch(i))
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            last = profiled and i == m_steps - 1
+            with profile(activities=[ProfilerActivity.CUDA]) if last else contextlib.nullcontext() as prof_m:
+                ev0.record()
+                params_m, state_m, info = train_m(params_m, state_m, {"tokens": toks_m, "labels": labels_m})
+                ev1.record()
+                torch.cuda.synchronize()
+            step_ms_m.append(ev0.elapsed_time(ev1))
+            info_m.append({k: float(v.full_tensor()) for k, v in info.items()})
+        dev_ms_m = dev_ops_m = None
+        if profiled:
+            on_card = [e for e in prof_m.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA]
+            dev_ms_m, dev_ops_m = sum(e.duration_ns() for e in on_card) / 1e6, len(on_card)
+            del on_card
+        del prof_m
+        ssm_mod._loop = real_loop
+        launches_m = {n: c for n, c in cuda.LAUNCHES.items() if c}
+        peak_m = torch.cuda.max_memory_allocated() / 1e9
+        log({"phase": "train_mamba", "card": card, "model": arch, "layers": f"{mcfg.num_layers} of "
+             f"{base_m.num_layers} (cut in depth; widths published)", "params": numel(params_m), "mesh": "1x1",
+             "batch": [M_B, M_S], "dtype": mcfg.dtype, "remat": True, "xent_chunk": 512, "steps": m_steps,
+             "scan_chunk_lengths": sorted(chunk_lens), "step_ms": step_ms_m,
+             "tokens_per_s": M_B * M_S / step_ms_m[-1] * 1e3, "device_ms_last_step": dev_ms_m,
+             "device_ops_last_step": dev_ops_m,
+             "device_idle_share_last_step": None if dev_ms_m is None else 1.0 - dev_ms_m / step_ms_m[-1],
+             "peak_gb": peak_m, "loss": [x["loss"] for x in info_m], "grad_norm": [x["grad_norm"] for x in info_m],
+             "launches": launches_m})
+        bad_m = [x for x in info_m if not (np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]) and x["grad_norm"] > 0)]
+        if bad_m or chunk_lens != {ssm_mod.SSM_CHUNK} or launches_m or peak_m >= 80.0:
+            raise AssertionError(f"phase 5m ({arch}): non-finite loss or grad norm {bad_m}, scan chunks {chunk_lens}, "
+                                 f"launches {launches_m} or peak {peak_m:.1f} GB")
+        del params_m, state_m, train_m, info
+        gc.collect()
+        torch.cuda.empty_cache()
+    del mesh_m
+    close_group()
+
+    builder.join()
+    if "error" in built:
+        raise built["error"]
+    build_s = built["s"]
     for name in cuda.SOURCES:  # ptxas' lines, summed up per source
         lines = cuda.BUILD_LOG.get(name, "").splitlines()
         regs = [int(w.split()[1]) for ln in lines for w in [ln[ln.find("Used "):]]
@@ -601,6 +742,11 @@ def main():
     log({"phase": "ptxas_k3", "instances": k3_ptxas, "card": card})
     if any(v.get("spill_stores") or v.get("spill_loads") for v in k3_ptxas.values()):
         raise AssertionError(f"expert_ffn_wgmma spills: {k3_ptxas}")
+    # K1's bf16 instances (head_dim), likewise
+    k1_ptxas = ptxas_instances(cuda.BUILD_LOG.get("decode_attention", ""), "paged_tc_kernel")
+    log({"phase": "ptxas_k1", "instances": k1_ptxas, "card": card})
+    if len(k1_ptxas) != 3 or any(v.get("spill_stores") or v.get("spill_loads") for v in k1_ptxas.values()):
+        raise AssertionError(f"paged_tc_kernel: expected 3 instances without spills, got {k1_ptxas}")
 
     def time_ms(fn, iters):
         for _ in range(3):
@@ -707,16 +853,26 @@ def main():
     bf = torch.bfloat16
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def paged_case(nblk, lens_np, L, iters, plain_iters, shape, pager=None, cows=()):
+    def k1_split(Bc, nkv_c, nblk_c, G, hd_c):
+        """K1's body at this shape and the split plan its wrapper picks."""
+        if k1_body(bf, G, hd_c, ps) == "tc":
+            plan = k1_plan(Bc, nkv_c, nblk_c, ps, hd_c, n_sms)
+            return dict(body="tc", n_split=plan.n_split, pages_per_split=plan.pages, stages=plan.stages)
+        n_s, rows_s = split_plan(Bc, nkv_c, nblk_c * ps, n_sms, ps)
+        return dict(body="attend", n_split=n_s, pages_per_split=rows_s // ps)
+
+    def paged_case(nblk, lens_np, L, iters, plain_iters, shape, pager=None, cows=(), heads=None):
         """K1 over ``L`` layers' pools rotated; the block table is a random
         permutation of the pool's pages, or ``pager``'s tables (pages shared
         between slots, copy-on-write tails ``cows`` whose rows are copied in
-        every layer, restored slots)."""
+        every layer, restored slots); ``heads`` (query, KV) other than the
+        serving model's 16 over 16."""
         Bc = len(lens_np)
+        nh, nkv = heads or (16, 16)
         P = Bc * nblk + 1  # full backing + null page
         k_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
         v_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
-        q = q_all[:Bc]
+        q = q_all[:Bc] if heads is None else torch.randn((Bc, nh, hd), generator=gen, device=dev).to(bf)
         if pager is None:
             bt_np = np.zeros((Bc, nblk), np.int32)
             perm = rng.permutation(P - 1) + 1
@@ -737,8 +893,11 @@ def main():
         err, excess = float((got.float() - want.float()).abs().max()), rounding_excess(got, want)
         del got, want
         S = nblk * ps
-        kd = [k_pool[l][bt.long()].reshape(Bc, S, nkv, hd).transpose(1, 2).contiguous() for l in range(L)]
-        vd = [v_pool[l][bt.long()].reshape(Bc, S, nkv, hd).transpose(1, 2).contiguous() for l in range(L)]
+        # SDPA's yardstick on the pre-gathered view, KV heads repeated G times
+        kd = [k_pool[l][bt.long()].reshape(Bc, S, nkv, hd).transpose(1, 2).repeat_interleave(nh // nkv, dim=1)
+              .contiguous() for l in range(L)]
+        vd = [v_pool[l][bt.long()].reshape(Bc, S, nkv, hd).transpose(1, 2).repeat_interleave(nh // nkv, dim=1)
+              .contiguous() for l in range(L)]
         mask = (torch.arange(S, device=dev)[None, :] < lens[:, None].long())[:, None, None, :]
         q4 = q[:, :, None, :]
         lib_ms = time_ms(cycled(lambda l: F.scaled_dot_product_attention(
@@ -749,14 +908,13 @@ def main():
         distinct = len(np.unique(np.concatenate([bt_np[b, np.arange(n) // ps].astype(np.int64) * ps
                                                  + np.arange(n) % ps for b, n in enumerate(lens_np)])))
         k1_bytes = 2 * distinct * nkv * hd * 2 + 2 * Bc * nh * hd * 2 + Bc * nblk * 4 + Bc * 4
-        n_split, split_rows = split_plan(Bc, nkv, S, n_sms, ps)
         record("paged_decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention/kernel.py:177", err, TOL["bf16"],
                time_ms(cycled(lambda l: paged_decode_attention(q, k_pool[l], v_pool[l], bt, lens), L), iters),
                time_ms(cycled(lambda l: paged_decode_attention_ref(q, k_pool[l], v_pool[l], bt, lens), L),
                        plain_iters),
                bound(k1_bytes, 4 * nh * hd * live, BF16_FLOPS), lib_ms, shape, excess,
-               n_split=n_split, pages_per_split=split_rows // ps, distinct_rows=distinct, live_rows=live,
+               **k1_split(Bc, nkv, nblk, nh // nkv, hd), distinct_rows=distinct, live_rows=live,
                device_ms=graph_ms(cycled(lambda l: paged_decode_attention(q, k_pool[l], v_pool[l], bt, lens), L)))
         del k_pool, v_pool
         torch.cuda.empty_cache()
@@ -766,6 +924,10 @@ def main():
     paged_case(nblk, lens_np, 4, 200, 50, None)
     paged_case(2048, np.full(4, 32768, np.int32), 1, 20, 3,
                "decode_32k: B 4, S 32768, pages of 16, all rows valid")
+    # K1's bf16 Hopper body (G >= 2) at the same context: 32 query heads
+    # over 8 (G 4), within one rounding of the f32 oracle
+    paged_case(2048, np.full(4, 32768, np.int32), 1, 20, 3,
+               "decode_32k, G 4: B 4, S 32768, 32 heads over 8, all rows valid", heads=(32, 8))
     # the tables of phase 5e at the serving shape, built by PagedKVCache's
     # own splice, spill and restore: (i) a prefix hit, slots 0-2 sharing
     # their first 12 pages (192 rows) with tails of their own; (ii) a
@@ -807,6 +969,46 @@ def main():
     paged_case(nblk, lens_t, 4, 200, 50, "restored: slot 3 spilled into slot 6, page ids out of order", pager=tab)
     if restored != sorted(restored, reverse=True) or len(restored) < 2:
         raise AssertionError(f"phase 3: the restored table is not out of order: {restored}")
+    # K1 at the serving rows with NaN in every row past each slot's length
+    # (the tail of its last page and the stale pages after it): the Hopper
+    # body (G 4) reads those rows in whole tiles, masks their scores and
+    # zeroes their V, the CUDA-core body (G 1) never reads them; each output
+    # is finite and within one rounding of the clean pools'; then a bf16
+    # page too large for the Hopper body's ring (head_dim 256, 232 rows),
+    # which k1_body gives to the CUDA-core body
+    P_n = B * nblk + 1
+    for nh_n, nkv_n in ((16, 16), (32, 8)):
+        q_n = torch.randn((B, nh_n, hd), generator=gen, device=dev).to(bf)
+        kp = torch.randn((P_n, ps, nkv_n, hd), generator=gen, device=dev).to(bf)
+        vp = torch.randn((P_n, ps, nkv_n, hd), generator=gen, device=dev).to(bf)
+        bt = (torch.randperm(P_n - 1, generator=gen, device=dev)[: B * nblk].reshape(B, nblk) + 1).int()
+        lens = torch.from_numpy(lens_np).to(dev)
+        want = paged_decode_attention_ref(q_n, kp, vp, bt, lens)
+        bt_h = bt.cpu().tolist()
+        for b_, n_ in enumerate(lens_np.tolist()):
+            for pos in range(n_, nblk * ps):
+                kp[bt_h[b_][pos // ps], pos % ps] = float("nan")
+                vp[bt_h[b_][pos // ps], pos % ps] = float("nan")
+        got = paged_decode_attention(q_n, kp, vp, bt, lens)
+        split = k1_split(B, nkv_n, nblk, nh_n // nkv_n, hd)
+        check("paged_decode_attention", f"8 x 512, {nh_n} heads over {nkv_n}, NaN in every row past each slot's "
+              f"length", float((got.float() - want.float()).abs().max()), TOL["bf16"], rounding_excess(got, want),
+              finite=bool(torch.isfinite(got.float()).all()), **split)
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"paged_decode_attention ({split['body']}): a row past a slot's length reached "
+                                 "the output")
+    q_d = torch.randn((2, 4, 256), generator=gen, device=dev).to(bf)
+    kp = torch.randn((5, 232, 2, 256), generator=gen, device=dev).to(bf)
+    vp = torch.randn((5, 232, 2, 256), generator=gen, device=dev).to(bf)
+    bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=dev)
+    lens = torch.tensor([300, 464], dtype=torch.int32, device=dev)
+    got, want = paged_decode_attention(q_d, kp, vp, bt, lens), paged_decode_attention_ref(q_d, kp, vp, bt, lens)
+    check("paged_decode_attention", "bf16 pages of 232 rows at head_dim 256: the CUDA-core body",
+          float((got.float() - want.float()).abs().max()), TOL["bf16"], rounding_excess(got, want),
+          body=k1_body(bf, 2, 256, 232))
+    if k1_body(bf, 2, 256, 232) != "attend":
+        raise AssertionError("k1_body: a 232-row page at head_dim 256 should take the CUDA-core body")
+    del kp, vp, got, want
 
     # ---- 3b. K4 / K5 decode attention over a contiguous (int8) cache ------
     # the serving path's shape (the K1 case's lengths, six layers' caches
@@ -896,12 +1098,11 @@ def main():
     bt, lens_sh = pager.table_device(dev), lens_sh[:2]
     kp = torch.randn((pager.num_pages, ps, nkv, hd), generator=gen, device=dev).to(bf)
     vp = torch.randn((pager.num_pages, ps, nkv, hd), generator=gen, device=dev).to(bf)
-    n_split, split_rows = split_plan(2, nkv, S_serve, n_sms, ps)
     got = paged_decode_attention(q_all[:2], kp, vp, bt, lens_sh)
     want = paged_decode_attention_ref(q_all[:2], kp, vp, bt, lens_sh)
     check("paged_decode_attention", f"disagg ping-pong shard: 2 rows, S {S_serve}, its own pages",
           float((got.float() - want.float()).abs().max()), TOL["bf16"], rounding_excess(got, want),
-          n_split=n_split, pages_per_split=split_rows // ps)
+          **k1_split(2, nkv, S_serve // ps, nh // nkv, hd))
     del kc, vc, k8, ks, v8, vs, kp, vp, got, want
     torch.cuda.empty_cache()
 
@@ -1133,7 +1334,7 @@ def main():
                    time_ms(cycled(lambda l: paged_decode_attention_ref(q, kp[l], vp[l], bt, lens, logit_cap=cap),
                                   L), plain_iters),
                    bound(2 * live * nkv_c * hd_c * 2 + io_bytes + Bc * nblk_c * 4, ops, BF16_FLOPS), lib_ms, label,
-                   rounding_excess(got, want), n_split=split_plan(Bc, nkv_c, S, n_sms, ps)[0],
+                   rounding_excess(got, want), **k1_split(Bc, nkv_c, nblk_c, G, hd_c),
                    device_ms=graph_ms(cycled(lambda l: paged_decode_attention(q, kp[l], vp[l], bt, lens,
                                                                               logit_cap=cap), L)), **detail)
             del kp, vp
@@ -1365,11 +1566,6 @@ def main():
     # ---- 4. reduced parity: plain versions on the CPU vs kernels on the card
     # the sharded steps' CPU run, in a process of its own (its own one-rank
     # gloo group), started now so that it runs beside the phase
-    import tempfile
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
-    spmd_dir = tempfile.mkdtemp(prefix="spmd_")
     spmd_cpu_out = os.path.join(spmd_dir, "cpu.pt")
     spmd_child = subprocess.Popen(
         [sys.executable, "-c", "import sys, torch; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
@@ -3438,19 +3634,14 @@ def main():
     # logical expert weights freed layer by layer as they are pinned),
     # prefill step (2 x 2048) and train step (6 of 27 layers, 4 x 512); the
     # dry runs of qwen2-moe-a2.7b x decode_32k and falcon-mamba-7b x
-    # prefill_32k (the counted Mamba scan) each in its own process beside them
+    # prefill_32k (the counted Mamba scan) and x train_4k run in processes of
+    # their own, started beside phase 2 and read after this phase
     from repro_torch.configs import InputShape
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import spmd as spmd_mod
     from repro_torch.training.optimizer import AdamWConfig as _AdamW
 
     t5k = time.perf_counter()
-    dry_dir = os.path.join(spmd_dir, "dryrun")
-    dry_runs = {(arch, shape): subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--out", dry_dir],
-        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for arch, shape in (("qwen2-moe-a2.7b", "decode_32k"), ("falcon-mamba-7b", "prefill_32k"),
-                            ("falcon-mamba-7b", "train_4k"))}
     mesh1 = make_host_mesh(1, 1, "cuda")
     kcfg = get_config("dsv2-lite")
     K_B, K_ROWS, K_AT, K_STEPS = 8, 4096, 4000, 16
@@ -3589,85 +3780,6 @@ def main():
     del params_t, state_t, train_k
     gc.collect()
     torch.cuda.empty_cache()
-
-    # ---- 5m. Mamba training at train_4k's rows a rank ----------------------
-    # train_4k (256 x 4096 tokens) on the 16 x 16 mesh gives each data rank
-    # 16 rows of 4096 tokens; the card takes that batch through the train_4k
-    # step (launch.steps.build_train_step on the 1 x 1 mesh: remat per layer
-    # period, the scan's 128-token chunks checkpointed inside it, 512-position
-    # cross entropy, AdamW): falcon-mamba-7b at published widths cut to 2 of
-    # its 64 layers, 2 steps, and zamba2-2.7b cut to one layer period (6
-    # Mamba-2 layers and the shared attention block), 1 step (~140-160 s:
-    # the scan's eager token loop runs ~2.1 M device ops a step), bf16
-    # weights drawn on the card from seed 0, TokenPipeline(seed=0).  Each
-    # step is timed with CUDA events; falcon's second under the profiler
-    # (device ms: the card's kernels, copies and fills summed from the raw
-    # trace; zamba2's ~2.1 M ops would add ~80 s of tracing).  Before
-    # the scan was chunked a layer's backward held every token's saved
-    # state (falcon: ~17 MiB a token).  Fails on a non-finite loss or grad
-    # norm, a scan that did not chunk, a kernel launch (no kernel is on the
-    # training path) or a peak of 80 GB
-    import contextlib
-
-    from repro_torch.models.transformer import period_pattern
-
-    M_B, M_S = 16, 4096
-    real_loop = ssm_mod._loop
-    for arch, m_steps, profiled in (("falcon-mamba-7b", 2, True), ("zamba2-2.7b", 1, False)):
-        base_m = get_config(arch)
-        mcfg = dataclasses.replace(base_m, num_layers=2 if arch == "falcon-mamba-7b" else len(period_pattern(base_m)[0]))
-        torch.cuda.reset_peak_memory_stats()
-        params_m = model_mod.init_params(mcfg, seed=0, device=dev)
-        state_m = init_opt_state(params_m)
-        train_m, _ = steps_mod.build_train_step(mcfg, mesh1, InputShape("train_4k", M_S, M_B, "train"),
-                                                _AdamW(total_steps=m_steps))
-        pipe_m = TokenPipeline(DataConfig(mcfg.vocab_size, M_S, M_B, seed=0))
-        chunk_lens = set()
-
-        def spied_loop(step, h, xs, p):
-            chunk_lens.add(int(xs[0].shape[1]))
-            return real_loop(step, h, xs, p)
-
-        ssm_mod._loop = spied_loop
-        cuda.reset_launch_counts()
-        info_m, step_ms_m = [], []
-        for i in range(m_steps):
-            toks_m, labels_m = (torch.from_numpy(a).to(dev) for a in pipe_m.batch(i))
-            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            last = profiled and i == m_steps - 1
-            with profile(activities=[ProfilerActivity.CUDA]) if last else contextlib.nullcontext() as prof_m:
-                ev0.record()
-                params_m, state_m, info = train_m(params_m, state_m, {"tokens": toks_m, "labels": labels_m})
-                ev1.record()
-                torch.cuda.synchronize()
-            step_ms_m.append(ev0.elapsed_time(ev1))
-            info_m.append({k: float(v.full_tensor()) for k, v in info.items()})
-        dev_ms_m = dev_ops_m = None
-        if profiled:
-            on_card = [e for e in prof_m.profiler.kineto_results.events()
-                       if e.device_type() == torch.autograd.DeviceType.CUDA]
-            dev_ms_m, dev_ops_m = sum(e.duration_ns() for e in on_card) / 1e6, len(on_card)
-            del on_card
-        del prof_m
-        ssm_mod._loop = real_loop
-        launches_m = {n: c for n, c in cuda.LAUNCHES.items() if c}
-        peak_m = torch.cuda.max_memory_allocated() / 1e9
-        log({"phase": "train_mamba", "card": card, "model": arch, "layers": f"{mcfg.num_layers} of "
-             f"{base_m.num_layers} (cut in depth; widths published)", "params": numel(params_m), "mesh": "1x1",
-             "batch": [M_B, M_S], "dtype": mcfg.dtype, "remat": True, "xent_chunk": 512, "steps": m_steps,
-             "scan_chunk_lengths": sorted(chunk_lens), "step_ms": step_ms_m,
-             "tokens_per_s": M_B * M_S / step_ms_m[-1] * 1e3, "device_ms_last_step": dev_ms_m,
-             "device_ops_last_step": dev_ops_m,
-             "device_idle_share_last_step": None if dev_ms_m is None else 1.0 - dev_ms_m / step_ms_m[-1],
-             "peak_gb": peak_m, "loss": [x["loss"] for x in info_m], "grad_norm": [x["grad_norm"] for x in info_m],
-             "launches": launches_m})
-        bad_m = [x for x in info_m if not (np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]) and x["grad_norm"] > 0)]
-        if bad_m or chunk_lens != {ssm_mod.SSM_CHUNK} or launches_m or peak_m >= 80.0:
-            raise AssertionError(f"phase 5m ({arch}): non-finite loss or grad norm {bad_m}, scan chunks {chunk_lens}, "
-                                 f"launches {launches_m} or peak {peak_m:.1f} GB")
-        del params_m, state_m, train_m, info
-        gc.collect()
-        torch.cuda.empty_cache()
     close_group()
 
     for (arch, shape), dry in dry_runs.items():

@@ -14,11 +14,15 @@ events; where the wrapper's host time is longer than the kernel, as at the
 serving shape, it is what this measures) and ``device_ms`` over a CUDA
 graph of the same calls (the device alone).  Kernels:
 K1 ``paged_decode_attention`` at the serving shape (8 slots, 16 heads of
-128, pages of 16, random lengths 1-512, four layers' pools rotated) and at
-4 x 32768 rows, all valid, the block table a random permutation of the
-pool's pages; K4 ``decode_attention`` and K5 ``decode_attention_int8``,
-where the checkout has them, at the serving shape (six layers' caches
-rotated) and at 8 and 1 x 32768 rows, all valid; K2 ``aebs_schedule``
+128, pages of 16, random lengths 1-512, four layers' pools rotated), at
+4 x 32768 rows, all valid, and at every other K1 shape of PERF.md's kernel
+table (8 x 512 at 3, 4 and 7 query heads a KV head, head_dim 256 and
+dsv2's 128 heads; gemma2-2b's global layers, 8 x 8192 with softcap 50;
+whisper-tiny's 8 x 448 and pixtral-12b's 8 x 2048), the block table a
+random permutation of the pool's pages, with the host microseconds a
+wrapper call takes (the median of 50 rounds of 20 calls); K4 ``decode_attention`` and K5 ``decode_attention_int8``
+at the serving shape (six layers' caches rotated), at 8 and 1 x 32768 rows,
+all valid, and at the same other shapes; K2 ``aebs_schedule``
 (the whole schedule, however many launches the checkout makes of it) at the
 serving shape (8 tokens' top-6 of 64 experts over a 4 x 17-slot replica
 layout), at the paper's Fig. 15 grid (``benchmarks/fig15_overhead.py``:
@@ -39,8 +43,15 @@ host microseconds a wrapper call spends enqueueing and the same function
 as three ``bmm`` calls and silu * mul on the active experts' pre-gathered
 weights (``bmm``, timed the same two ways).  A group builds only its own
 sources; ``build_s`` gives K3's build alone (``expert_ffn``) and the rest.
-``--only`` keeps one group of kernels.  Needs one CUDA card; exits
-non-zero without one.
+``--only`` keeps one group of kernels (``k1``: K1's shapes alone).
+``--k1-body tc|attend`` runs every K1 call on that body of
+``csrc/decode_attention.cu`` whatever ``ops.k1_body`` would pick (a
+checkout with both), so the two can be timed in turns on the same shapes:
+
+    for b in attend tc tc attend; do
+      python3 scripts/decode_attention_ab.py --only k1 --k1-body $b --src src; done
+
+Needs one CUDA card; exits non-zero without one.
 """
 
 import argparse
@@ -78,7 +89,7 @@ def launch_floor(cuda):
     return fn
 
 
-def child(src, only):
+def child(src, only, k1_body=None):
     import numpy as np
     import torch
 
@@ -88,7 +99,10 @@ def child(src, only):
     from repro_torch.kernels import cuda
     from repro_torch.kernels.decode_attention import ops
 
-    groups = {"attention": ("decode_attention",), "aebs": ("aebs",), "ffn": ("expert_ffn",)}
+    if k1_body:
+        ops.k1_body = lambda *_: k1_body
+    groups = {"attention": ("decode_attention",), "k1": ("decode_attention",), "aebs": ("aebs",),
+              "ffn": ("expert_ffn",)}
     build_s = {"expert_ffn": cuda.build_all(("expert_ffn",))} if only in (None, "ffn") else {}
     build_s["rest"] = cuda.build_all(groups[only] if only else cuda.SOURCES)
     dev = torch.device("cuda", 0)
@@ -162,18 +176,31 @@ def child(src, only):
 
     measure("launch_floor", floor_call, 1, 500)
 
+    def host_us(fn, n=20, reps=50):
+        """Host microseconds a call spends enqueueing: the median over
+        ``reps`` rounds of ``n`` calls, the device idle before each round."""
+        per = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                fn(i)
+            per.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+        return float(np.median(per))
+
+    host = {}
     B, nh, nkv, hd, ps, nblk = 8, 16, 16, 128, 16, 32
     q_all = torch.randn((B, nh, hd), generator=gen, device=dev).to(bf)
     lens_np = rng.integers(1, nblk * ps + 1, size=B).astype(np.int32)
-    for shape, nblk_c, lens_case, L, iters in (
-        ("serving", nblk, lens_np, 4, 200),
-        ("32k_b4", 32768 // ps, np.full(4, 32768, np.int32), 1, 20),
-    ) if only in (None, "attention") else ():
-        Bc = len(lens_case)
-        q = q_all[:Bc]
+
+    def k1_shape(shape, q, nkv_c, lens_case, nblk_c, L, iters, cap=0.0):
+        """K1 over ``L`` layers' pools rotated, the block table a random
+        permutation of the pool's pages."""
+        Bc, _, hd_c = q.shape
         P = Bc * nblk_c + 1
-        k_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
-        v_pool = torch.randn((L, P, ps, nkv, hd), generator=gen, device=dev).to(bf)
+        k_pool = torch.randn((L, P, ps, nkv_c, hd_c), generator=gen, device=dev).to(bf)
+        v_pool = torch.randn((L, P, ps, nkv_c, hd_c), generator=gen, device=dev).to(bf)
         bt_np = np.zeros((Bc, nblk_c), np.int32)
         perm = rng.permutation(P - 1) + 1
         used = 0
@@ -182,41 +209,65 @@ def child(src, only):
             bt_np[b, :nb] = perm[used: used + nb]
             used += nb
         bt = torch.from_numpy(bt_np).to(dev)
-        ln = torch.from_numpy(lens_case).to(dev)
-        check("paged_decode_attention", ops.paged_decode_attention(q, k_pool[0], v_pool[0], bt, ln),
-              ops.paged_decode_attention_ref(q, k_pool[0], v_pool[0], bt, ln))
-        measure(f"paged_decode_attention/{shape}",
-                lambda l: ops.paged_decode_attention(q, k_pool[l], v_pool[l], bt, ln), L, iters)
+        ln = torch.from_numpy(np.asarray(lens_case, np.int32)).to(dev)
+        check(f"paged_decode_attention/{shape}", ops.paged_decode_attention(q, k_pool[0], v_pool[0], bt, ln, cap),
+              ops.paged_decode_attention_ref(q, k_pool[0], v_pool[0], bt, ln, cap))
+        call = lambda l: ops.paged_decode_attention(q, k_pool[l % L], v_pool[l % L], bt, ln, cap)  # noqa: E731
+        measure(f"paged_decode_attention/{shape}", call, L, iters)
+        host[f"paged_decode_attention/{shape}"] = host_us(call)
         del k_pool, v_pool
         torch.cuda.empty_cache()
 
-    if hasattr(ops, "decode_attention") and only in (None, "attention"):
+    def k45_shape(shape, q, nkv_c, S, lens_case, L, iters, cap=0.0):
+        """K4 and K5 over ``L`` layers' contiguous caches rotated."""
         from repro_torch.models.attention import quantize_kv
 
+        Bc, _, hd_c = q.shape
+        ln = torch.from_numpy(np.asarray(lens_case, np.int32)).to(dev)
+        kc = torch.randn((L, Bc, S, nkv_c, hd_c), generator=gen, device=dev).to(bf)
+        vc = torch.randn((L, Bc, S, nkv_c, hd_c), generator=gen, device=dev).to(bf)
+        check("decode_attention", ops.decode_attention(q, kc[0], vc[0], ln, cap),
+              ops.decode_attention_ref(q, kc[0], vc[0], ln, cap))
+        measure(f"decode_attention/{shape}", lambda l: ops.decode_attention(q, kc[l], vc[l], ln, cap), L, iters)
+        quant = [quantize_kv(kc[l]) + quantize_kv(vc[l]) for l in range(L)]
+        del kc, vc
+        k8, ks, v8, vs = quant[0]
+        check("decode_attention_int8", ops.decode_attention_int8(q, k8, v8, ks, vs, ln, cap),
+              ops.decode_attention_int8_ref(q, k8, v8, ks, vs, ln, cap))
+        measure(f"decode_attention_int8/{shape}",
+                lambda l: ops.decode_attention_int8(q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], ln, cap),
+                L, iters)
+        del quant, k8, ks, v8, vs
+        torch.cuda.empty_cache()
+
+    if only in (None, "attention", "k1"):
+        k1_shape("serving", q_all, nkv, lens_np, nblk, 4, 200)
+        k1_shape("32k_b4", q_all[:4], nkv, np.full(4, 32768, np.int32), 32768 // ps, 1, 20)
         for shape, S, lens_case, L, iters in (
             ("serving", nblk * ps, lens_np, 6, 200),
             ("32k", 32768, np.full(B, 32768, np.int32), 1, 20),
             ("32k_b1", 32768, np.full(1, 32768, np.int32), 1, 50),
+        ) if only != "k1" else ():
+            k45_shape(shape, q_all[:len(lens_case)], nkv, S, lens_case, L, iters)
+        # the K1 rows of PERF.md's kernel table: phase 3e's configs at 8 x 512,
+        # gemma2-2b's global layers (8 x 8192, softcap 50), whisper-tiny's
+        # decoder (8 x 448) and pixtral-12b's (8 x 2048), random lengths;
+        # K4 and K5 at the same shapes
+        for shape, nh_c, nkv_c, hd_c, S, cap, L, iters in (
+            ("phi4_g3", 24, 8, 128, 512, 0.0, 4, 100),
+            ("scaled_ds_g4", 32, 8, 128, 512, 0.0, 4, 100),
+            ("yi_g7", 56, 8, 128, 512, 0.0, 4, 100),
+            ("gemma7b_hd256", 16, 16, 256, 512, 0.0, 4, 100),
+            ("dsv2_128h", 128, 128, 128, 512, 0.0, 4, 100),
+            ("gemma2_global_8k", 8, 4, 256, 8192, 50.0, 2, 50),
+            ("whisper_448", 6, 6, 64, 448, 0.0, 4, 100),
+            ("pixtral_2k", 32, 8, 128, 2048, 0.0, 2, 50),
         ):
-            ln = torch.from_numpy(lens_case).to(dev)
-            Bc = len(lens_case)
-            q = q_all[:Bc]
-            kc = torch.randn((L, Bc, S, nkv, hd), generator=gen, device=dev).to(bf)
-            vc = torch.randn((L, Bc, S, nkv, hd), generator=gen, device=dev).to(bf)
-            check("decode_attention", ops.decode_attention(q, kc[0], vc[0], ln),
-                  ops.decode_attention_ref(q, kc[0], vc[0], ln))
-            measure(f"decode_attention/{shape}",
-                    lambda l: ops.decode_attention(q, kc[l], vc[l], ln), L, iters)
-            quant = [quantize_kv(kc[l]) + quantize_kv(vc[l]) for l in range(L)]
-            del kc, vc
-            k8, ks, v8, vs = quant[0]
-            check("decode_attention_int8", ops.decode_attention_int8(q, k8, v8, ks, vs, ln),
-                  ops.decode_attention_int8_ref(q, k8, v8, ks, vs, ln))
-            measure(f"decode_attention_int8/{shape}",
-                    lambda l: ops.decode_attention_int8(
-                        q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], ln), L, iters)
-            del quant, k8, ks, v8, vs
-            torch.cuda.empty_cache()
+            lens_c = np.random.default_rng(S + nh_c).integers(1, S + 1, size=B).astype(np.int32)
+            q = torch.randn((B, nh_c, hd_c), generator=gen, device=dev).to(bf)
+            k1_shape(shape, q, nkv_c, lens_c, S // ps, L, iters, cap)
+            if only != "k1":
+                k45_shape(shape, q, nkv_c, S, lens_c, L, iters, cap)
 
     from repro_torch.core.aebs import aebs_assign
     from repro_torch.core.amax import make_routing_trace
@@ -244,16 +295,6 @@ def child(src, only):
             for b in bs:
                 aebs_shape(f"fig15_ne{n_e}_B{b}", torch.from_numpy(trace[:b]).to(dev), layout, 200)
 
-    def host_us(fn, n=20):
-        """Host microseconds a call spends enqueueing, the device idle before."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n):
-            fn(i)
-        dt = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return dt / n * 1e6
-
     def ffn_shape(key, x, w3, s2e, active, iters):
         wg, wu, wd = w3
         check("expert_ffn", ffn.expert_ffn_grouped(x, wg, wu, wd, s2e, active),
@@ -275,7 +316,6 @@ def child(src, only):
                 (torch.randn((E3, d3, f3), generator=gen, device=dev) * d3**-0.5).to(bf),
                 (torch.randn((E3, f3, d3), generator=gen, device=dev) * f3**-0.5).to(bf))
 
-    host = {}
     if only in (None, "ffn"):
         import torch.nn.functional as F
 
@@ -308,22 +348,23 @@ def child(src, only):
             ffn_shape(f"{name}/prefill", x, w3, s2e3, torch.ones(E3, dtype=torch.bool, device=dev), 10)
             del w3, x
             torch.cuda.empty_cache()
-    print(json.dumps({"card": card_line(), "src": src, "build_s": build_s, "ms": out,
+    print(json.dumps({"card": card_line(), "src": src, "k1_body": k1_body, "build_s": build_s, "ms": out,
                       "device_ms": dev_out, "host_us": host}), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", help="a checkout's src directory (repeat, in turn order)")
-    ap.add_argument("--only", choices=("attention", "aebs", "ffn"), help="one group of kernels")
+    ap.add_argument("--only", choices=("attention", "k1", "aebs", "ffn"), help="one group of kernels")
+    ap.add_argument("--k1-body", choices=("tc", "attend"), help="run K1 on this body of csrc/decode_attention.cu")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child, args.only)
+        child(args.child, args.only, args.k1_body)
         return 0
     if not args.src:
         ap.error("give at least one --src")
-    only = ["--only", args.only] if args.only else []
+    only = (["--only", args.only] if args.only else []) + (["--k1-body", args.k1_body] if args.k1_body else [])
     for src in args.src:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--child", src, *only], check=True)
     return 0

@@ -12,21 +12,82 @@
 // What each computes: for slot b and KV head h, the G = nh / nkv query heads
 // of h attend one query token over the slot's rows [0, lengths[b]).  Scores
 // are f32, scaled by hd^-0.5, optionally tanh-capped; rows at or past the
-// length are masked (never read); an online softmax gives [B, nh, hd] in
-// q's dtype, normalised by max(l, 1e-30) as on the TPU.  K4 and K5 take the
+// length are masked; an online softmax gives [B, nh, hd] in q's dtype,
+// normalised by max(l, 1e-30) as on the TPU.  K4 and K5 take the
 // reference's scalar valid_len as per-slot lengths (the wrapper broadcasts a
 // scalar), which is what the engine's per-slot positions need.  K5 keeps
 // the dequantised rows in f32, as the TPU kernel does (kernel.py:102-103);
 // the reference's oracle rounds them to q's dtype first.
 //
 // Bound on the H100: bytes.  Each live K and V row of a head is read once
-// against ~4 FLOPs per cached element (G = 1 at dsv2-lite: 16 query heads
-// over 16 KV heads), far below the ~295 FLOP/B where the tensor cores would
-// bind, so no tensor cores: the work is to keep enough bytes in flight.
-// Per row and head, K1 and K4 read 2 * hd bytes of K and again of V in
-// bf16; K5 reads hd + 4 (int8 values plus the f32 scale).
+// against ~4 G FLOPs per cached element (G <= 8), far below the ~295 FLOP/B
+// where the tensor cores would bind, so the work is to keep the memory busy
+// and the arithmetic off the critical path.  Per row and head, K1 and K4
+// read 2 * hd bytes of K and again of V in bf16; K5 reads hd + 4 (int8
+// values plus the f32 scale).
 //
-// Design: one body (`attend`) for all three, parametrised by a row policy
+// Two bodies.  K1 in bf16 at G >= 2 runs its own (`tc`, below the other);
+// K4, K5, K1 at G = 1 and K1 in float32 (which the parity phases hold to
+// the CPU at 1e-5) share `attend`, on CUDA cores.
+//
+// K1's bf16 body, for Hopper.  Grid (nkv, B, n_split), one block a range
+// of a slot's pages and one KV head (ops.py k1_plan).
+//   * A producer warp reads the range's block-table entries beside the
+//     slot's length, and one lane loads each page's K and V rows of head h
+//     by TMA into a ring of stages under full / empty mbarriers: the pools
+//     are [P * ps, nkv, hd] tensor maps (csrc/tma.cuh, cached per address
+//     and shape), a box is 64 columns x 1 head x ps rows with the 128-byte
+//     swizzle, so ldmatrix reads 8 rows of a column block without bank
+//     conflicts.  Pages smaller than 16 rows pad a stage to one 16-row
+//     tile, their pad rows of V zeroed once.
+//   * min(4, stages) consumer warps take the pages in turn (a stage's pages
+//     are all one warp's, so a parity wait never passes a phase early).
+//     Each 16-row tile runs on tensor cores, mma.sync m16n8k16 bf16 with f32
+//     accumulators, for all G <= 8 heads of the group at once: scores with
+//     the rows as M and the heads as N (q as the B operand, in registers;
+//     K by ldmatrix; two accumulator chains over the k-steps), then
+//     out^T += V^T . P^T with the head_dim as M (V by ldmatrix.trans) and
+//     P^T as B, each 8 x 8 half of P transposed in registers by movmatrix.
+//     Rows as M, not the heads (FlashAttention-2's orientation): at G <= 8
+//     that halves the products and the accumulator registers (hd / 4 a
+//     thread), and the row reductions of the softmax are three shuffles
+//     over the tile's rows, two heads a lane, in the exp2 domain.
+//   * P enters the product as two bf16 terms, P rounded and the rest
+//     rounded, against the same V fragment: P keeps ~16 bits, and the
+//     result stays within one bf16 rounding of the f32 oracle at 32k rows,
+//     where one bf16 P does not (tests/test_torch_paged_decode_tc.py).
+//   * Masking with whole tiles: a TMA box brings every row of the last live
+//     page, and rows past the length may hold anything (a stale row, a NaN).
+//     Their scores are replaced by the mask constant with a select before
+//     the max, and their V rows are zeroed in shared memory before the
+//     product, since a 0 weight times a NaN is still NaN.
+//   * The warps' states merge in warp order through the ring.  With more
+//     than one live range, each writes its f32 partial (m, l, acc) to a
+//     scratch and counts itself done on its (slot, head)'s counter (an
+//     acq_rel atomic after a barrier); the last to finish merges the
+//     partials in range order and resets the counter: one launch, the same
+//     sums whichever block ran last.  The counters are the wrapper's, one
+//     buffer a (device, stream): launches that run at once on two streams
+//     never share one, but two replays of CUDA graphs captured on one
+//     stream do, so such replays must not overlap.  In both merges a head's columns are
+//     16 threads' and each thread finds its head's weights itself, reading
+//     a batch of ranges' (m, l) and partials at once: no barrier waits on
+//     a weight.  A block whose range lies past the slot's length returns at
+//     once.  (A thread block cluster of a head's ranges, merging through
+//     distributed shared memory, measured no faster: it caps a slot at 8
+//     ranges and constrains where blocks run.)
+//   * Shape dispatch (ops.py k1_body): bf16 at G >= 2 with pages of up to
+//     256 rows (224 at head_dim 256, the shared memory's limit) takes this
+//     body.  G = 1 takes `attend`: a product then carries one real head of
+//     eight, and this body, timed in turns with `attend` on one H100
+//     (scripts/decode_attention_ab.py --k1-body), was as fast or slower at
+//     the serving rows (8 x 512: 0.0091-0.0098 ms against 0.0091-0.0094;
+//     whisper's 8 x 448: 0.0063-0.0064 against 0.0054) and at 4 x 32768
+//     (0.3646-0.3656 against 0.3610-0.3613), faster only at dsv2's 128
+//     heads (0.0625 against 0.0689) and gemma-7b's head_dim 256 (0.0152
+//     against 0.0163).  float32 and larger pages take `attend` too.
+//
+// `attend` (K4, K5, K1 at G = 1 and in float32): one body parametrised by a row policy
 // (where row p of slot b lives: a page of the block table, or the slot's
 // contiguous rows) and a load policy (a row in the cache's dtype, or int8
 // times its scale).  A block of 12 warps (fewer where G > 1) owns one range
@@ -43,25 +104,23 @@
 // update a group, as the TPU kernel does for each block of rows), so a
 // warp always has a group in flight.  No barrier sits inside the loop; the
 // lane groups' (max, sum, accumulator) are merged once at the end through
-// shared memory.
+// shared memory.  Rows at or past the length are never read.
 //
-// All three are split-KV (flash-decoding): a (B, nkv, n_split) grid,
-// launched as (nkv, B, n_split) so that a slot's heads, which read the same
-// rows of the cache, run side by side; block z walks chunks [z * cps,
-// (z + 1) * cps) of the slot (pages for K1).  With n_split > 1 each block
-// writes its unnormalised partial (m, l, acc[G, hd]) in f32 to a scratch the
-// wrapper allocates, and a second small kernel merges a head's partials in
-// split order (fixed, so results do not change from run to run) with the
-// same math as the in-block merge.  A block whose range lies past the
-// slot's length reads no row and writes the empty partial (m = -1e30, l = 0,
+// `attend` is split-KV (flash-decoding): a (B, nkv, n_split) grid, launched
+// as (nkv, B, n_split) so that a slot's heads, which read the same rows of
+// the cache, run side by side; block z walks chunks [z * cps, (z + 1) *
+// cps) of the slot (pages for K1).  With n_split > 1 each block writes its
+// unnormalised partial (m, l, acc[G, hd]) in f32 to a scratch the wrapper
+// allocates, and a second small kernel merges a head's partials in split
+// order (fixed, so results do not change from run to run) with the same
+// math as the in-block merge.  A block whose range lies past the slot's
+// length reads no row and writes the empty partial (m = -1e30, l = 0,
 // acc = 0).  The wrapper picks n_split from B * nkv, the cache's rows (for
 // K1 the block table's width times the page size) and the SM count, without
 // reading the lengths: no split for S <= 512 (the serving cache, where the
 // second launch costs more than the split saves), and at most ceil(S / 512)
-// ranges beyond.
-//
-// K1 reads each page's id from the block table a chunk ahead of its rows,
-// so a group's row loads wait only for memory, never behind that int32.
+// ranges beyond.  K1 reads each page's id from the block table a chunk
+// ahead of its rows, so a group's row loads wait only for memory.
 //
 // K5 converts int8 to f32 without I2F, which issues at an eighth of the FMA
 // rate on sm_90 and would take about what the memory allows: the byte,
@@ -79,17 +138,34 @@
 // thread a column) hold at any hd.  No path pages a head_dim-80 cache, so
 // K1 keeps 64, 128 and 256.
 //
-// What the H100 showed (PERF.md §6): with one block per (slot, head) and
-// rows loaded only after the last group was folded in, each warp's walk was
-// a latency-bound chain (2.2 ms against a 0.64 ms bound at 8 x 32k rows).
-// Keeping a group in flight removed the chain; the split fills the SMs that
-// 32k contexts at the 1-8 slots one card holds beside dsv2-lite's weights
-// leave idle.  K5's time at 8 x 32k went from 0.95 ms to 0.54 with the
-// split, 0.49 with the PRMT conversion, 0.46 with K4's bytes in flight and
-// 0.41 with 12 warps (bound 0.33).
+// What the H100 showed (PERF.md §6).  `attend`: with one block per (slot,
+// head) and rows loaded only after the last group was folded in, each
+// warp's walk was a latency-bound chain (2.2 ms against a 0.64 ms bound at
+// 8 x 32k rows).  Keeping a group in flight removed the chain; the split
+// fills the SMs that 32k contexts at the 1-8 slots one card holds beside
+// dsv2-lite's weights leave idle.  K5's time at 8 x 32k went from 0.95 ms
+// to 0.54 with the split, 0.49 with the PRMT conversion, 0.46 with K4's
+// bytes in flight and 0.41 with 12 warps (bound 0.33).  Its per-head
+// arithmetic grew with G at a fixed byte count (8 x 512 rows: 0.0094 ms at
+// G 1, 0.0506 at G 7), which is what `tc` takes off the critical path.
+// `tc`, in turns with its parent on one H100 (PERF.md §6): 8 x 512 at G 3 /
+// 4 / 7 0.0080 / 0.0081 / 0.0088 ms against 0.0213 / 0.0274 / 0.0501 (bound
+// ~0.003), pixtral's 8 x 2048 0.0165 against 0.0455, gemma2's 8 x 8192
+// 0.0520 against 0.0840.  A clock trace of its first versions showed the
+// data phase near the memory's rate and half of a serving-rows launch
+// spent after a block's last page had landed: the last range's merge made
+// dependent L2 round trips column by column and the in-block merge waited
+// on a barrier for each head's weights.  Threads that own 16 columns of one
+// head, find its weights themselves and load a batch of ranges at once cut
+// that tail most.  Tried and dropped: a thread block cluster of a head's
+// ranges merging through distributed shared memory (no faster; it caps a
+// slot at 8 ranges and delayed some blocks by a wave), 8 consumer warps
+// (half the resident blocks; slower everywhere), V fragments loaded before
+// the softmax, and skipping the rescale while a warp's max holds (no
+// change).
 #include <type_traits>
 
-#include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -548,6 +624,439 @@ int launch(int dtype, int B, int hd, int n_split, int device, void* stream, Args
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// K1's bf16 body on Hopper: pages through a TMA ring, the products of a KV
+// group on tensor cores (the source note at the top says why)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::smem_u32;
+
+constexpr int kWarps = 4;                    // consumer warps: min(4, stages) of them take pages
+constexpr int kThreads = 32 * (kWarps + 1);  // and one producer warp
+constexpr int kHeads = 8;                    // N of every product: a KV group's heads, padded
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Params {
+  const __nv_bfloat16* q;   // [B, nh, hd]
+  const int* block_tables;  // [B, nblk]
+  const int* lengths;       // [B]
+  __nv_bfloat16* out;       // [B, nh, hd]
+  float* part;              // ranges' partials (n_split > 1), laid out as ml_offset says
+  unsigned* counters;       // [B * nkv] finished ranges of a (slot, KV head); 0 between launches
+  int nh, nkv, G, nblk, ps;
+  int pps;                  // pages a range (a block)
+  int stages;               // ring depth
+  float scale, logit_cap;
+};
+
+// One page's K (or V) rows of one head in a stage: hd / 64 boxes of
+// 16 * ceil(ps / 16) rows of 128 bytes (the rows past ps pad a page to
+// whole 16-row tiles, and keep each box 1024-byte aligned for the swizzle)
+__host__ __device__ constexpr uint32_t region_bytes(int hd, int ps) {
+  return (uint32_t)(hd / 64) * 16 * ((ps + 15) / 16) * 128;
+}
+// the in-block merge's arrays, which reuse the ring: the warps' (m, l) and
+// acc (rows of hd + 4)
+__host__ __device__ constexpr uint32_t merge_bytes(int hd) { return (uint32_t)kWarps * kHeads * (hd + 6) * 4; }
+__host__ __device__ constexpr uint32_t ring_bytes(int hd, int ps, int stages) {
+  return 2 * region_bytes(hd, ps) * stages > merge_bytes(hd) ? 2 * region_bytes(hd, ps) * stages
+                                                             : merge_bytes(hd);
+}
+// dynamic shared memory: slack to align the ring to 1024 bytes, the ring,
+// then a full and an empty barrier a stage
+__host__ __device__ constexpr uint32_t smem_bytes(int hd, int ps, int stages) {
+  return 1024 + ring_bytes(hd, ps, stages) + 16 * stages;
+}
+
+// shared address of columns [col, col + 8) of row r of a region (boxes of
+// rows_pad rows, 64 columns each) under the 128-byte swizzle
+__device__ __forceinline__ uint32_t swz(uint32_t region, int rows_pad, int r, int col) {
+  return region + (uint32_t)((col >> 6) * rows_pad + r) * 128 + ((((col & 63) >> 3) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+// d[16 x 8] += a[16 x 16] . b[16 x 8]: bf16 products, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// the transpose of the 8 x 8 bf16 matrix whose row lane / 4 holds columns
+// 2 (lane % 4) and + 1 in this lane's word, in the same layout
+__device__ __forceinline__ uint32_t transpose8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+// (lo, hi) rounded to bf16 in one word, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// out[0, N) = bf16(num / max(den, 1e-30)), N a multiple of 4, as 8-byte stores
+template <int N>
+__device__ __forceinline__ void store_row(__nv_bfloat16* out, const float (&num)[N], float den) {
+  const float inv = 1.f / fmaxf(den, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    uint2 v;
+    v.x = pack_bf16(num[j] * inv, num[j + 1] * inv);
+    v.y = pack_bf16(num[j + 2] * inv, num[j + 3] * inv);
+    *reinterpret_cast<uint2*>(out + j) = v;
+  }
+}
+
+// grid (nkv, B, n_split), kThreads threads: block (h, b, z) reads pages
+// [z * pps, (z + 1) * pps) of slot b's live pages for KV head h
+template <int HD>
+__global__ void __launch_bounds__(kThreads) paged_tc_kernel(const __grid_constant__ CUtensorMap map_k,
+                                                            const __grid_constant__ CUtensorMap map_v,
+                                                            const Params p) {
+  constexpr int kChunks = HD / 64;  // 64-column boxes a row
+  constexpr int kSteps = HD / 16;   // k-steps of the scores, m-tiles of the output
+  const int h = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int j0 = z * p.pps;
+  // the producer's first 32 entries of the range's block table, loaded
+  // beside the length rather than after it
+  int id0 = 0;
+  if (warp == kWarps && lane < min(p.pps, p.nblk - j0)) id0 = p.block_tables[(size_t)b * p.nblk + j0 + lane];
+  const int len = max(0, min(p.lengths[b], p.nblk * p.ps));
+  const int live_pages = (len + p.ps - 1) / p.ps;
+  // ranges holding a live row (one, writing zeros, for an empty slot)
+  const int n_live = max(1, (live_pages + p.pps - 1) / p.pps);
+  if (z >= n_live) return;
+  const int n = max(0, min(j0 + p.pps, live_pages) - j0);  // this block's pages
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int rows_pad = 16 * ((p.ps + 15) / 16);
+  const uint32_t region = region_bytes(HD, p.ps);
+  const uint32_t ring_s = smem_u32(ring);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ring_bytes(HD, p.ps, p.stages));
+  uint64_t* empty = full + p.stages;
+
+  if (tid == 32 * kWarps) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(smem_u32(full + i), 1);
+      mbar_init(smem_u32(empty + i), 1);  // lane 0 of the page's consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)&map_k) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)&map_v) : "memory");
+  }
+  if (p.ps < rows_pad) {  // V rows past a page's end pad its last tile: zeros (K's are masked)
+    const int per_stage = (rows_pad - p.ps) * kChunks * 8;  // 16-byte pieces
+    for (int x = tid; x < p.stages * per_stage; x += kThreads) {
+      const int st = x / per_stage, y = x % per_stage;
+      const int r = p.ps + y / (kChunks * 8), c = (y / 8) % kChunks;
+      *reinterpret_cast<uint4*>(ring + st * 2 * region + region + (c * rows_pad + r) * 128 + (y % 8) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+  __syncthreads();
+
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // heads 2 (lane % 4) and + 1
+  float acc[kSteps][4];
+#pragma unroll
+  for (int mt = 0; mt < kSteps; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+
+  if (warp == kWarps) {
+    // the producer: the block table's entries 32 at a time, one a lane;
+    // lane 0 loads each page's K and V boxes of head h into the next stage
+    // once its last reader has released it
+    const int* bt = p.block_tables + (size_t)b * p.nblk + j0;
+    const uint32_t tx = 2u * kChunks * p.ps * 128;
+    const uint64_t policy = repro::evict_first_policy();  // each row is read once
+    for (int base = 0; base < n; base += 32) {
+      const int id = base == 0 ? id0 : (base + lane < n ? bt[base + lane] : 0);
+      const int m = min(32, n - base);
+      for (int i = 0; i < m; ++i) {
+        const int page = __shfl_sync(0xffffffffu, id, i);
+        const int k = base + i, st = k % p.stages;
+        if (lane == 0) {
+          mbar_wait(smem_u32(empty + st), ((k / p.stages) & 1) ^ 1);
+          const uint32_t bar = smem_u32(full + st), dst = ring_s + st * 2 * region;
+          mbar_expect_tx(bar, tx);
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) {
+            repro::tma_load(dst + c * rows_pad * 128, &map_k, bar, 64 * c, h, page * p.ps, policy);
+            repro::tma_load(dst + region + c * rows_pad * 128, &map_v, bar, 64 * c, h, page * p.ps, policy);
+          }
+        }
+      }
+    }
+  } else {
+    const float scale_l2 = p.scale * kLog2e, cap_l2 = p.logit_cap * kLog2e;
+    const float scale_cap = p.logit_cap > 0.f ? p.scale / p.logit_cap : 0.f;
+    // q as the B operand of the scores (K = head_dim, N = heads): head
+    // lane / 4 (zero past G), columns 16 kk + 2 (lane % 4) + {0, 1} and + 8
+    const int qh = lane >> 2;
+    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
+        p.q + ((size_t)b * p.nh + (size_t)h * p.G + min(qh, p.G - 1)) * HD) + (lane & 3);
+    uint32_t qb[kSteps][2];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      qb[kk][0] = qh < p.G ? qrow[8 * kk] : 0u;
+      qb[kk][1] = qh < p.G ? qrow[8 * kk + 4] : 0u;
+    }
+    // warp w of the first nw takes pages w, w + nw, ...: with stages a
+    // multiple of nw, the page that used a stage before page i is the same
+    // warp's, so its parity wait on the stage can never see a phase early
+    const int nw = min(kWarps, p.stages);
+    for (int i = warp; warp < nw && i < n; i += nw) {
+      const int st = i % p.stages;
+      mbar_wait(smem_u32(full + st), (i / p.stages) & 1);
+      const uint32_t kreg = ring_s + st * 2 * region, vreg = kreg + region;
+      const int valid = min(p.ps, len - (j0 + i) * p.ps);  // the page's live rows (>= 1)
+      if (valid < p.ps) {
+        // the slot's last live page, the block's last: its rows past the
+        // length may hold anything (stale rows, a NaN), so their V is zeroed
+        // and a masked row's 0 weight stays 0 through the product
+        unsigned char* v_rows = ring + st * 2 * region + region;
+        for (int x = lane; x < (p.ps - valid) * kChunks * 8; x += 32) {
+          const int r = valid + x / (kChunks * 8), c = (x / 8) % kChunks;
+          *reinterpret_cast<uint4*>(v_rows + (c * rows_pad + r) * 128 + (x % 8) * 16) = make_uint4(0, 0, 0, 0);
+        }
+        __syncwarp();
+      }
+      for (int r0 = 0; r0 < valid; r0 += 16) {
+        // scores of 16 rows (M) by 8 heads (N): row r0 + lane / 4 (+ 8) in
+        // s[0..1] (s[2..3]), heads 2 (lane % 4) and + 1
+        // (two accumulator chains over the k-steps, so that half as many
+        // products wait on one another)
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+          uint32_t a[4];
+          ldsm_x4(a, swz(kreg, rows_pad, r0 + ((lane >> 3) & 1) * 8 + (lane & 7), 16 * kk + (lane >> 4) * 8));
+          if (kk % 2)
+            mma_bf16(s1, a, qb[kk][0], qb[kk][1]);
+          else
+            mma_bf16(s, a, qb[kk][0], qb[kk][1]);
+        }
+        const bool va = r0 + (lane >> 2) < valid, vb = r0 + (lane >> 2) + 8 < valid;
+        // scaled (and capped) scores, in units of log2 e: the softmax runs on exp2
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[e] += s1[e];
+          s[e] = p.logit_cap > 0.f ? cap_l2 * tanhf(s[e] * scale_cap) : s[e] * scale_l2;
+        }
+        // masked before the max, by a select: a garbage score never enters
+        s[0] = va ? s[0] : kNegInf;
+        s[1] = va ? s[1] : kNegInf;
+        s[2] = vb ? s[2] : kNegInf;
+        s[3] = vb ? s[3] : kNegInf;
+        float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {  // over the tile's rows: the lanes of a column
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+        }
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        const float p0 = va ? exp2f(s[0] - mn0) : 0.f, p1 = va ? exp2f(s[1] - mn1) : 0.f;
+        const float p2 = vb ? exp2f(s[2] - mn0) : 0.f, p3 = vb ? exp2f(s[3] - mn1) : 0.f;
+        l0 = l0 * c0 + (p0 + p2);  // this lane's rows; the column's lanes are summed at the end
+        l1 = l1 * c1 + (p1 + p3);
+#pragma unroll
+        for (int mt = 0; mt < kSteps; ++mt) {
+          acc[mt][0] *= c0;
+          acc[mt][1] *= c1;
+          acc[mt][2] *= c0;
+          acc[mt][3] *= c1;
+        }
+        // P = hi + lo, both bf16 (hi: P rounded; lo: the rest, rounded), so
+        // that the weighted sum keeps P to ~2^-16; each 8 x 8 half
+        // transposed into the B operand (K = rows, N = heads)
+        const uint32_t h01 = pack_bf16(p0, p1), h23 = pack_bf16(p2, p3);
+        const uint32_t o01 = pack_bf16(p0 - __uint_as_float(h01 << 16), p1 - __uint_as_float(h01 & 0xffff0000u));
+        const uint32_t o23 = pack_bf16(p2 - __uint_as_float(h23 << 16), p3 - __uint_as_float(h23 & 0xffff0000u));
+        const uint32_t ph0 = transpose8(h01), ph1 = transpose8(h23);
+        const uint32_t pl0 = transpose8(o01), pl1 = transpose8(o23);
+        // out^T (M = head_dim, N = heads) += V^T (from V's rows by ldmatrix.trans) . P^T
+#pragma unroll
+        for (int mt = 0; mt < kSteps; ++mt) {
+          uint32_t a[4];
+          ldsm_x4_trans(a, swz(vreg, rows_pad, r0 + (lane >> 4) * 8 + (lane & 7), 16 * mt + ((lane >> 3) & 1) * 8));
+          mma_bf16(acc[mt], a, ph0, ph1);
+          mma_bf16(acc[mt], a, pl0, pl1);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(empty + st));
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+    }
+  }
+
+  // Merge the warps' softmax states, in warp order, through the ring.  A
+  // head's columns are 16 threads' (kCols consecutive columns each): each
+  // thread finds its head's warp weights itself, so one barrier publishes
+  // the warps' states and none waits on the weights.
+  constexpr int kCols = HD / 16;
+  constexpr int kRow = HD + 4;  // a row of `as`: the four heads a store writes hit four bank groups
+  __syncthreads();              // every page has been read
+  float* ms = reinterpret_cast<float*>(ring);  // [kWarps][kHeads]
+  float* ls = ms + kWarps * kHeads;            // [kWarps][kHeads]
+  float* as = ls + kWarps * kHeads;            // [kWarps][kHeads][kRow]
+  if (warp < kWarps) {
+    const int n0 = warp * kHeads + 2 * (lane & 3), row = lane >> 2;
+    if (row == 0) {
+      ms[n0] = m0;
+      ms[n0 + 1] = m1;
+      ls[n0] = l0;
+      ls[n0 + 1] = l1;
+    }
+#pragma unroll
+    for (int mt = 0; mt < kSteps; ++mt) {
+      as[n0 * kRow + 16 * mt + row] = acc[mt][0];
+      as[(n0 + 1) * kRow + 16 * mt + row] = acc[mt][1];
+      as[n0 * kRow + 16 * mt + row + 8] = acc[mt][2];
+      as[(n0 + 1) * kRow + 16 * mt + row + 8] = acc[mt][3];
+    }
+  }
+  __syncthreads();
+  const int g = tid >> 4, d0 = (tid & 15) * kCols;  // this thread's head and first column
+  const bool mine = tid < 16 * p.G;
+  const size_t head = (size_t)b * p.nh + (size_t)h * p.G + g;
+  const int n_split = gridDim.z;
+  float* ml_all = p.part + ml_offset((size_t)gridDim.y * p.nh, n_split, HD);
+  float num[kCols];
+  if (mine) {
+    float mx = kNegInf, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ms[w * kHeads + g]);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) num[j] = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = exp2f(ms[w * kHeads + g] - mx);  // 0 for a warp that read no row
+      den += ls[w * kHeads + g] * c;
+      const float4* a4 = reinterpret_cast<const float4*>(as + (w * kHeads + g) * kRow + d0);
+#pragma unroll
+      for (int j = 0; j < kCols / 4; ++j) {
+        const float4 a = a4[j];
+        num[4 * j] += a.x * c;
+        num[4 * j + 1] += a.y * c;
+        num[4 * j + 2] += a.z * c;
+        num[4 * j + 3] += a.w * c;
+      }
+    }
+    if (n_live == 1) {
+      store_row(p.out + head * HD + d0, num, den);
+    } else {  // range z: the unnormalised partial
+      const size_t hz = head * n_split + z;
+      float4* dst = reinterpret_cast<float4*>(p.part + hz * HD + d0);
+#pragma unroll
+      for (int j = 0; j < kCols / 4; ++j) dst[j] = make_float4(num[4 * j], num[4 * j + 1], num[4 * j + 2], num[4 * j + 3]);
+      if (d0 == 0) {
+        ml_all[hz * 2] = mx;
+        ml_all[hz * 2 + 1] = den;
+      }
+    }
+  }
+  if (n_live == 1) return;
+  // The last of the head's live ranges to finish merges all of them, in
+  // range order (the same sums whichever block is last), and resets the
+  // counter for the next launch: no second kernel.  The block's partial is
+  // released by thread 0's atomic after the barrier and acquired by the
+  // last block's (the pattern of cutlass/barrier.h).
+  __shared__ int last_s;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned* cnt = p.counters + (size_t)b * p.nkv + h;
+    unsigned old;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n" : "=r"(old) : "l"(cnt) : "memory");
+    const bool last = old == (unsigned)n_live - 1;
+    if (last) atomicExch(cnt, 0u);
+    last_s = last;
+  }
+  __syncthreads();
+  if (!last_s || !mine) return;
+  // each thread merges its columns over the ranges, kBatch ranges' (m, l)
+  // and partials in flight at a time, with the same online rescaling as
+  // the softmax (a fixed order: the same sums every run)
+  constexpr int kBatch = kCols <= 8 ? 8 : 4;
+  float mx = kNegInf, den = 0.f;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) num[j] = 0.f;
+  for (int r0 = 0; r0 < n_live; r0 += kBatch) {
+    float m[kBatch], l[kBatch];
+    float4 a[kBatch][kCols / 4];
+#pragma unroll
+    for (int rr = 0; rr < kBatch; ++rr) {
+      const bool ok = r0 + rr < n_live;
+      const size_t hz = head * n_split + r0 + rr;
+      m[rr] = ok ? __ldcg(ml_all + hz * 2) : kNegInf;
+      l[rr] = ok ? __ldcg(ml_all + hz * 2 + 1) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kCols / 4; ++j)
+        a[rr][j] = ok ? __ldcg(reinterpret_cast<const float4*>(p.part + hz * HD + d0) + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    float bm = mx;
+#pragma unroll
+    for (int rr = 0; rr < kBatch; ++rr) bm = fmaxf(bm, m[rr]);
+    const float c = exp2f(mx - bm);
+    den *= c;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) num[j] *= c;
+#pragma unroll
+    for (int rr = 0; rr < kBatch; ++rr) {
+      const float w = exp2f(m[rr] - bm);  // 0 past n_live
+      den += l[rr] * w;
+#pragma unroll
+      for (int j = 0; j < kCols / 4; ++j) {
+        num[4 * j] += a[rr][j].x * w;
+        num[4 * j + 1] += a[rr][j].y * w;
+        num[4 * j + 2] += a[rr][j].z * w;
+        num[4 * j + 3] += a[rr][j].w * w;
+      }
+    }
+    mx = bm;
+  }
+  store_row(p.out + head * HD + d0, num, den);
+}
+
+template <int HD>
+cudaError_t launch_tc(int device, const CUtensorMap* maps, const Params& p, const dim3& grid, uint32_t smem,
+                      cudaStream_t st) {
+  static bool ready[repro::kMaxDevices] = {};  // under tma_mutex
+  auto kern = paged_tc_kernel<HD>;
+  cudaError_t err = repro::allow_smem(kern, device, ready);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kThreads, smem, st>>>(maps[0], maps[1], p);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Each launcher takes n_split ranges of chunks_per_split chunks (K1: pages,
@@ -564,6 +1073,42 @@ REPRO_EXPORT int paged_decode_attention(const void* q, const void* k_pages, cons
   const Args a{q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths, out, part,
                nh, nkv, nblk, ps, chunks_per_split, scale, logit_cap};
   return launch<kPaged>(dtype, B, hd, n_split, device, stream, a);
+}
+
+// K1's bf16 body (tc::paged_tc_kernel): q [B, nh, hd], page pools [P, ps,
+// nkv, hd] in bf16, block tables [B, nblk] and lengths [B] int32; n_split
+// ranges of pps pages, a ring of `stages` pages; `part` as
+// above (n_split > 1) and `counters`, B * nkv uint32 that are zero and left
+// zero.
+REPRO_EXPORT int paged_decode_attention_bf16(const void* q, const void* k_pages, const void* v_pages,
+                                             const int* block_tables, const int* lengths, void* out,
+                                             float* part, void* counters, int B, int nh, int nkv, int hd,
+                                             int ps, int P, int nblk, int n_split, int pps, int stages,
+                                             float scale, float logit_cap, int device, void* stream) {
+  REPRO_SET_DEVICE(device);
+  const int G = nkv > 0 && nh % nkv == 0 ? nh / nkv : 0;
+  if (B < 1 || G < 1 || G > tc::kHeads || ps < 1 || ps > 256 || P < 1 || (uint64_t)P * ps > INT32_MAX ||
+      nblk < 1 || n_split < 1 || pps < 1 || stages < 1 ||
+      (stages > tc::kWarps && stages % tc::kWarps) || (n_split > 1 && part == nullptr) ||
+      counters == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const uint32_t smem = tc::smem_bytes(hd, ps, stages);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const tc::Params p{(const __nv_bfloat16*)q, block_tables, lengths, (__nv_bfloat16*)out, part,
+                     (unsigned*)counters, nh, nkv, G, nblk, ps, pps, stages, scale, logit_cap};
+  const dim3 grid(nkv, B, n_split);
+  cudaStream_t st = (cudaStream_t)stream;
+  std::lock_guard<std::mutex> lock(repro::tma_mutex());
+  CUtensorMap maps[2];  // the pools as [P * ps, nkv, hd]: boxes of one page's rows of one head
+  if (!repro::tensor_map(&maps[0], k_pages, hd, nkv, (uint64_t)P * ps, 1, ps) ||
+      !repro::tensor_map(&maps[1], v_pages, hd, nkv, (uint64_t)P * ps, 1, ps))
+    return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 64: return (int)tc::launch_tc<64>(device, maps, p, grid, smem, st);
+    case 128: return (int)tc::launch_tc<128>(device, maps, p, grid, smem, st);
+    case 256: return (int)tc::launch_tc<256>(device, maps, p, grid, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K4: q [B, nh, hd], caches [B, S, nkv, hd] in q's dtype, lengths [B] int32.

@@ -90,17 +90,18 @@
 //
 // float32 stays on CUDA cores in full f32 (no TF32): the first version's
 // kernels, two launches of plain FMAs over row groups of 8.
-#include <cuda.h>
-
-#include <functional>
-#include <mutex>
-#include <unordered_map>
-
-#include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::smem_u32;
+using repro::spin_check;
+using repro::tma_load;
 
 __device__ __forceinline__ bool slot_live(const int* s2e, const int* active, int s) {
   return active[s] != 0 && s2e[s] >= 0;
@@ -271,7 +272,6 @@ constexpr int kRowBytes = kBox * 2;            // one token row of a box: 64 val
 // to the next (unused: a box is one block), SBO from 8 reduction rows to
 // the next (1024 bytes); the token rows' (B, K-major) SBO steps 8 rows.
 constexpr uint32_t kLboA = 1024;
-constexpr long long kSpinCycles = 1LL << 35;   // ~17 s: a wait that long is a fault, not a wait
 constexpr int kQueue = 16;  // item ids in flight from producer to consumers: more than the ring's stages
 
 // A block: R x C consumer warpgroups and one producer warp (one thread of
@@ -300,53 +300,6 @@ struct Params {
   int tiles_b;         // phase-B items a row block: 128 * C columns of out each
   int stages;          // ring depth
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void spin_check(long long& t0) {
-  if (t0 == 0) t0 = clock64();
-  else if (clock64() - t0 > kSpinCycles) __trap();
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    spin_check(t0);
-  }
-}
-
-// one box of a 3-D tensor map (coordinates innermost first) into shared
-// memory, completing its bytes of the barrier's transaction count, with an
-// L2 cache policy
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1, int c2, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes.L2::cache_hint "
-      "[%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
-      : "memory");
-}
 
 // wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -745,62 +698,13 @@ __global__ void __launch_bounds__(Cfg<N, R, C>::kThreads, 1)
 
 // ------------------------------------------------------------------- host
 
-// Tensor maps, cached: an encoding depends only on its key (address, shape,
-// box), so a cached map is never stale; the weights' maps are built once.
-struct MapKey {
-  const void* ptr;
-  uint64_t inner, mid, outer;
-  uint32_t box_mid;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && inner == o.inner && mid == o.mid && outer == o.outer && box_mid == o.box_mid;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    size_t h = std::hash<const void*>()(k.ptr);
-    for (uint64_t v : {k.inner, k.mid, k.outer, (uint64_t)k.box_mid}) h = h * 1000003u ^ std::hash<uint64_t>()(v);
-    return h;
-  }
-};
-std::mutex g_mu;
-std::unordered_map<MapKey, CUtensorMap, MapKeyHash> g_maps;
-
-// a bf16 [outer, mid, inner] array, boxes of 64 (inner) x box_mid (mid) x 1
-bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t mid, uint64_t outer,
-                uint32_t box_mid) {
-  const MapKey key{ptr, inner, mid, outer, box_mid};
-  auto hit = g_maps.find(key);
-  if (hit != g_maps.end()) {
-    *out = hit->second;
-    return true;
-  }
-  cuuint64_t dims[3] = {inner, mid, outer};
-  cuuint64_t strides[2] = {inner * 2, inner * mid * 2};
-  cuuint32_t box[3] = {(cuuint32_t)kBox, box_mid, 1};
-  cuuint32_t elem[3] = {1, 1, 1};
-  if (cuTensorMapEncodeTiled(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  if (g_maps.size() > 4096) g_maps.clear();
-  g_maps.emplace(key, *out);
-  return true;
-}
-
-constexpr int kMaxDevices = 64;
-
 template <int N, int R, int C>
 cudaError_t launch_wgmma(int device, const CUtensorMap* maps, const Params& p, int grid, int smem,
                          cudaStream_t st) {
-  static bool ready[kMaxDevices] = {};  // the shared-memory limit, once a device (under g_mu)
+  static bool ready[repro::kMaxDevices] = {};  // under tma_mutex
   auto kern = expert_ffn_wgmma<N, R, C>;
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!ready[device]) {
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-    if (err != cudaSuccess) return err;
-    ready[device] = true;
-  }
+  cudaError_t err = repro::allow_smem(kern, device, ready);
+  if (err != cudaSuccess) return err;
   kern<<<grid, Cfg<N, R, C>::kThreads, smem, st>>>(maps[0], maps[1], maps[2], maps[3], maps[4], p);
   return cudaGetLastError();
 }
@@ -820,16 +724,17 @@ REPRO_EXPORT int expert_ffn_bf16(const void* x, const void* w_gate, const void* 
   if (d % 8 || f % 8) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[5];
   {
-    std::lock_guard<std::mutex> lock(g_mu);
-    if (!tensor_map(&maps[0], w_gate, f, d, E, kBox) || !tensor_map(&maps[1], w_up, f, d, E, kBox) ||
-        !tensor_map(&maps[2], w_down, d, f, E, kBox) ||
-        !tensor_map(&maps[3], x, d, CAP, S, n_rows) || !tensor_map(&maps[4], h, f, CAP, S, n_rows))
+    std::lock_guard<std::mutex> lock(repro::tma_mutex());
+    using repro::tensor_map;
+    if (!tensor_map(&maps[0], w_gate, f, d, E, kBox, 1) || !tensor_map(&maps[1], w_up, f, d, E, kBox, 1) ||
+        !tensor_map(&maps[2], w_down, d, f, E, kBox, 1) || !tensor_map(&maps[3], x, d, CAP, S, n_rows, 1) ||
+        !tensor_map(&maps[4], h, f, CAP, S, n_rows, 1))
       return (int)cudaErrorInvalidValue;
   }
   Params p{s2e, active, (bf16*)h, (bf16*)out, (unsigned*)counters, S, CAP, d, f, n_rb,
            (f + 64 * col_wgs - 1) / (64 * col_wgs), (d + 128 * col_wgs - 1) / (128 * col_wgs), stages};
   cudaStream_t st = (cudaStream_t)stream;
-  std::lock_guard<std::mutex> lock(g_mu);
+  std::lock_guard<std::mutex> lock(repro::tma_mutex());
 #define REPRO_K3(NN, RR, CC) \
   if (n_rows == NN && row_wgs == RR && col_wgs == CC) return (int)launch_wgmma<NN, RR, CC>(device, maps, p, grid, smem, st)
   REPRO_K3(8, 1, 1);

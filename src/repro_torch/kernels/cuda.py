@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process into
 ``build/kernels/lib<name>-<hash>.so`` (plain C interface, no PyTorch headers,
 so a build takes seconds) and loaded with ``ctypes``.  The hash covers the
-source, the shared header and the flags, so an edit rebuilds and an
+source, the shared headers and the flags, so an edit rebuilds and an
 unchanged tree reuses the library.  Nothing builds at import: the first
 kernel call builds every missing library, all ``nvcc`` processes at once.
 
@@ -32,9 +32,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# linker flags of one source: K3 encodes TMA tensor maps through the driver
-# API (cuTensorMapEncodeTiled), which lives in libcuda
-LINK_FLAGS: Dict[str, tuple] = {"expert_ffn": ("-lcuda",)}
+# linker flags of one source: K1 and K3 encode TMA tensor maps through the
+# driver API (cuTensorMapEncodeTiled, csrc/tma.cuh), which lives in libcuda
+LINK_FLAGS: Dict[str, tuple] = {"decode_attention": ("-lcuda",), "expert_ffn": ("-lcuda",)}
 
 LAUNCHES: Dict[str, int] = {
     "paged_decode_attention": 0,
@@ -71,7 +71,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

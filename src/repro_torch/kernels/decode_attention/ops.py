@@ -1,23 +1,32 @@
 """One-token decode attention: CUDA kernel wrappers and their plain versions.
 
-Three kernels of ``csrc/decode_attention.cu`` share one body:
+Three kernels of ``csrc/decode_attention.cu``:
 
 * K1 ``paged_decode_attention``: rows reached through per-slot block tables;
 * K4 ``decode_attention``: a contiguous ``[B, S, nkv, hd]`` cache;
 * K5 ``decode_attention_int8``: K4 over an int8 cache with f32 scales.
 
-All three are split-KV on the card: :func:`split_plan` cuts a slot's rows
-into ranges of whole chunks (16 rows, or a page for K1), one block each, and
-a second kernel merges the ranges' partials; :func:`decode_attention_split_ref`
-is that decomposition in plain PyTorch.  Each wrapper launches its kernel for
-CUDA tensors and runs its plain version (``*_ref``, a copy of
-``repro.kernels.decode_attention.ref``) for CPU tensors; any other device
-raises.
+K4, K5 and K1 at G = 1 and in float32 share one body on CUDA cores
+(``attend``), split-KV: :func:`split_plan` cuts a slot's rows into ranges of
+whole chunks (16 rows, or a page for K1), one block each, and a second
+kernel merges the ranges' partials.  K1 in bf16 at G >= 2 query heads a KV
+head runs a body of its own for Hopper (``tc``, see :func:`k1_body`): each
+block streams a range of :func:`k1_plan`'s pages through a TMA ring and runs
+the scores and the weighted sum of a KV group's query heads on tensor cores,
+and the last of a head's ranges to finish merges them, in range order, in
+the same launch;
+:func:`paged_decode_attention_tiled_ref` is its arithmetic in plain PyTorch
+(tiles, the two-term P, masking, split and merge order), and
+:func:`decode_attention_split_ref` both split decompositions.  Each wrapper
+launches its kernel for CUDA tensors and runs its plain version (``*_ref``,
+a copy of ``repro.kernels.decode_attention.ref``) for CPU tensors; any other
+device raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+import functools
+from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -32,6 +41,7 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 CONTIGUOUS_ONLY = {80: (1,)}
 _ALIGN = 32  # bytes: a lane loads its head_dim columns of a row as one vector
 _K1_ARGS = [cuda.PTR] * 7 + [cuda.INT] * 8 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
+_K1_TC_ARGS = [cuda.PTR] * 8 + [cuda.INT] * 10 + [cuda.FLOAT] * 2 + [cuda.INT] + [cuda.PTR]
 _K4_ARGS = [cuda.PTR] * 6 + [cuda.INT] * 7 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
 _K5_ARGS = [cuda.PTR] * 8 + [cuda.INT] * 7 + [cuda.FLOAT] * 2 + [cuda.INT] * 2 + [cuda.PTR]
 
@@ -47,6 +57,27 @@ ValidLen = Union[int, torch.Tensor]
 SPLIT_CHUNK = 16
 SPLIT_MIN_ROWS = 512
 SPLIT_BLOCKS_PER_SM = 4
+
+# K1's bf16 kernel (``tc`` in csrc/decode_attention.cu): K1_WARPS consumer
+# warps take a range's pages in turn; each product is K1_TILE rows by
+# K1_HEADS query heads (a KV group's G <= 8, padded).  Its split plan
+# (:func:`k1_plan`) aims at K1_BLOCKS_PER_SM blocks an SM whatever the
+# cache's rows (the serving cache's 512 rows too: the last range of a head
+# to finish merges them inside the launch), and gives a block a ring of at
+# most K1_RING_BYTES.
+K1_WARPS = 4
+K1_TILE = 16
+K1_HEADS = 8
+K1_BLOCKS_PER_SM = 2
+K1_RING_BYTES = 64 * 1024
+K1_MAX_STAGES = 16
+K1_SMEM_LIMIT = 232448  # bytes of shared memory a block may have (227 KB)
+
+
+class K1Plan(NamedTuple):
+    n_split: int  # ranges of a slot (blocks of a (slot, KV head))
+    pages: int  # pages a range
+    stages: int  # ring depth, in pages
 
 
 def _lengths(valid_len: ValidLen, B: int, device) -> torch.Tensor:
@@ -89,15 +120,73 @@ def split_rows(S: int, n_split: int, chunk: int = SPLIT_CHUNK) -> int:
     return chunk * -(-S // (chunk * n_split))
 
 
-def split_plan(B: int, nkv: int, S: int, num_sms: int, chunk: int = SPLIT_CHUNK) -> Tuple[int, int]:
+def split_plan(B: int, nkv: int, S: int, num_sms: int, chunk: int = SPLIT_CHUNK,
+               blocks_per_sm: int = SPLIT_BLOCKS_PER_SM, min_rows: int = SPLIT_MIN_ROWS) -> Tuple[int, int]:
     """``(n_split, rows per range)`` of a launch from what the host knows
     without a device sync: the (slot, KV head) count, the cache's rows ``S``
     (K1: the block table's width times the page size, never the lengths),
-    the chunk (K1: the page size) and the SM count."""
-    want = -(-SPLIT_BLOCKS_PER_SM * num_sms // (B * nkv))
-    n = max(1, min(want, -(-S // SPLIT_MIN_ROWS)))
+    the chunk (K1: the page size) and the SM count; about ``blocks_per_sm``
+    blocks an SM, but at most ``ceil(S / min_rows)`` ranges."""
+    want = -(-blocks_per_sm * num_sms // (B * nkv))
+    n = max(1, min(want, -(-S // min_rows)))
     rows = split_rows(S, n, chunk)
     return -(-S // rows), rows
+
+
+def _k1_stage_bytes(hd: int, ps: int) -> int:
+    """Bytes of one ring stage: a page's K and V rows of one head, padded
+    to whole K1_TILE-row tiles, in 64-column boxes of 128-byte rows."""
+    return 2 * (hd // 64) * K1_TILE * -(-ps // K1_TILE) * 128
+
+
+def k1_smem_bytes(hd: int, ps: int, stages: int) -> int:
+    """Dynamic shared memory of a K1 bf16 block (``tc::smem_bytes``): the
+    ring, or the warps' merge arrays that reuse it, aligned to 1024 bytes,
+    and two barriers a stage."""
+    merge = K1_WARPS * K1_HEADS * (hd + 6) * 4
+    return 1024 + max(stages * _k1_stage_bytes(hd, ps), merge) + 16 * stages
+
+
+@functools.lru_cache(maxsize=256)
+def k1_body(dtype: torch.dtype, G: int, hd: int, ps: int) -> str:
+    """Which body K1 runs: ``"tc"`` (the Hopper kernel) for bf16 at G >= 2
+    query heads a KV head where one page of a head fits a ring stage (pages
+    of up to 256 rows, the TMA box's limit; at head_dim 256 up to 224, the
+    shared memory's), else ``"attend"`` (the CUDA-core body K4 and K5
+    share).  At G = 1 a product of ``tc`` carries one real head of
+    K1_HEADS, and on the H100 ``attend`` measured as fast or faster at the
+    serving rows and at 4 x 32768 (PERF.md §6); float32 is the parity
+    phases' (held to the CPU at ``TOL["f32_op"]``)."""
+    if dtype == torch.bfloat16 and G >= 2 and ps <= 256 and k1_smem_bytes(hd, ps, 1) <= K1_SMEM_LIMIT:
+        return "tc"
+    return "attend"
+
+
+def k1_stages(hd: int, ps: int, pages: int) -> int:
+    """K1's ring depth for ranges of ``pages`` pages: as many pages as a
+    range holds within K1_RING_BYTES (at least one), and where that is more
+    than K1_WARPS a multiple of it (rounded up while it fits, so a range
+    that holds a few more pages than the warps still has them all in
+    flight): the kernel's consumers are min(K1_WARPS, stages) warps, and a
+    stage's pages must all be one warp's."""
+    fit = max(1, min(K1_MAX_STAGES, K1_RING_BYTES // _k1_stage_bytes(hd, ps)))
+    stages = min(pages, fit)
+    if stages > K1_WARPS:
+        up = -(-stages // K1_WARPS) * K1_WARPS
+        stages = up if up <= fit else stages - stages % K1_WARPS
+    return stages
+
+
+@functools.lru_cache(maxsize=1024)
+def k1_plan(B: int, nkv: int, nblk: int, ps: int, hd: int, num_sms: int) -> K1Plan:
+    """K1's bf16 plan from what the host knows without a device sync
+    (cached: the wrapper runs on a host-bound step): :func:`split_plan` at
+    K1_BLOCKS_PER_SM blocks an SM over the (slot, KV head) pairs, in ranges
+    of whole pages of the block table (``nblk`` wide, as short as one page;
+    the ranges past a slot's length launch and return at once), and a ring
+    of :func:`k1_stages` pages."""
+    n_split, rows = split_plan(B, nkv, nblk * ps, num_sms, ps, K1_BLOCKS_PER_SM, ps)
+    return K1Plan(n_split, rows // ps, k1_stages(hd, ps, rows // ps))
 
 
 def decode_attention_split_ref(
@@ -112,9 +201,11 @@ def decode_attention_split_ref(
     """The split-KV decomposition of K1, K4 and K5 in plain PyTorch: f32
     partials ``(m, l, acc)`` over ``n_split`` ranges of :func:`split_rows`
     rows (whole chunks of ``chunk`` rows), merged in range order.  It takes
-    the dense view: K1's pages gathered (``chunk`` = the page size), K5's
-    int8 rows dequantised in f32.  Equal to :func:`decode_attention_ref` up
-    to f32 rounding; nothing on the serving path calls it."""
+    the dense view: K1's pages gathered (``chunk`` = the page size; in bf16
+    ``n_split`` from :func:`k1_plan`, whose ranges of ``pages`` pages are
+    the same rows), K5's int8 rows dequantised in f32.  Equal to
+    :func:`decode_attention_ref` up to f32 rounding; nothing on the serving
+    path calls it."""
     B, nh, hd = q.shape
     S, nkv = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, nkv, nh // nkv, hd).float()
@@ -146,6 +237,90 @@ def decode_attention_split_ref(
     return o.reshape(B, nh, hd).to(q.dtype)
 
 
+def paged_decode_attention_tiled_ref(
+    q: torch.Tensor,  # [B, nh, hd]
+    k_pages: torch.Tensor,  # [P, ps, nkv, hd]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, nblk] int32
+    lengths: torch.Tensor,  # [B] int32
+    logit_cap: float = 0.0,
+    n_split: int = 1,
+    p_terms: int = 2,
+) -> torch.Tensor:
+    """K1's bf16 kernel's arithmetic in plain PyTorch (f32): ranges of
+    ``ceil(nblk / n_split)`` pages; in a range, warp ``w`` of ``W =
+    min(K1_WARPS, k1_stages(...))`` takes pages ``w, w + W, ...``; a page is read in K1_TILE-row tiles
+    (rows past the page's end pad the last tile: K NaN, V zero), each tile's
+    scores are ``K1_TILE`` rows by K1_HEADS heads (past G: q zero), masked
+    by a select before the max (rows at or past the length, and pad rows),
+    and folded in with one online-softmax update; ``P`` enters the weighted
+    sum as two bf16 terms (``P`` rounded, then the rest rounded; with
+    ``p_terms=1`` the first alone, a one-product design the tests show
+    falls short of one bf16 rounding at long context) over V
+    whose rows at or past the length are zero; warps merge in warp order,
+    then ranges in range order, and the result is rounded once.  Rows past
+    a slot's length never reach the output, whatever they hold (NaN too).
+    Nothing on the serving path calls it."""
+    B, nh, hd = q.shape
+    P, ps, nkv, _ = k_pages.shape
+    nblk = block_tables.shape[1]
+    G, N, T = nh // nkv, K1_HEADS, K1_TILE
+    pages = -(-nblk // n_split)
+    n_split = -(-nblk // pages)
+    W = min(K1_WARPS, k1_stages(hd, ps, pages))
+    rows_pad = T * -(-ps // T)
+    dev = q.device
+    lens = lengths.long().clamp(0, nblk * ps)
+    live_pages = -(-lens // ps)
+    qn = torch.zeros((B, nkv, N, hd), device=dev)
+    qn[:, :, :G] = q.reshape(B, nkv, G, hd).float()
+    m = torch.full((B, nkv, n_split, W, N), NEG_INF, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, nkv, n_split, W, N, hd), device=dev)
+    z_idx = torch.arange(n_split, device=dev)[:, None]
+    rows = torch.arange(rows_pad, device=dev)
+    for r in range(-(-pages // W)):
+        i = r * W + torch.arange(W, device=dev)[None, :]  # [1, W] the range's page index
+        j = z_idx * pages + i  # [n_split, W] the slot's page index
+        jj = j.clamp(max=nblk - 1)
+        live = ((i < pages) & (j < nblk))[None] & (jj[None] < live_pages[:, None, None])  # [B, n_split, W]
+        valid = (lens[:, None, None] - jj[None] * ps).clamp(0, ps) * live  # live rows of each page
+        ids = block_tables.long()[:, jj].clamp(0, P - 1)  # [B, n_split, W]
+        kr = torch.full((B, n_split, W, rows_pad, nkv, hd), float("nan"), device=dev)
+        vr = torch.zeros_like(kr)
+        kr[:, :, :, :ps] = k_pages[ids].float()
+        vr[:, :, :, :ps] = v_pages[ids].float()
+        row_ok = rows < valid[..., None]  # [B, n_split, W, rows_pad]
+        vr = torch.where(row_ok[..., None, None], vr, 0.0)  # the kernel zeroes these V rows
+        kr, vr = kr.permute(0, 4, 1, 2, 3, 5), vr.permute(0, 4, 1, 2, 3, 5)  # [B, nkv, Z, W, rows, hd]
+        row_ok = row_ok[:, None, :, :, :, None]
+        for r0 in range(0, rows_pad, T):
+            s = torch.einsum("bhzwrd,bhnd->bhzwrn", kr[..., r0:r0 + T, :], qn) * (hd**-0.5)
+            if logit_cap > 0.0:
+                s = logit_cap * torch.tanh(s / logit_cap)
+            ok = row_ok[..., r0:r0 + T, :]
+            s = torch.where(ok, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-2))
+            c = torch.exp(m - m_new)
+            p = torch.where(ok, torch.exp(s - m_new[..., None, :]), 0.0)
+            m, l = m_new, l * c + p.sum(dim=-2)
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float() if p_terms == 2 else torch.zeros_like(p)
+            vt = vr[..., r0:r0 + T, :]
+            acc = acc * c[..., None] + torch.einsum("bhzwrn,bhzwrd->bhzwnd", hi, vt)
+            acc = acc + torch.einsum("bhzwrn,bhzwrd->bhzwnd", lo, vt)
+
+    def merge(m, l, acc, dim):
+        mx = m.amax(dim=dim, keepdim=True)
+        c = torch.exp(m - mx)  # 0 for a part that read no row
+        return mx.squeeze(dim), (l * c).sum(dim), (acc * c[..., None]).sum(dim)
+
+    m, l, acc = merge(m, l, acc, 3)  # the warps of a range
+    _, l, acc = merge(m, l, acc, 2)  # the ranges
+    o = acc / l.clamp(min=1e-30)[..., None]
+    return o[:, :, :G].reshape(B, nh, hd).to(q.dtype)
+
+
 def decode_attention_int8_ref(q, k_cache, v_cache, k_scale, v_scale, valid_len, logit_cap: float = 0.0):
     """Dequantise the int8 cache, round it to q's dtype, then
     :func:`decode_attention_ref` (``decode_attention/ref.py:29``)."""
@@ -174,6 +349,7 @@ def paged_decode_attention_ref(
 
 
 _SMS: Dict[int, int] = {}
+_K1_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _num_sms(device: torch.device) -> int:
@@ -182,6 +358,22 @@ def _num_sms(device: torch.device) -> int:
     if i not in _SMS:
         _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
     return _SMS[i]
+
+
+def _k1_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """K1's per-(slot, KV head) counts of finished ranges on ``device`` for
+    ``stream``: zeroed once and left at zero by every launch (the last
+    range of a head resets its count), so a call adds no memset; a stream
+    has its own, so launches on two streams never share one.  A launch
+    captured into a CUDA graph keeps the capture stream's counts: two
+    replays of such graphs must not overlap (replay them on one stream, or
+    order them with events), or their merges corrupt each other."""
+    key = (device.index, stream)
+    buf = _K1_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _K1_COUNTERS[key] = buf
+    return buf
 
 
 def _check_launch(what: str, q: torch.Tensor, nkv: int, tensors, contiguous: bool = True) -> int:
@@ -236,7 +428,11 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """K1, split-KV paged flash decode: ``[B, nh, hd]`` attention output in
     q's dtype.  The ranges are runs of whole pages of each slot's block
-    table, planned from the table's width (``nblk * ps`` rows)."""
+    table, planned from the table's width (``nblk * ps`` rows): in bf16 the
+    Hopper body over :func:`k1_plan`'s ranges, merged in the same launch
+    (:func:`k1_body` names the shapes it leaves to the other body), and
+    at G = 1, in float32 and for those shapes the CUDA-core body over
+    :func:`split_plan`'s."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths, logit_cap)
     if q.device.type != "cuda":
@@ -261,14 +457,28 @@ def paged_decode_attention(
         {"q": q, "k_pages": k_pages, "v_pages": v_pages, "block_tables": block_tables,
          "lengths": lengths}, contiguous=False,
     )
-    n_split, cps, part = _split_launch(q, nkv, nblk * ps, ps)
     out = torch.empty_like(q)
-    fn = cuda.function("decode_attention", "paged_decode_attention", _K1_ARGS)
-    err = fn(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part.data_ptr(), B, nh, nkv, hd, ps, nblk,
-        n_split, cps, hd**-0.5, float(logit_cap), code, q.device.index, cuda.stream_of(q),
-    )
+    stream = cuda.stream_of(q)
+    if k1_body(q.dtype, nh // nkv, hd, ps) == "tc":
+        plan = k1_plan(B, nkv, nblk, ps, hd, _num_sms(q.device))
+        part = torch.empty(B * nh * plan.n_split * (hd + 2) if plan.n_split > 1 else 0,
+                           dtype=torch.float32, device=q.device)
+        counters = _k1_counters(q.device, stream, B * nkv)
+        fn = cuda.function("decode_attention", "paged_decode_attention_bf16", _K1_TC_ARGS)
+        err = fn(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, nh, nkv, hd,
+            ps, P, nblk, plan.n_split, plan.pages, plan.stages, hd**-0.5, float(logit_cap),
+            q.device.index, stream,
+        )
+    else:
+        n_split, cps, part = _split_launch(q, nkv, nblk * ps, ps)
+        fn = cuda.function("decode_attention", "paged_decode_attention", _K1_ARGS)
+        err = fn(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part.data_ptr(), B, nh, nkv, hd, ps, nblk,
+            n_split, cps, hd**-0.5, float(logit_cap), code, q.device.index, stream,
+        )
     cuda.check("decode_attention", err, "paged_decode_attention")
     cuda.count("paged_decode_attention")
     return out

@@ -59,6 +59,22 @@ def assert_one_rounding(got, want) -> None:
     assert excess <= 1.0, f"differs by {excess:.3g}x what one bf16 rounding allows"
 
 
+def nan_past_lengths(k_pages, v_pages, block_tables, lengths):
+    """Copies of a paged pool's K and V with every row at or past each
+    slot's length set to NaN, in every page of its table (the last live
+    page's tail and the stale pages after it): a kernel that lets a masked
+    row reach its output turns it NaN."""
+    k, v = k_pages.clone(), v_pages.clone()
+    ps = k.shape[1]
+    bt = block_tables.long().cpu()
+    for b, n in enumerate(lengths.cpu().tolist()):
+        rows = torch.arange(n, bt.shape[1] * ps)
+        pages, offs = bt[b, rows // ps].to(k.device), (rows % ps).to(k.device)
+        k[pages, offs] = float("nan")
+        v[pages, offs] = float("nan")
+    return k, v
+
+
 def assert_equal_int(got, want) -> None:
     np.testing.assert_array_equal(as_int(got), as_int(want))
 

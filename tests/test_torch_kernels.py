@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from _torch_parity import (
-    TOL, assert_close, assert_equal_int, assert_one_rounding, rounding_excess, tol_for,
+    TOL, assert_close, assert_equal_int, assert_one_rounding, nan_past_lengths, rounding_excess, tol_for,
 )
 from repro_torch.core.aebs import ReplicaLayout, aebs_numpy
 from repro_torch.core.amax import make_routing_trace
@@ -34,6 +34,8 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention_split_ref,
     paged_decode_attention,
     paged_decode_attention_ref,
+    k1_body,
+    k1_plan,
     split_plan,
     split_rows,
 )
@@ -702,6 +704,25 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
             want = paged_decode_attention_ref(*args, logit_cap=cap)
             assert_close(got, want, tol_for(dtype))
 
+    # K1's two bodies, bf16 at G >= 2 on Hopper (tc) and G = 1 and float32
+    # on CUDA cores (attend), at every G x head_dim x page size 4 / 8 / 16,
+    # with NaN in every row past each slot's length: the output stays finite
+    # and within tolerance of the clean pools' plain version; a bf16 page
+    # too large for a ring stage (head_dim 256, 232 rows) is attend's
+    k1_shapes = [(G, hd, ps) for G in KERNEL_GROUPS for hd in KERNEL_HEAD_DIMS for ps in (4, 8, 16)]
+    for (G, hd, ps), (B, nblk) in zip(k1_shapes + [(2, 256, 232)], [(3, 6)] * len(k1_shapes) + [(2, 2)]):
+        q, k, v, bt = _paged_inputs(rng, B, 2 * G, 2, hd, ps, B * nblk + 1, nblk)
+        lens = np.array([1, ps + 1, nblk * ps][:B], np.int32)
+        lens[-1] = rng.integers(1, nblk * ps + 1)
+        for dtype in ("float32", "bfloat16"):
+            args = [_t(a, dtype, dev) for a in (q, k, v, bt, lens)]
+            want = paged_decode_attention_ref(*args)
+            kn, vn = nan_past_lengths(args[1], args[2], args[3], args[4])
+            got = paged_decode_attention(args[0], kn, vn, args[3], args[4])
+            assert torch.isfinite(got.float()).all(), (G, hd, ps, dtype, k1_body(DTYPES[dtype], G, hd, ps))
+            assert_close(got, want, tol_for(dtype))
+    assert k1_body(torch.bfloat16, 2, 256, 232) == "attend"
+
     # K4 and K5: every G and head_dim the kernels are built for, softcap on
     # and off, random per-slot lengths and a scalar valid_len; the second
     # case is the serving path's shape
@@ -787,13 +808,17 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
             want = decode_attention_ref(q, k8.float() * ks[..., None], v8.float() * vs[..., None], lens)
             assert_one_rounding(decode_attention_int8(q, k8, v8, ks, vs, lens), want)
             del k8, ks, v8, vs, want
-            # K1: the same rows as pages of a pool, in a random order
+            # K1: the same rows as pages of a pool, in a random order, its
+            # lengths on and beside the edges of both bodies' ranges (the
+            # Hopper body's k1_plan, the CUDA-core body's split_plan), so the
+            # body that runs at this G has lengths on its own edges
             kp, vp, bt = _paged_view(k, v, rng, ps)
             del k, v
-            _, rows = split_plan(B, nkv, S, n_sms, ps)
-            lens = _t(np.array([rows, rows + 1, S, 17], np.int32), device=dev)
-            assert_one_rounding(paged_decode_attention(q, kp, vp, bt, lens),
-                                paged_decode_attention_ref(q, kp, vp, bt, lens))
+            for rows in (k1_plan(B, nkv, S // ps, ps, hd, n_sms).pages * ps,
+                         split_plan(B, nkv, S, n_sms, ps)[1]):
+                lens = _t(np.array([rows, rows + 1, S, 17], np.int32), device=dev)
+                assert_one_rounding(paged_decode_attention(q, kp, vp, bt, lens),
+                                    paged_decode_attention_ref(q, kp, vp, bt, lens))
             del kp, vp
 
     # K3: stacked and slot-indirect maps, with empty and inactive slots; CAP
