@@ -7,7 +7,8 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
      source, all at once), with ptxas' register / shared-memory lines (K3's
-     wgmma instances and K1's bf16 instances must not spill); while nvcc
+     wgmma instances and the Hopper attention body's instances, K1's, K4's
+     and K5's, must not spill); while nvcc
      runs, phase 5m (it needs no kernel) trains on the card and 5k's dry
      runs start in processes of their own;
   3. kernels: each kernel at the serving path's shapes against its plain
@@ -15,8 +16,9 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      events beside its plain version, a PyTorch library yardstick where one
      exists, and the least time the card could take (bytes or FLOPs bound);
      K1 also at a 32k context at batch 4 (and there at 32 query heads over 8,
-     its bf16 Hopper body), K4 and K5 at batch 8 and 1 (each
-     with the split-KV plan its wrapper chose), every attention case held
+     its bf16 Hopper body), K4 and K5 at batch 8 and 1 and, on their Hopper
+     body, at batch 4 with 32 query heads over 8 (each with the body and
+     split plan its wrapper chose), every attention case held
      within one bf16 rounding of its f32 oracle; K3 also at a 64-token
      prefill chunk's shape and at a batched prefill call's (2 x 64 tokens,
      CAP 128), and checked at a whole-prompt call's (CAP 48) and a
@@ -32,6 +34,8 @@ Phases, in order (any failure raises and exits non-zero; nothing is caught):
      a copied-on-write tail page, and a slot restored into another slot
      index with its page ids out of order; K1 with NaN in every row past
      each slot's length (finite, within one rounding of the clean pools'),
+     K4 likewise and K5 with NaN and inf scales past the lengths, on both
+     bodies,
      and a bf16 page too large for K1's ring (head_dim 256, 232 rows),
      which K1 gives to its CUDA-core body; then (3e) the shapes of the
      configs phase 5g serves: K1, K4 and K5 at 8 x 512 for 3, 4 and 7 query
@@ -554,11 +558,15 @@ def main():
         decode_attention_int8,
         decode_attention_int8_ref,
         decode_attention_ref,
+        decode_body,
+        decode_plan,
         k1_body,
         k1_plan,
         paged_decode_attention,
         paged_decode_attention_ref,
         split_plan,
+        tc_blocks_per_sm,
+        tc_rows,
     )
     from repro_torch.kernels.expert_ffn import ops as ffn_ops
     from repro_torch.kernels.expert_ffn.ops import expert_ffn_grouped, expert_ffn_grouped_ref
@@ -742,11 +750,12 @@ def main():
     log({"phase": "ptxas_k3", "instances": k3_ptxas, "card": card})
     if any(v.get("spill_stores") or v.get("spill_loads") for v in k3_ptxas.values()):
         raise AssertionError(f"expert_ffn_wgmma spills: {k3_ptxas}")
-    # K1's bf16 instances (head_dim), likewise
-    k1_ptxas = ptxas_instances(cuda.BUILD_LOG.get("decode_attention", ""), "paged_tc_kernel")
-    log({"phase": "ptxas_k1", "instances": k1_ptxas, "card": card})
-    if len(k1_ptxas) != 3 or any(v.get("spill_stores") or v.get("spill_loads") for v in k1_ptxas.values()):
-        raise AssertionError(f"paged_tc_kernel: expected 3 instances without spills, got {k1_ptxas}")
+    # the Hopper attention body's instances (kind: 0 K1, 1 K4, 2 K5; head_dim),
+    # likewise
+    tc_ptxas = ptxas_instances(cuda.BUILD_LOG.get("decode_attention", ""), "tc_kernel")
+    log({"phase": "ptxas_tc", "instances": tc_ptxas, "card": card})
+    if len(tc_ptxas) != 9 or any(v.get("spill_stores") or v.get("spill_loads") for v in tc_ptxas.values()):
+        raise AssertionError(f"tc_kernel: expected 9 instances without spills, got {tc_ptxas}")
 
     def time_ms(fn, iters):
         for _ in range(3):
@@ -860,6 +869,15 @@ def main():
             return dict(body="tc", n_split=plan.n_split, pages_per_split=plan.pages, stages=plan.stages)
         n_s, rows_s = split_plan(Bc, nkv_c, nblk_c * ps, n_sms, ps)
         return dict(body="attend", n_split=n_s, pages_per_split=rows_s // ps)
+
+    def k45_split(Bc, nkv_c, S, G, hd_c, int8=False):
+        """K4's (K5's) body at this shape and the split plan its wrapper picks."""
+        if decode_body(bf, G, hd_c, Bc * nkv_c, S, n_sms) == "tc":
+            plan = decode_plan(Bc, nkv_c, S, hd_c, n_sms, int8, tc_blocks_per_sm(dev.index, hd_c, int8))
+            return dict(body="tc", n_split=plan.n_split, chunks_per_split=plan.pages,
+                        rows_per_chunk=tc_rows(hd_c, int8), stages=plan.stages)
+        n_s, rows_s = split_plan(Bc, nkv_c, S, n_sms)
+        return dict(body="attend", n_split=n_s, rows_per_split=rows_s)
 
     def paged_case(nblk, lens_np, L, iters, plain_iters, shape, pager=None, cows=(), heads=None):
         """K1 over ``L`` layers' pools rotated; the block table is a random
@@ -1015,10 +1033,11 @@ def main():
     # rotated) and decode_32k's context at batch 8 (the int8 slots of 32k
     # one card holds beside the weights), every row valid, and at batch 1,
     # where 16 (slot, head) pairs leave most SMs to the split
-    def contiguous_case(S, lens_np, L, iters, plain_iters, shape):
+    def contiguous_case(S, lens_np, L, iters, plain_iters, shape, heads=None):
         lens = torch.from_numpy(lens_np).to(dev)
         Bc = len(lens_np)
-        q = q_all[:Bc]
+        nh, nkv = heads or (16, 16)
+        q = q_all[:Bc] if heads is None else torch.randn((Bc, nh, hd), generator=gen, device=dev).to(bf)
         q4 = q[:, :, None, :]
         live = int(lens_np.sum())
         io_bytes = 2 * Bc * nh * hd * 2 + Bc * 4  # q in, output out, lengths
@@ -1027,19 +1046,20 @@ def main():
         vc = torch.randn((L, Bc, S, nkv, hd), generator=gen, device=dev).to(bf)
         got, want = decode_attention(q, kc[0], vc[0], lens), decode_attention_ref(q, kc[0], vc[0], lens)
         err, excess = float((got.float() - want.float()).abs().max()), rounding_excess(got, want)
-        kd = [kc[l].transpose(1, 2).contiguous() for l in range(L)]
-        vd = [vc[l].transpose(1, 2).contiguous() for l in range(L)]
+        # SDPA's yardstick, the KV heads repeated G times
+        kd = [kc[l].transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous() for l in range(L)]
+        vd = [vc[l].transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous() for l in range(L)]
         mask = (torch.arange(S, device=dev)[None, :] < lens[:, None].long())[:, None, None, :]
         lib_ms = time_ms(cycled(lambda l: F.scaled_dot_product_attention(
             q4, kd[l], vd[l], attn_mask=mask), L), iters)
         del kd, vd
-        n_split, split_rows = split_plan(Bc, nkv, S, n_sms)
         record("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention/kernel.py:28", err, TOL["bf16"],
                time_ms(cycled(lambda l: decode_attention(q, kc[l], vc[l], lens), L), iters),
                time_ms(cycled(lambda l: decode_attention_ref(q, kc[l], vc[l], lens), L), plain_iters),
                bound(2 * live * nkv * hd * 2 + io_bytes, ops, BF16_FLOPS), lib_ms, shape,
-               excess, n_split=n_split, rows_per_split=split_rows)
+               excess, **k45_split(Bc, nkv, S, nh // nkv, hd),
+               device_ms=graph_ms(cycled(lambda l: decode_attention(q, kc[l], vc[l], lens), L)))
         quant = [quantize_kv(kc[l]) + quantize_kv(vc[l]) for l in range(L)]  # (k, ks, v, vs)
         del kc, vc
         torch.cuda.empty_cache()
@@ -1059,39 +1079,68 @@ def main():
                time_ms(cycled(lambda l: decode_attention_int8_ref(
                    q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L), plain_iters),
                bound(2 * live * nkv * (hd + 4) + io_bytes, ops + 2 * live * nkv * hd, INT8_OPS),
-               None, shape, excess, n_split=n_split, rows_per_split=split_rows)
+               None, shape, excess, **k45_split(Bc, nkv, S, nh // nkv, hd, True),
+               device_ms=graph_ms(cycled(lambda l: decode_attention_int8(
+                   q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens), L)))
         del quant, k8, ks, v8, vs
         torch.cuda.empty_cache()
 
     contiguous_case(nblk * ps, lens_np, 6, 200, 50, None)
     contiguous_case(32768, np.full(B, 32768, np.int32), 1, 20, 3, "decode_32k: B 8, S 32768, all rows valid")
     contiguous_case(32768, np.full(1, 32768, np.int32), 1, 50, 5, "decode_32k: B 1, S 32768, all rows valid")
+    # K4's and K5's Hopper body (G >= 2) at the same context: 32 query heads
+    # over 8 (G 4) at batch 4, within one rounding of the f32 oracle
+    contiguous_case(32768, np.full(4, 32768, np.int32), 1, 20, 3,
+                    "decode_32k, G 4: B 4, S 32768, 32 heads over 8, all rows valid", heads=(32, 8))
+    # K4 with NaN in every row past each slot's length and K5 with NaN (K)
+    # and inf (V) scales there, at the serving rows on both bodies (G 1:
+    # the CUDA-core body never reads those rows; G 4: the Hopper body reads
+    # whole chunks, masks their scores and zeroes their weights): each
+    # output finite and within one rounding of the clean cache's
+    S_serve = nblk * ps
+    for nh_n, nkv_n in ((16, 16), (32, 8)):
+        q_n = torch.randn((B, nh_n, hd), generator=gen, device=dev).to(bf)
+        kc = torch.randn((B, S_serve, nkv_n, hd), generator=gen, device=dev).to(bf)
+        vc = torch.randn((B, S_serve, nkv_n, hd), generator=gen, device=dev).to(bf)
+        lens = torch.from_numpy(lens_np).to(dev)
+        (k8, ks), (v8, vs) = quantize_kv(kc), quantize_kv(vc)
+        want = decode_attention_ref(q_n, kc, vc, lens)
+        want8 = decode_attention_ref(q_n, k8.float() * ks[..., None], v8.float() * vs[..., None], lens)
+        for b_, n_ in enumerate(lens_np.tolist()):
+            kc[b_, n_:], vc[b_, n_:] = float("nan"), float("nan")
+            ks[b_, n_:], vs[b_, n_:] = float("nan"), float("inf")
+        for name, got, w in (("decode_attention", decode_attention(q_n, kc, vc, lens), want),
+                             ("decode_attention_int8", decode_attention_int8(q_n, k8, v8, ks, vs, lens), want8)):
+            split = k45_split(B, nkv_n, S_serve, nh_n // nkv_n, hd, name.endswith("int8"))
+            check(name, f"8 x 512, {nh_n} heads over {nkv_n}, NaN past each slot's length (K4: rows; K5: scales)",
+                  float((got.float() - w.float()).abs().max()), TOL["bf16"], rounding_excess(got, w),
+                  finite=bool(torch.isfinite(got.float()).all()), **split)
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{name} ({split['body']}): a row past a slot's length reached the output")
+    del kc, vc, k8, ks, v8, vs, want, want8, got
 
     # the disaggregated executor's attention shards (phase 5: 8 rows over 2
     # attention devices, cache_len 512): K4 and K5 over a 4-row shard's own
     # cache, K1 over a 2-row ping-pong shard's own pools through the
     # shard-local block table its PagedKVCache builds, each with the split
     # plan its wrapper chose at that batch
-    S_serve = nblk * ps
     q_sh, lens_sh = q_all[:4], torch.from_numpy(lens_np[:4]).to(dev)
     kc = torch.randn((4, S_serve, nkv, hd), generator=gen, device=dev).to(bf)
     vc = torch.randn((4, S_serve, nkv, hd), generator=gen, device=dev).to(bf)
-    n_split, split_rows = split_plan(4, nkv, S_serve, n_sms)
     got, want = decode_attention(q_sh, kc, vc, lens_sh), decode_attention_ref(q_sh, kc, vc, lens_sh)
     check("decode_attention", f"disagg shard: 4 rows, S {S_serve}", float((got.float() - want.float()).abs().max()),
-          TOL["bf16"], rounding_excess(got, want), n_split=n_split, rows_per_split=split_rows)
-    n_split2, split_rows2 = split_plan(2, nkv, S_serve, n_sms)
+          TOL["bf16"], rounding_excess(got, want), **k45_split(4, nkv, S_serve, nh // nkv, hd))
     got, want = (decode_attention(q_sh[:2], kc[:2], vc[:2], lens_sh[:2]),
                  decode_attention_ref(q_sh[:2], kc[:2], vc[:2], lens_sh[:2]))
     check("decode_attention", f"disagg shard after the resize to 4 shards: 2 rows, S {S_serve}",
           float((got.float() - want.float()).abs().max()), TOL["bf16"], rounding_excess(got, want),
-          n_split=n_split2, rows_per_split=split_rows2)
+          **k45_split(2, nkv, S_serve, nh // nkv, hd))
     (k8, ks), (v8, vs) = quantize_kv(kc), quantize_kv(vc)
     got = decode_attention_int8(q_sh, k8, v8, ks, vs, lens_sh)
     err = float((got.float() - decode_attention_int8_ref(q_sh, k8, v8, ks, vs, lens_sh).float()).abs().max())
     want = decode_attention_ref(q_sh, k8.float() * ks[..., None], v8.float() * vs[..., None], lens_sh)
     check("decode_attention_int8", f"disagg shard: 4 rows, S {S_serve}", err, TOL["bf16"],
-          rounding_excess(got, want), n_split=n_split, rows_per_split=split_rows)
+          rounding_excess(got, want), **k45_split(4, nkv, S_serve, nh // nkv, hd, True))
     pager = PagedKVCache(2, S_serve, ps)
     for r in range(2):
         pager.ensure(r, int(lens_np[r]) - 1)
@@ -1314,7 +1363,6 @@ def main():
             return out
 
         lib_ms = sdpa_ms()
-        n_split, split_rows_ = split_plan(Bc, nkv_c, S, n_sms)
         if "paged" in kinds:
             nblk_c = S // ps
             P = Bc * nblk_c + 1
@@ -1348,7 +1396,7 @@ def main():
                    time_ms(cycled(lambda l: decode_attention_ref(q, kc[l], vc[l], lens, logit_cap=cap), L),
                            plain_iters),
                    bound(2 * live * nkv_c * hd_c * 2 + io_bytes, ops, BF16_FLOPS), lib_ms, label,
-                   rounding_excess(got, want), n_split=n_split, rows_per_split=split_rows_,
+                   rounding_excess(got, want), **k45_split(Bc, nkv_c, S, G, hd_c),
                    device_ms=graph_ms(cycled(lambda l: decode_attention(q, kc[l], vc[l], lens, logit_cap=cap), L)),
                    **detail)
         if "int8" in kinds:
@@ -1370,7 +1418,7 @@ def main():
                    time_ms(cycled(lambda l: decode_attention_int8_ref(
                        q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], lens, logit_cap=cap), L), plain_iters),
                    bound(2 * live * nkv_c * (hd_c + 4) + io_bytes, ops + 2 * live * nkv_c * hd_c, INT8_OPS),
-                   None, label, rounding_excess(got, want), n_split=n_split, rows_per_split=split_rows_,
+                   None, label, rounding_excess(got, want), **k45_split(Bc, nkv_c, S, G, hd_c, True),
                    device_ms=graph_ms(cycled(k5, L)), **detail)
             del quant, k8, ks, v8, vs
         del kc, vc, got, want

@@ -51,6 +51,13 @@ checkout with both), so the two can be timed in turns on the same shapes:
     for b in attend tc tc attend; do
       python3 scripts/decode_attention_ab.py --only k1 --k1-body $b --src src; done
 
+``--body tc|attend`` does the same for every K4 and K5 call (``ops.decode_body``;
+``--only k45`` keeps K4's and K5's shapes alone).  K4 and K5 also run at
+gemma2-2b's local layers (a wrapped 8 x 4096 rolling buffer, every row
+live, softcap 50), at 4 x 32768 rows of 32 query heads over 8, and at G = 1
+over one slot of 16 heads at 512 to 16384 rows and whisper-tiny's 2 x 448,
+all rows live; every K4 and K5 shape has its host microseconds too.
+
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -89,7 +96,7 @@ def launch_floor(cuda):
     return fn
 
 
-def child(src, only, k1_body=None):
+def child(src, only, k1_body=None, body=None):
     import numpy as np
     import torch
 
@@ -101,8 +108,10 @@ def child(src, only, k1_body=None):
 
     if k1_body:
         ops.k1_body = lambda *_: k1_body
-    groups = {"attention": ("decode_attention",), "k1": ("decode_attention",), "aebs": ("aebs",),
-              "ffn": ("expert_ffn",)}
+    if body:
+        ops.decode_body = lambda *_: body
+    groups = {"attention": ("decode_attention",), "k1": ("decode_attention",), "k45": ("decode_attention",),
+              "aebs": ("aebs",), "ffn": ("expert_ffn",)}
     build_s = {"expert_ffn": cuda.build_all(("expert_ffn",))} if only in (None, "ffn") else {}
     build_s["rest"] = cuda.build_all(groups[only] if only else cuda.SOURCES)
     dev = torch.device("cuda", 0)
@@ -228,21 +237,31 @@ def child(src, only, k1_body=None):
         vc = torch.randn((L, Bc, S, nkv_c, hd_c), generator=gen, device=dev).to(bf)
         check("decode_attention", ops.decode_attention(q, kc[0], vc[0], ln, cap),
               ops.decode_attention_ref(q, kc[0], vc[0], ln, cap))
-        measure(f"decode_attention/{shape}", lambda l: ops.decode_attention(q, kc[l], vc[l], ln, cap), L, iters)
+        def k4(l):
+            return ops.decode_attention(q, kc[l % L], vc[l % L], ln, cap)
+
+        measure(f"decode_attention/{shape}", k4, L, iters)
+        host[f"decode_attention/{shape}"] = host_us(k4)
         quant = [quantize_kv(kc[l]) + quantize_kv(vc[l]) for l in range(L)]
         del kc, vc
         k8, ks, v8, vs = quant[0]
         check("decode_attention_int8", ops.decode_attention_int8(q, k8, v8, ks, vs, ln, cap),
               ops.decode_attention_int8_ref(q, k8, v8, ks, vs, ln, cap))
-        measure(f"decode_attention_int8/{shape}",
-                lambda l: ops.decode_attention_int8(q, quant[l][0], quant[l][2], quant[l][1], quant[l][3], ln, cap),
-                L, iters)
+
+        def k5(l):
+            kq, kscale, vq, vscale = quant[l % L]
+            return ops.decode_attention_int8(q, kq, vq, kscale, vscale, ln, cap)
+
+        measure(f"decode_attention_int8/{shape}", k5, L, iters)
+        host[f"decode_attention_int8/{shape}"] = host_us(k5)
         del quant, k8, ks, v8, vs
         torch.cuda.empty_cache()
 
-    if only in (None, "attention", "k1"):
-        k1_shape("serving", q_all, nkv, lens_np, nblk, 4, 200)
-        k1_shape("32k_b4", q_all[:4], nkv, np.full(4, 32768, np.int32), 32768 // ps, 1, 20)
+    if only in (None, "attention", "k1", "k45"):
+        k1 = only != "k45"
+        if k1:
+            k1_shape("serving", q_all, nkv, lens_np, nblk, 4, 200)
+            k1_shape("32k_b4", q_all[:4], nkv, np.full(4, 32768, np.int32), 32768 // ps, 1, 20)
         for shape, S, lens_case, L, iters in (
             ("serving", nblk * ps, lens_np, 6, 200),
             ("32k", 32768, np.full(B, 32768, np.int32), 1, 20),
@@ -265,9 +284,24 @@ def child(src, only, k1_body=None):
         ):
             lens_c = np.random.default_rng(S + nh_c).integers(1, S + 1, size=B).astype(np.int32)
             q = torch.randn((B, nh_c, hd_c), generator=gen, device=dev).to(bf)
-            k1_shape(shape, q, nkv_c, lens_c, S // ps, L, iters, cap)
+            if k1:
+                k1_shape(shape, q, nkv_c, lens_c, S // ps, L, iters, cap)
             if only != "k1":
                 k45_shape(shape, q, nkv_c, S, lens_c, L, iters, cap)
+        if only != "k1":
+            # K4 and K5 alone: gemma2-2b's local layers (a wrapped rolling
+            # buffer, every row live) and decode_32k at 32 heads over 8
+            k45_shape("gemma2_local_4k", torch.randn((B, 8, 256), generator=gen, device=dev).to(bf), 4, 4096,
+                      np.full(B, 4096, np.int32), 2, 50, 50.0)
+            k45_shape("32k_b4_g4", torch.randn((4, 32, hd), generator=gen, device=dev).to(bf), 8, 32768,
+                      np.full(4, 32768, np.int32), 1, 20)
+            # G = 1 over few (slot, KV head) pairs, where ops.decode_body's
+            # choice turns on the cache's rows: one slot of dsv2-lite's 16
+            # heads of 128 at 512 to 16384 rows, and whisper-tiny's 2 x 448
+            for S in (512, 2048, 4096, 8192, 16384):
+                k45_shape(f"g1_b1_{S}", q_all[:1], nkv, S, np.full(1, S, np.int32), 4 if S <= 4096 else 2, 100)
+            k45_shape("whisper_b2_448", torch.randn((2, 6, 64), generator=gen, device=dev).to(bf), 6, 448,
+                      np.full(2, 448, np.int32), 4, 100)
 
     from repro_torch.core.aebs import aebs_assign
     from repro_torch.core.amax import make_routing_trace
@@ -348,23 +382,25 @@ def child(src, only, k1_body=None):
             ffn_shape(f"{name}/prefill", x, w3, s2e3, torch.ones(E3, dtype=torch.bool, device=dev), 10)
             del w3, x
             torch.cuda.empty_cache()
-    print(json.dumps({"card": card_line(), "src": src, "k1_body": k1_body, "build_s": build_s, "ms": out,
+    print(json.dumps({"card": card_line(), "src": src, "k1_body": k1_body, "body": body, "build_s": build_s, "ms": out,
                       "device_ms": dev_out, "host_us": host}), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", help="a checkout's src directory (repeat, in turn order)")
-    ap.add_argument("--only", choices=("attention", "k1", "aebs", "ffn"), help="one group of kernels")
+    ap.add_argument("--only", choices=("attention", "k1", "k45", "aebs", "ffn"), help="one group of kernels")
     ap.add_argument("--k1-body", choices=("tc", "attend"), help="run K1 on this body of csrc/decode_attention.cu")
+    ap.add_argument("--body", choices=("tc", "attend"), help="run K4 and K5 on this body of csrc/decode_attention.cu")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child, args.only, args.k1_body)
+        child(args.child, args.only, args.k1_body, args.body)
         return 0
     if not args.src:
         ap.error("give at least one --src")
     only = (["--only", args.only] if args.only else []) + (["--k1-body", args.k1_body] if args.k1_body else [])
+    only += ["--body", args.body] if args.body else []
     for src in args.src:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--child", src, *only], check=True)
     return 0

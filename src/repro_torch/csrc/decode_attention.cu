@@ -26,20 +26,34 @@
 // read 2 * hd bytes of K and again of V in bf16; K5 reads hd + 4 (int8
 // values plus the f32 scale).
 //
-// Two bodies.  K1 in bf16 at G >= 2 runs its own (`tc`, below the other);
-// K4, K5, K1 at G = 1 and K1 in float32 (which the parity phases hold to
-// the CPU at 1e-5) share `attend`, on CUDA cores.
+// Two bodies.  In bf16 at G >= 2 all three run the Hopper body (`tc`,
+// below the other; ops.py k1_body and decode_body name the shapes); G = 1,
+// float32 (which the parity phases hold to the CPU at 1e-5) and K4/K5 at
+// head_dim 80 run `attend`, on CUDA cores.
 //
-// K1's bf16 body, for Hopper.  Grid (nkv, B, n_split), one block a range
-// of a slot's pages and one KV head (ops.py k1_plan).
-//   * A producer warp reads the range's block-table entries beside the
-//     slot's length, and one lane loads each page's K and V rows of head h
-//     by TMA into a ring of stages under full / empty mbarriers: the pools
-//     are [P * ps, nkv, hd] tensor maps (csrc/tma.cuh, cached per address
-//     and shape), a box is 64 columns x 1 head x ps rows with the 128-byte
-//     swizzle, so ldmatrix reads 8 rows of a column block without bank
-//     conflicts.  Pages smaller than 16 rows pad a stage to one 16-row
-//     tile, their pad rows of V zeroed once.
+// The Hopper body.  Grid (nkv, B, n_split), one block a range of a slot's
+// chunks and one KV head (ops.py k1_plan, decode_plan).  A chunk is a page
+// of K1's block table, or for K4 and K5 R = TC_CHUNK_BYTES / (hd * the
+// cache's bytes a value) rows of the slot (ops.py tc_rows: 16-64, int8 at
+// least 32): the
+// contiguous cache [B, S, nkv, hd] is read as K1's pool [B * S, nkv, hd]
+// with an implicit block table, chunk j of slot b at row b * S + j * R; a
+// slot's last chunk runs into the next slot's rows (masked: they lie past
+// the length) or past the cache, where TMA fills zeros.  The ranges are
+// planned from S (K1: the table's width), never from the lengths.
+//   * A producer warp (K1: reading the range's block-table entries beside
+//     the slot's length) has one lane load each chunk's K and V rows of head
+//     h by TMA into a ring of stages under full / empty mbarriers: the
+//     caches are [rows, nkv, hd] tensor maps (csrc/tma.cuh, cached per
+//     address and shape), a box is 128 bytes x 1 head x ps rows with the
+//     128-byte swizzle (64 bf16 or 128 int8 columns; int8 at head_dim 64:
+//     64 bytes, the 64-byte swizzle), so ldmatrix (or K5's 16-byte loads)
+//     reads 8 rows of a column block without bank conflicts.  K1's pages
+//     smaller than 16 rows pad a stage to one 16-row tile, their pad rows of
+//     V zeroed once.  K5's f32 scales ([B, S, nkv]: a one-head box would be
+//     4 bytes wide, under TMA's 16) come by cp.async, each producer lane
+//     copying a share of the chunk's live rows' K and V scales into the
+//     stage and arriving on its full barrier once they land.
 //   * min(4, stages) consumer warps take the pages in turn (a stage's pages
 //     are all one warp's, so a parity wait never passes a phase early).
 //     Each 16-row tile runs on tensor cores, mma.sync m16n8k16 bf16 with f32
@@ -55,39 +69,70 @@
 //   * P enters the product as two bf16 terms, P rounded and the rest
 //     rounded, against the same V fragment: P keeps ~16 bits, and the
 //     result stays within one bf16 rounding of the f32 oracle at 32k rows,
-//     where one bf16 P does not (tests/test_torch_paged_decode_tc.py).
+//     where one bf16 P does not (tests/test_torch_paged_decode_tc.py,
+//     tests/test_torch_decode_tc.py).
+//   * K5's int8 rows convert to bf16 exactly in registers (sm_90's ldmatrix
+//     has no 8-bit form): 16-byte shared loads, then per value a PRMT into
+//     the f32 2^23 and one FADD, as `attend` does, and one PRMT packs the
+//     high halves of two such f32 (an int8 value has 8 significant bits,
+//     so its f32's high half is its bf16).  K rows are read in the order
+//     the bytes convert, a permutation of head_dim that q's fragment
+//     follows; V rows in pairs of rows a lane, the M rows of a product
+//     being columns kBox / 8 * g + 2 j and + 1 of a box, put back in place
+//     by the merge.  A row's K scale multiplies its score once, before the
+//     scale and the cap, and its V scale its weight once: P' = P * s_v
+//     enters the sum as the two bf16 terms against the exact int8 values,
+//     and l sums P.  (A conversion by two LOP3s and a bf16x2 subtraction,
+//     2 instead of 2.75 instructions a value, measured no faster; PERF.md
+//     §6.)
 //   * Masking with whole tiles: a TMA box brings every row of the last live
-//     page, and rows past the length may hold anything (a stale row, a NaN).
-//     Their scores are replaced by the mask constant with a select before
-//     the max, and their V rows are zeroed in shared memory before the
-//     product, since a 0 weight times a NaN is still NaN.
+//     chunk, and rows past the length may hold anything (a stale row, a
+//     NaN; K5: a NaN or inf scale).  Their scores are replaced by the mask
+//     constant with a select before the max, and their V rows are zeroed in
+//     shared memory before the product, since a 0 weight times a NaN is
+//     still NaN; K5's V rows are int8, finite, and its weights P' past the
+//     length are set to 0 by a select.
 //   * The warps' states merge in warp order through the ring.  With more
 //     than one live range, each writes its f32 partial (m, l, acc) to a
 //     scratch and counts itself done on its (slot, head)'s counter (an
 //     acq_rel atomic after a barrier); the last to finish merges the
 //     partials in range order and resets the counter: one launch, the same
 //     sums whichever block ran last.  The counters are the wrapper's, one
-//     buffer a (device, stream): launches that run at once on two streams
-//     never share one, but two replays of CUDA graphs captured on one
-//     stream do, so such replays must not overlap.  In both merges a head's columns are
+//     buffer a (device, stream) that K1, K4 and K5 share: launches that run
+//     at once on two streams never share one, but two replays of CUDA
+//     graphs captured on one stream do, so such replays must not overlap.
+//     In both merges a head's columns are
 //     16 threads' and each thread finds its head's weights itself, reading
 //     a batch of ranges' (m, l) and partials at once: no barrier waits on
 //     a weight.  A block whose range lies past the slot's length returns at
 //     once.  (A thread block cluster of a head's ranges, merging through
 //     distributed shared memory, measured no faster: it caps a slot at 8
 //     ranges and constrains where blocks run.)
-//   * Shape dispatch (ops.py k1_body): bf16 at G >= 2 with pages of up to
-//     256 rows (224 at head_dim 256, the shared memory's limit) takes this
-//     body.  G = 1 takes `attend`: a product then carries one real head of
-//     eight, and this body, timed in turns with `attend` on one H100
-//     (scripts/decode_attention_ab.py --k1-body), was as fast or slower at
-//     the serving rows (8 x 512: 0.0091-0.0098 ms against 0.0091-0.0094;
+//   * Plans.  K1 (ops.py k1_plan): ceil(2 SMs / (B * nkv)) ranges of whole
+//     pages.  K4 and K5 (ops.py decode_plan): floor(resident blocks / (B *
+//     nkv)) ranges, the instance's occupancy read from the card
+//     (decode_attention_tc_blocks_per_sm), so that slots whose rows all
+//     live take one wave and not one and a sliver.
+//   * Shape dispatch.  K1 (ops.py k1_body): bf16 at G >= 2 with pages of up
+//     to 256 rows (224 at head_dim 256, the shared memory's limit) takes
+//     this body.  G = 1 takes `attend`: a product then carries one real
+//     head of eight, and this body, timed in turns with `attend` on one
+//     H100 (scripts/decode_attention_ab.py --k1-body), was as fast or slower
+//     at the serving rows (8 x 512: 0.0091-0.0098 ms against 0.0091-0.0094;
 //     whisper's 8 x 448: 0.0063-0.0064 against 0.0054) and at 4 x 32768
 //     (0.3646-0.3656 against 0.3610-0.3613), faster only at dsv2's 128
 //     heads (0.0625 against 0.0689) and gemma-7b's head_dim 256 (0.0152
-//     against 0.0163).  float32 and larger pages take `attend` too.
+//     against 0.0163).  float32 and larger pages take `attend` too.  K4 and
+//     K5 (ops.py decode_body): bf16 at head_dim 64, 128 or 256 and G >= 2,
+//     or G = 1 over at most SMs / 8 (slot, KV head) pairs of at least 8192
+//     rows, where `attend` fills the card only by a long split and a second
+//     merging launch (1 x 8192 to 1 x 32768), or at least 4 SMs (dsv2's 128
+//     KV heads), where this body measured faster for both kernels (--body
+//     in turns, PERF.md §6; at one slot of 512-4096 rows and whisper's 2 x
+//     448 K5 was slower on it); float32 and head_dim 80 take `attend`.
 //
-// `attend` (K4, K5, K1 at G = 1 and in float32): one body parametrised by a row policy
+// `attend` (K1 at G = 1, K4 and K5 at G = 1 outside the shapes above,
+// float32 and K4/K5 at head_dim 80): one body parametrised by a row policy
 // (where row p of slot b lives: a page of the block table, or the slot's
 // contiguous rows) and a load policy (a row in the cache's dtype, or int8
 // times its scale).  A block of 12 warps (fewer where G > 1) owns one range
@@ -148,10 +193,11 @@
 // bytes in flight and 0.41 with 12 warps (bound 0.33).  Its per-head
 // arithmetic grew with G at a fixed byte count (8 x 512 rows: 0.0094 ms at
 // G 1, 0.0506 at G 7), which is what `tc` takes off the critical path.
-// `tc`, in turns with its parent on one H100 (PERF.md §6): 8 x 512 at G 3 /
-// 4 / 7 0.0080 / 0.0081 / 0.0088 ms against 0.0213 / 0.0274 / 0.0501 (bound
-// ~0.003), pixtral's 8 x 2048 0.0165 against 0.0455, gemma2's 8 x 8192
-// 0.0520 against 0.0840.  A clock trace of its first versions showed the
+// `tc` for K1, in turns with its parent on one H100 (PERF.md §6): 8 x 512
+// at G 3 / 4 / 7 0.0080 / 0.0081 / 0.0088 ms against 0.0213 / 0.0274 /
+// 0.0501 (bound ~0.003), pixtral's 8 x 2048 0.0165 against 0.0455,
+// gemma2's 8 x 8192 0.0520 against 0.0840; for K4 and K5 see PERF.md §6.
+// A clock trace of its first versions showed the
 // data phase near the memory's rate and half of a serving-rows launch
 // spent after a block's last page had landed: the last range's merge made
 // dependent L2 round trips column by column and the in-block merge waited
@@ -625,8 +671,9 @@ int launch(int dtype, int B, int hd, int n_split, int device, void* stream, Args
 }
 
 // ---------------------------------------------------------------------------
-// K1's bf16 body on Hopper: pages through a TMA ring, the products of a KV
-// group on tensor cores (the source note at the top says why)
+// The Hopper body (K1, K4, K5 in bf16 at G >= 2): chunks of rows through a
+// TMA ring, the products of a KV group on tensor cores (the source note at
+// the top says why)
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -637,47 +684,76 @@ using repro::mbar_init;
 using repro::mbar_wait;
 using repro::smem_u32;
 
-constexpr int kWarps = 4;                    // consumer warps: min(4, stages) of them take pages
+constexpr int kWarps = 4;                    // consumer warps: min(4, stages) of them take chunks
 constexpr int kThreads = 32 * (kWarps + 1);  // and one producer warp
 constexpr int kHeads = 8;                    // N of every product: a KV group's heads, padded
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const __nv_bfloat16* q;   // [B, nh, hd]
-  const int* block_tables;  // [B, nblk]
+  const int* block_tables;  // K1: [B, nblk]
+  const float* k_scale;     // K5: [B, S, nkv]
+  const float* v_scale;
   const int* lengths;       // [B]
   __nv_bfloat16* out;       // [B, nh, hd]
   float* part;              // ranges' partials (n_split > 1), laid out as ml_offset says
   unsigned* counters;       // [B * nkv] finished ranges of a (slot, KV head); 0 between launches
-  int nh, nkv, G, nblk, ps;
-  int pps;                  // pages a range (a block)
+  int nh, nkv, G;
+  int nblk;                 // chunks a slot: K1 the block table's width, K4/K5 ceil(S / ps)
+  int ps;                   // rows a chunk: K1 the page size, K4/K5 the chunk rows (a multiple of 16)
+  int S;                    // K4/K5: rows a slot
+  int pps;                  // chunks a range (a block)
   int stages;               // ring depth
   float scale, logit_cap;
 };
 
-// One page's K (or V) rows of one head in a stage: hd / 64 boxes of
-// 16 * ceil(ps / 16) rows of 128 bytes (the rows past ps pad a page to
-// whole 16-row tiles, and keep each box 1024-byte aligned for the swizzle)
-__host__ __device__ constexpr uint32_t region_bytes(int hd, int ps) {
-  return (uint32_t)(hd / 64) * 16 * ((ps + 15) / 16) * 128;
+// How a row of one head sits in a stage: boxes of kBox bytes a row (64 bf16
+// columns; 128 int8 columns, or all 64 at head_dim 64), each box its own
+// block of rows under TMA's kBox-byte swizzle
+template <int Kind, int HD>
+struct Geo {
+  static constexpr int kElem = Kind == kInt8 ? 1 : 2;  // bytes a value
+  static constexpr int kBox = HD * kElem < 128 ? HD * kElem : 128;
+  static constexpr int kBoxes = HD * kElem / kBox;
+};
+
+// One chunk's K (or V) rows of one head in a stage: 16 * ceil(ps / 16) rows
+// (the rows past ps pad a page to whole 16-row tiles, and keep each box
+// 1024-byte aligned for the swizzle) of hd values
+__host__ __device__ constexpr uint32_t region_bytes(int hd, int ps, int elem) {
+  return (uint32_t)(16 * ((ps + 15) / 16)) * hd * elem;
 }
 // the in-block merge's arrays, which reuse the ring: the warps' (m, l) and
 // acc (rows of hd + 4)
 __host__ __device__ constexpr uint32_t merge_bytes(int hd) { return (uint32_t)kWarps * kHeads * (hd + 6) * 4; }
-__host__ __device__ constexpr uint32_t ring_bytes(int hd, int ps, int stages) {
-  return 2 * region_bytes(hd, ps) * stages > merge_bytes(hd) ? 2 * region_bytes(hd, ps) * stages
-                                                             : merge_bytes(hd);
+__host__ __device__ constexpr uint32_t ring_bytes(int hd, int ps, int stages, int elem) {
+  return 2 * region_bytes(hd, ps, elem) * stages > merge_bytes(hd) ? 2 * region_bytes(hd, ps, elem) * stages
+                                                                   : merge_bytes(hd);
 }
+// K5's row scales, after the ring: a stage's K scales then its V scales
+__host__ __device__ constexpr uint32_t scale_bytes(int ps, int stages, bool int8) {
+  return int8 ? (uint32_t)stages * 2 * (16 * ((ps + 15) / 16)) * 4 : 0;
+}
+// K5 at head_dim 256 keeps q's B fragments in shared memory, not in
+// registers (there ptxas's register target, 168 for two blocks an SM, would
+// spill): hd / 16 k-steps x 32 lanes x 8 bytes
+__host__ __device__ constexpr bool q_in_smem(int hd, bool int8) { return int8 && hd == 256; }
 // dynamic shared memory: slack to align the ring to 1024 bytes, the ring,
-// then a full and an empty barrier a stage
-__host__ __device__ constexpr uint32_t smem_bytes(int hd, int ps, int stages) {
-  return 1024 + ring_bytes(hd, ps, stages) + 16 * stages;
+// the scales, a full and an empty barrier a stage, then K5's q fragments
+__host__ __device__ constexpr uint32_t smem_bytes(int hd, int ps, int stages, bool int8) {
+  return 1024 + ring_bytes(hd, ps, stages, int8 ? 1 : 2) + scale_bytes(ps, stages, int8) + 16 * stages +
+         (q_in_smem(hd, int8) ? hd / 16 * 256 : 0);
 }
 
-// shared address of columns [col, col + 8) of row r of a region (boxes of
-// rows_pad rows, 64 columns each) under the 128-byte swizzle
-__device__ __forceinline__ uint32_t swz(uint32_t region, int rows_pad, int r, int col) {
-  return region + (uint32_t)((col >> 6) * rows_pad + r) * 128 + ((((col & 63) >> 3) ^ (r & 7)) << 4);
+// byte offset in a region (boxes of rows_pad rows of kBox bytes) of byte cb
+// of row r, under TMA's swizzle: with 128-byte rows, 16-byte piece j of row
+// r lands at piece j ^ (r % 8); with 64-byte rows at j ^ ((r / 2) % 4)
+template <int kBox>
+__device__ __forceinline__ uint32_t swz(int rows_pad, int r, int cb) {
+  if constexpr (kBox == 128)
+    return (uint32_t)((cb >> 7) * rows_pad + r) * 128 + ((((cb & 127) >> 4) ^ (r & 7)) << 4) + (cb & 15);
+  else
+    return (uint32_t)r * 64 + ((((cb >> 4) & 3) ^ ((r >> 1) & 3)) << 4) + (cb & 15);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], uint32_t addr) {
@@ -713,6 +789,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// K5's int8 -> bf16, exact: byte i of the sign-flipped word f as the f32 bits
+// of (float)v (kI8Flip / kI8Magic / kI8Sel / kI8Bias, as `attend` does); an
+// int8 value has at most 8 significant bits, so the high half of its f32 is
+// its bf16, and a PRMT of two such f32 packs two values in one word
+__device__ __forceinline__ uint32_t i8_f32_bits(uint32_t f, int i) {
+  return __float_as_uint(__uint_as_float(__byte_perm(f, kI8Magic, kI8Sel + i)) - kI8Bias);
+}
+// the A fragments of 4 int8 columns of one K row: (columns 0, 1) in lo and
+// (2, 3) in hi, bf16, the lower column in the low half
+__device__ __forceinline__ void k_frag(uint32_t x, uint32_t& lo, uint32_t& hi) {
+  const uint32_t f = x ^ kI8Flip;
+  lo = __byte_perm(i8_f32_bits(f, 0), i8_f32_bits(f, 1), 0x7632);
+  hi = __byte_perm(i8_f32_bits(f, 2), i8_f32_bits(f, 3), 0x7632);
+}
+
+// cp.async of 4 bytes, and the arrival on a barrier once this thread's
+// cp.asyncs have landed (the barrier counts it among its expected arrivals)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
 // out[0, N) = bf16(num / max(den, 1e-30)), N a multiple of 4, as 8-byte stores
 template <int N>
 __device__ __forceinline__ void store_row(__nv_bfloat16* out, const float (&num)[N], float den) {
@@ -726,51 +826,82 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* out, const float (&num)
   }
 }
 
-// grid (nkv, B, n_split), kThreads threads: block (h, b, z) reads pages
-// [z * pps, (z + 1) * pps) of slot b's live pages for KV head h
-template <int HD>
-__global__ void __launch_bounds__(kThreads) paged_tc_kernel(const __grid_constant__ CUtensorMap map_k,
-                                                            const __grid_constant__ CUtensorMap map_v,
-                                                            const Params p) {
-  constexpr int kChunks = HD / 64;  // 64-column boxes a row
-  constexpr int kSteps = HD / 16;   // k-steps of the scores, m-tiles of the output
+// grid (nkv, B, n_split), kThreads threads: block (h, b, z) reads chunks
+// [z * pps, (z + 1) * pps) of slot b's live chunks for KV head h: K1's pages
+// of the block table; K4's and K5's rows [j * ps, (j + 1) * ps) of the slot,
+// row b * S + j * ps of the cache seen as [B * S, nkv, hd] (past the slot's
+// S the next slot's rows, masked; past B * S, TMA's zero fill)
+template <int Kind, int HD>
+__global__ void __launch_bounds__(kThreads) tc_kernel(const __grid_constant__ CUtensorMap map_k,
+                                                      const __grid_constant__ CUtensorMap map_v,
+                                                      const Params p) {
+  using L = Geo<Kind, HD>;
+  constexpr bool kI8 = Kind == kInt8;
+  constexpr int kSteps = HD / 16;  // k-steps of the scores, m-tiles of the output
   const int h = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int j0 = z * p.pps;
-  // the producer's first 32 entries of the range's block table, loaded
+  // K1: the producer's first 32 entries of the range's block table, loaded
   // beside the length rather than after it
   int id0 = 0;
-  if (warp == kWarps && lane < min(p.pps, p.nblk - j0)) id0 = p.block_tables[(size_t)b * p.nblk + j0 + lane];
-  const int len = max(0, min(p.lengths[b], p.nblk * p.ps));
+  if constexpr (Kind == kPaged)
+    if (warp == kWarps && lane < min(p.pps, p.nblk - j0)) id0 = p.block_tables[(size_t)b * p.nblk + j0 + lane];
+  const int len = max(0, min(p.lengths[b], Kind == kPaged ? p.nblk * p.ps : p.S));
   const int live_pages = (len + p.ps - 1) / p.ps;
   // ranges holding a live row (one, writing zeros, for an empty slot)
   const int n_live = max(1, (live_pages + p.pps - 1) / p.pps);
   if (z >= n_live) return;
-  const int n = max(0, min(j0 + p.pps, live_pages) - j0);  // this block's pages
+  const int n = max(0, min(j0 + p.pps, live_pages) - j0);  // this block's chunks
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int rows_pad = 16 * ((p.ps + 15) / 16);
-  const uint32_t region = region_bytes(HD, p.ps);
+  const uint32_t region = region_bytes(HD, p.ps, L::kElem);
   const uint32_t ring_s = smem_u32(ring);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ring_bytes(HD, p.ps, p.stages));
+  const uint32_t ring_b = ring_bytes(HD, p.ps, p.stages, L::kElem);
+  float* scales = reinterpret_cast<float*>(ring + ring_b);  // K5: stage st's at 2 * rows_pad * st
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ring_b + scale_bytes(p.ps, p.stages, kI8));
   uint64_t* empty = full + p.stages;
+  constexpr bool kQs = q_in_smem(HD, kI8);
+  uint2* qs = reinterpret_cast<uint2*>(empty + p.stages);  // [kSteps][32] where kQs
+  const int g = lane >> 2, t = lane & 3;  // the fragments' row group and thread in it
+  // q as the B operand of the scores (K = head_dim, N = heads): head g
+  // (zero past G); bf16 kinds: columns 16 kk + 2 t + {0, 1} and + 8 of
+  // k-step kk; K5: columns c + {0, 1} and c + {2, 3}, c = k_col(kk / 4) +
+  // 4 (kk % 4) (the order in which its K bytes are read and converted: a
+  // permutation of head_dim, the same for q and K)
+  const __nv_bfloat16* qrow = p.q + ((size_t)b * p.nh + (size_t)h * p.G + min(g, p.G - 1)) * HD;
+  // K5: the first column of the 16 bytes this lane reads of a K row in
+  // step group s (k-steps 4 s to 4 s + 3, one 4-byte word each)
+  auto k_col = [&](int s) { return L::kBox == 128 ? 128 * (s / 2) + 32 * t + 16 * (s % 2) : 16 * t; };
+  auto q_frag = [&](int kk) {
+    const int c0 = kI8 ? k_col(kk / 4) + 4 * (kk % 4) : 16 * kk + 2 * t;
+    const int c1 = kI8 ? c0 + 2 : c0 + 8;
+    return g < p.G ? make_uint2(*reinterpret_cast<const uint32_t*>(qrow + c0),
+                                *reinterpret_cast<const uint32_t*>(qrow + c1))
+                   : make_uint2(0u, 0u);
+  };
+  if constexpr (kQs) {
+    if (warp == 0)
+      for (int kk = 0; kk < kSteps; ++kk) qs[kk * 32 + lane] = q_frag(kk);
+  }
 
   if (tid == 32 * kWarps) {
     for (int i = 0; i < p.stages; ++i) {
-      mbar_init(smem_u32(full + i), 1);
-      mbar_init(smem_u32(empty + i), 1);  // lane 0 of the page's consumer warp
+      // the TMA lane's arrival, and K5's 32 lanes' once their scales land
+      mbar_init(smem_u32(full + i), kI8 ? 33 : 1);
+      mbar_init(smem_u32(empty + i), 1);  // lane 0 of the chunk's consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)&map_k) : "memory");
     asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)&map_v) : "memory");
   }
-  if (p.ps < rows_pad) {  // V rows past a page's end pad its last tile: zeros (K's are masked)
-    const int per_stage = (rows_pad - p.ps) * kChunks * 8;  // 16-byte pieces
+  if (!kI8 && p.ps < rows_pad) {  // K1: V rows past a page's end pad its last tile: zeros (K's are masked)
+    const int per_stage = (rows_pad - p.ps) * L::kBoxes * 8;  // 16-byte pieces
     for (int x = tid; x < p.stages * per_stage; x += kThreads) {
       const int st = x / per_stage, y = x % per_stage;
-      const int r = p.ps + y / (kChunks * 8), c = (y / 8) % kChunks;
+      const int r = p.ps + y / (L::kBoxes * 8), c = (y / 8) % L::kBoxes;
       *reinterpret_cast<uint4*>(ring + st * 2 * region + region + (c * rows_pad + r) * 128 + (y % 8) * 16) =
           make_uint4(0, 0, 0, 0);
     }
@@ -783,87 +914,130 @@ __global__ void __launch_bounds__(kThreads) paged_tc_kernel(const __grid_constan
   for (int mt = 0; mt < kSteps; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
 
   if (warp == kWarps) {
-    // the producer: the block table's entries 32 at a time, one a lane;
-    // lane 0 loads each page's K and V boxes of head h into the next stage
-    // once its last reader has released it
-    const int* bt = p.block_tables + (size_t)b * p.nblk + j0;
-    const uint32_t tx = 2u * kChunks * p.ps * 128;
+    // the producer: K1's block table entries 32 at a time, one a lane;
+    // lane 0 loads each chunk's K and V boxes of head h into the next stage
+    // once its last reader has released it, and for K5 every lane then
+    // copies a share of the chunk's live rows' scales of head h
+    const int* bt = Kind == kPaged ? p.block_tables + (size_t)b * p.nblk + j0 : nullptr;
+    const uint32_t tx = 2u * p.ps * HD * L::kElem;
     const uint64_t policy = repro::evict_first_policy();  // each row is read once
     for (int base = 0; base < n; base += 32) {
-      const int id = base == 0 ? id0 : (base + lane < n ? bt[base + lane] : 0);
+      int id = 0;
+      if constexpr (Kind == kPaged) id = base == 0 ? id0 : (base + lane < n ? bt[base + lane] : 0);
       const int m = min(32, n - base);
       for (int i = 0; i < m; ++i) {
-        const int page = __shfl_sync(0xffffffffu, id, i);
         const int k = base + i, st = k % p.stages;
+        int row0;  // the chunk's first row in the [rows, nkv, hd] view
+        if constexpr (Kind == kPaged)
+          row0 = __shfl_sync(0xffffffffu, id, i) * p.ps;
+        else
+          row0 = b * p.S + (j0 + k) * p.ps;
         if (lane == 0) {
           mbar_wait(smem_u32(empty + st), ((k / p.stages) & 1) ^ 1);
           const uint32_t bar = smem_u32(full + st), dst = ring_s + st * 2 * region;
           mbar_expect_tx(bar, tx);
 #pragma unroll
-          for (int c = 0; c < kChunks; ++c) {
-            repro::tma_load(dst + c * rows_pad * 128, &map_k, bar, 64 * c, h, page * p.ps, policy);
-            repro::tma_load(dst + region + c * rows_pad * 128, &map_v, bar, 64 * c, h, page * p.ps, policy);
+          for (int c = 0; c < L::kBoxes; ++c) {
+            const int col = c * L::kBox / L::kElem;
+            repro::tma_load(dst + c * rows_pad * L::kBox, &map_k, bar, col, h, row0, policy);
+            repro::tma_load(dst + region + c * rows_pad * L::kBox, &map_v, bar, col, h, row0, policy);
           }
+        }
+        if constexpr (kI8) {
+          __syncwarp();  // no lane writes the stage before lane 0 saw it released
+          const int live = min(p.ps, len - (j0 + k) * p.ps);
+          const uint32_t dst = smem_u32(scales + st * 2 * rows_pad);
+          for (int r = lane; r < live; r += 32) {
+            const size_t at = ((size_t)row0 + r) * p.nkv + h;
+            cp_async4(dst + 4 * r, p.k_scale + at);
+            cp_async4(dst + 4 * (rows_pad + r), p.v_scale + at);
+          }
+          cp_async_arrive(smem_u32(full + st));
         }
       }
     }
   } else {
     const float scale_l2 = p.scale * kLog2e, cap_l2 = p.logit_cap * kLog2e;
     const float scale_cap = p.logit_cap > 0.f ? p.scale / p.logit_cap : 0.f;
-    // q as the B operand of the scores (K = head_dim, N = heads): head
-    // lane / 4 (zero past G), columns 16 kk + 2 (lane % 4) + {0, 1} and + 8
-    const int qh = lane >> 2;
-    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-        p.q + ((size_t)b * p.nh + (size_t)h * p.G + min(qh, p.G - 1)) * HD) + (lane & 3);
-    uint32_t qb[kSteps][2];
+    uint2 qb[kQs ? 1 : kSteps];  // q's fragments in registers, or read from qs a step at a time
+    if constexpr (!kQs) {
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      qb[kk][0] = qh < p.G ? qrow[8 * kk] : 0u;
-      qb[kk][1] = qh < p.G ? qrow[8 * kk + 4] : 0u;
+      for (int kk = 0; kk < kSteps; ++kk) qb[kk] = q_frag(kk);
     }
-    // warp w of the first nw takes pages w, w + nw, ...: with stages a
-    // multiple of nw, the page that used a stage before page i is the same
+    auto qf = [&](int kk) { return kQs ? qs[kk * 32 + lane] : qb[kQs ? 0 : kk]; };
+    // K5: the V rows this lane reads of a tile, 2 t and 2 t + 1 (+ 8), the
+    // odd threads' pair in the other order (bank-conflict free at 64-byte
+    // rows), and the PRMT that puts row 2 t in the low half
+    const int va_r = 2 * t + (t & 1), vb_r = 2 * t + 1 - (t & 1);
+    const uint32_t v_sel = (t & 1) ? 0x3276u : 0x7632u;
+    // warp w of the first nw takes chunks w, w + nw, ...: with stages a
+    // multiple of nw, the chunk that used a stage before chunk i is the same
     // warp's, so its parity wait on the stage can never see a phase early
     const int nw = min(kWarps, p.stages);
     for (int i = warp; warp < nw && i < n; i += nw) {
       const int st = i % p.stages;
       mbar_wait(smem_u32(full + st), (i / p.stages) & 1);
-      const uint32_t kreg = ring_s + st * 2 * region, vreg = kreg + region;
-      const int valid = min(p.ps, len - (j0 + i) * p.ps);  // the page's live rows (>= 1)
-      if (valid < p.ps) {
-        // the slot's last live page, the block's last: its rows past the
+      const uint32_t kofs = st * 2 * region, vofs = kofs + region;
+      const int valid = min(p.ps, len - (j0 + i) * p.ps);  // the chunk's live rows (>= 1)
+      if (!kI8 && valid < p.ps) {
+        // the slot's last live chunk, the block's last: its rows past the
         // length may hold anything (stale rows, a NaN), so their V is zeroed
-        // and a masked row's 0 weight stays 0 through the product
-        unsigned char* v_rows = ring + st * 2 * region + region;
-        for (int x = lane; x < (p.ps - valid) * kChunks * 8; x += 32) {
-          const int r = valid + x / (kChunks * 8), c = (x / 8) % kChunks;
+        // and a masked row's 0 weight stays 0 through the product (K5's V
+        // rows are int8, finite; its weights past the length are zeroed)
+        unsigned char* v_rows = ring + vofs;
+        for (int x = lane; x < (p.ps - valid) * L::kBoxes * 8; x += 32) {
+          const int r = valid + x / (L::kBoxes * 8), c = (x / 8) % L::kBoxes;
           *reinterpret_cast<uint4*>(v_rows + (c * rows_pad + r) * 128 + (x % 8) * 16) = make_uint4(0, 0, 0, 0);
         }
         __syncwarp();
       }
+      const float* k_sc = scales + st * 2 * rows_pad;  // K5
+      const float* v_sc = k_sc + rows_pad;
       for (int r0 = 0; r0 < valid; r0 += 16) {
-        // scores of 16 rows (M) by 8 heads (N): row r0 + lane / 4 (+ 8) in
-        // s[0..1] (s[2..3]), heads 2 (lane % 4) and + 1
-        // (two accumulator chains over the k-steps, so that half as many
-        // products wait on one another)
+        // scores of 16 rows (M) by 8 heads (N): row r0 + g (+ 8) in s[0..1]
+        // (s[2..3]), heads 2 t and + 1 (two accumulator chains over the
+        // k-steps, so that half as many products wait on one another)
         float s[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (kI8) {
+          // rows r0 + g and + 8: 16 bytes a step group (4 k-steps), the
+          // bytes converted to bf16 in registers
 #pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk) {
-          uint32_t a[4];
-          ldsm_x4(a, swz(kreg, rows_pad, r0 + ((lane >> 3) & 1) * 8 + (lane & 7), 16 * kk + (lane >> 4) * 8));
-          if (kk % 2)
-            mma_bf16(s1, a, qb[kk][0], qb[kk][1]);
-          else
-            mma_bf16(s, a, qb[kk][0], qb[kk][1]);
+          for (int sg = 0; sg < kSteps / 4; ++sg) {
+            const unsigned char* k_rows = ring + kofs;
+            const uint4 xa = *reinterpret_cast<const uint4*>(k_rows + swz<L::kBox>(rows_pad, r0 + g, k_col(sg)));
+            const uint4 xb = *reinterpret_cast<const uint4*>(k_rows + swz<L::kBox>(rows_pad, r0 + g + 8, k_col(sg)));
+            const uint32_t wa[4] = {xa.x, xa.y, xa.z, xa.w}, wb[4] = {xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+              uint32_t a[4];
+              k_frag(wa[w], a[0], a[2]);
+              k_frag(wb[w], a[1], a[3]);
+              const uint2 f = qf(4 * sg + w);
+              mma_bf16(w % 2 ? s1 : s, a, f.x, f.y);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < kSteps; ++kk) {
+            uint32_t a[4];
+            ldsm_x4(a, ring_s + kofs + swz<128>(rows_pad, r0 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                                                32 * kk + (lane >> 4) * 16));
+            mma_bf16(kk % 2 ? s1 : s, a, qb[kk].x, qb[kk].y);
+          }
         }
-        const bool va = r0 + (lane >> 2) < valid, vb = r0 + (lane >> 2) + 8 < valid;
+        const bool va = r0 + g < valid, vb = r0 + g + 8 < valid;
+        float ka = 1.f, kb = 1.f;  // K5: the rows' K scales, once a row
+        if constexpr (kI8) {
+          ka = k_sc[r0 + g];
+          kb = k_sc[r0 + g + 8];
+        }
         // scaled (and capped) scores, in units of log2 e: the softmax runs on exp2
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[e] += s1[e];
+          s[e] = (s[e] + s1[e]) * (e < 2 ? ka : kb);
           s[e] = p.logit_cap > 0.f ? cap_l2 * tanhf(s[e] * scale_cap) : s[e] * scale_l2;
         }
-        // masked before the max, by a select: a garbage score never enters
+        // masked before the max, by a select: a garbage score (or scale) never enters
         s[0] = va ? s[0] : kNegInf;
         s[1] = va ? s[1] : kNegInf;
         s[2] = vb ? s[2] : kNegInf;
@@ -889,21 +1063,68 @@ __global__ void __launch_bounds__(kThreads) paged_tc_kernel(const __grid_constan
           acc[mt][2] *= c0;
           acc[mt][3] *= c1;
         }
-        // P = hi + lo, both bf16 (hi: P rounded; lo: the rest, rounded), so
-        // that the weighted sum keeps P to ~2^-16; each 8 x 8 half
-        // transposed into the B operand (K = rows, N = heads)
-        const uint32_t h01 = pack_bf16(p0, p1), h23 = pack_bf16(p2, p3);
-        const uint32_t o01 = pack_bf16(p0 - __uint_as_float(h01 << 16), p1 - __uint_as_float(h01 & 0xffff0000u));
-        const uint32_t o23 = pack_bf16(p2 - __uint_as_float(h23 << 16), p3 - __uint_as_float(h23 & 0xffff0000u));
+        // the weights of the sum: P, or for K5 P' = P times the row's V
+        // scale (once a row, against exact int8 V values), set to 0 by a
+        // select past the length, where a scale may be NaN or inf
+        float w0 = p0, w1 = p1, w2 = p2, w3 = p3;
+        if constexpr (kI8) {
+          const float sa = v_sc[r0 + g], sb = v_sc[r0 + g + 8];
+          w0 = va ? p0 * sa : 0.f;
+          w1 = va ? p1 * sa : 0.f;
+          w2 = vb ? p2 * sb : 0.f;
+          w3 = vb ? p3 * sb : 0.f;
+        }
+        // each weight = hi + lo, both bf16 (hi: the weight rounded; lo: the
+        // rest, rounded), so that the weighted sum keeps it to ~2^-16; each
+        // 8 x 8 half transposed into the B operand (K = rows, N = heads)
+        const uint32_t h01 = pack_bf16(w0, w1), h23 = pack_bf16(w2, w3);
+        const uint32_t o01 = pack_bf16(w0 - __uint_as_float(h01 << 16), w1 - __uint_as_float(h01 & 0xffff0000u));
+        const uint32_t o23 = pack_bf16(w2 - __uint_as_float(h23 << 16), w3 - __uint_as_float(h23 & 0xffff0000u));
         const uint32_t ph0 = transpose8(h01), ph1 = transpose8(h23);
         const uint32_t pl0 = transpose8(o01), pl1 = transpose8(o23);
-        // out^T (M = head_dim, N = heads) += V^T (from V's rows by ldmatrix.trans) . P^T
+        // out^T (M = head_dim, N = heads) += V^T . P^T
+        if constexpr (kI8) {
+          // V^T's A fragments from 4 rows (2 t, 2 t + 1, + 8) of kBox / 8
+          // columns a lane: columns kBox / 8 * g + 2 j and + 1 of a box are
+          // the M rows g and g + 8 of its m-tile j (the merge maps them back)
+          constexpr int kW = L::kBox / 8;  // bytes of a row a lane reads in a box
+          using VRow = typename std::conditional<kW == 16, uint4, uint2>::type;
 #pragma unroll
-        for (int mt = 0; mt < kSteps; ++mt) {
-          uint32_t a[4];
-          ldsm_x4_trans(a, swz(vreg, rows_pad, r0 + (lane >> 4) * 8 + (lane & 7), 16 * mt + ((lane >> 3) & 1) * 8));
-          mma_bf16(acc[mt], a, ph0, ph1);
-          mma_bf16(acc[mt], a, pl0, pl1);
+          for (int c = 0; c < L::kBoxes; ++c) {
+            const int cb = c * 128 + kW * g;
+            VRow x[4];
+            x[0] = *reinterpret_cast<const VRow*>(ring + vofs + swz<L::kBox>(rows_pad, r0 + va_r, cb));
+            x[1] = *reinterpret_cast<const VRow*>(ring + vofs + swz<L::kBox>(rows_pad, r0 + vb_r, cb));
+            x[2] = *reinterpret_cast<const VRow*>(ring + vofs + swz<L::kBox>(rows_pad, r0 + 8 + va_r, cb));
+            x[3] = *reinterpret_cast<const VRow*>(ring + vofs + swz<L::kBox>(rows_pad, r0 + 8 + vb_r, cb));
+#pragma unroll
+            for (int w = 0; w < kW / 4; ++w) {
+              uint32_t f[4], lo[4], hi[4];
+#pragma unroll
+              for (int r = 0; r < 4; ++r) f[r] = reinterpret_cast<const uint32_t*>(&x[r])[w] ^ kI8Flip;
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {  // column 4 w + i: rows 2 t, 2 t + 1 (lo) and + 8 (hi)
+                lo[i] = __byte_perm(i8_f32_bits(f[0], i), i8_f32_bits(f[1], i), v_sel);
+                hi[i] = __byte_perm(i8_f32_bits(f[2], i), i8_f32_bits(f[3], i), v_sel);
+              }
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                const uint32_t a[4] = {lo[2 * jj], lo[2 * jj + 1], hi[2 * jj], hi[2 * jj + 1]};
+                const int mt = c * (L::kBox / 16) + 2 * w + jj;
+                mma_bf16(acc[mt], a, ph0, ph1);
+                mma_bf16(acc[mt], a, pl0, pl1);
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int mt = 0; mt < kSteps; ++mt) {
+            uint32_t a[4];
+            ldsm_x4_trans(a, ring_s + vofs + swz<128>(rows_pad, r0 + (lane >> 4) * 8 + (lane & 7),
+                                                      32 * mt + ((lane >> 3) & 1) * 16));
+            mma_bf16(acc[mt], a, ph0, ph1);
+            mma_bf16(acc[mt], a, pl0, pl1);
+          }
         }
       }
       __syncwarp();
@@ -922,7 +1143,7 @@ __global__ void __launch_bounds__(kThreads) paged_tc_kernel(const __grid_constan
   // the warps' states and none waits on the weights.
   constexpr int kCols = HD / 16;
   constexpr int kRow = HD + 4;  // a row of `as`: the four heads a store writes hit four bank groups
-  __syncthreads();              // every page has been read
+  __syncthreads();              // every chunk has been read
   float* ms = reinterpret_cast<float*>(ring);  // [kWarps][kHeads]
   float* ls = ms + kWarps * kHeads;            // [kWarps][kHeads]
   float* as = ls + kWarps * kHeads;            // [kWarps][kHeads][kRow]
@@ -936,30 +1157,37 @@ __global__ void __launch_bounds__(kThreads) paged_tc_kernel(const __grid_constan
     }
 #pragma unroll
     for (int mt = 0; mt < kSteps; ++mt) {
-      as[n0 * kRow + 16 * mt + row] = acc[mt][0];
-      as[(n0 + 1) * kRow + 16 * mt + row] = acc[mt][1];
-      as[n0 * kRow + 16 * mt + row + 8] = acc[mt][2];
-      as[(n0 + 1) * kRow + 16 * mt + row + 8] = acc[mt][3];
+      // the output columns of the tile's M rows row and row + 8
+      int c0 = 16 * mt + row, c1 = c0 + 8;
+      if constexpr (kI8) {
+        constexpr int kTiles = L::kBox / 16;  // m-tiles a box
+        c0 = (mt / kTiles) * 128 + L::kBox / 8 * row + 2 * (mt % kTiles);
+        c1 = c0 + 1;
+      }
+      as[n0 * kRow + c0] = acc[mt][0];
+      as[(n0 + 1) * kRow + c0] = acc[mt][1];
+      as[n0 * kRow + c1] = acc[mt][2];
+      as[(n0 + 1) * kRow + c1] = acc[mt][3];
     }
   }
   __syncthreads();
-  const int g = tid >> 4, d0 = (tid & 15) * kCols;  // this thread's head and first column
+  const int gh = tid >> 4, d0 = (tid & 15) * kCols;  // this thread's head and first column
   const bool mine = tid < 16 * p.G;
-  const size_t head = (size_t)b * p.nh + (size_t)h * p.G + g;
+  const size_t head = (size_t)b * p.nh + (size_t)h * p.G + gh;
   const int n_split = gridDim.z;
   float* ml_all = p.part + ml_offset((size_t)gridDim.y * p.nh, n_split, HD);
   float num[kCols];
   if (mine) {
     float mx = kNegInf, den = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ms[w * kHeads + g]);
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ms[w * kHeads + gh]);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) num[j] = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = exp2f(ms[w * kHeads + g] - mx);  // 0 for a warp that read no row
-      den += ls[w * kHeads + g] * c;
-      const float4* a4 = reinterpret_cast<const float4*>(as + (w * kHeads + g) * kRow + d0);
+      const float c = exp2f(ms[w * kHeads + gh] - mx);  // 0 for a warp that read no row
+      den += ls[w * kHeads + gh] * c;
+      const float4* a4 = reinterpret_cast<const float4*>(as + (w * kHeads + gh) * kRow + d0);
 #pragma unroll
       for (int j = 0; j < kCols / 4; ++j) {
         const float4 a = a4[j];
@@ -1044,15 +1272,69 @@ __global__ void __launch_bounds__(kThreads) paged_tc_kernel(const __grid_constan
   store_row(p.out + head * HD + d0, num, den);
 }
 
-template <int HD>
-cudaError_t launch_tc(int device, const CUtensorMap* maps, const Params& p, const dim3& grid, uint32_t smem,
+// the instance allowed the most dynamic shared memory on `device` (callers
+// hold tma_mutex)
+template <int Kind, int HD>
+cudaError_t prepared(int device) {
+  static bool ready[repro::kMaxDevices] = {};
+  return repro::allow_smem(tc_kernel<Kind, HD>, device, ready);
+}
+
+template <int Kind, int HD>
+cudaError_t launch_hd(int device, const CUtensorMap* maps, const Params& p, const dim3& grid, uint32_t smem,
                       cudaStream_t st) {
-  static bool ready[repro::kMaxDevices] = {};  // under tma_mutex
-  auto kern = paged_tc_kernel<HD>;
-  cudaError_t err = repro::allow_smem(kern, device, ready);
+  cudaError_t err = prepared<Kind, HD>(device);
   if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, smem, st>>>(maps[0], maps[1], p);
+  tc_kernel<Kind, HD><<<grid, kThreads, smem, st>>>(maps[0], maps[1], p);
   return cudaGetLastError();
+}
+
+// the instance's resident blocks an SM with `smem` bytes of shared memory
+template <int Kind>
+int blocks_per_sm(int hd, uint32_t smem, int device, int* blocks) {
+  std::lock_guard<std::mutex> lock(repro::tma_mutex());
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (hd) {
+    case 64: err = prepared<Kind, 64>(device); break;
+    case 128: err = prepared<Kind, 128>(device); break;
+    case 256: err = prepared<Kind, 256>(device); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  switch (hd) {
+    case 64: return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, tc_kernel<Kind, 64>, kThreads, smem);
+    case 128: return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, tc_kernel<Kind, 128>, kThreads, smem);
+    default: return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, tc_kernel<Kind, 256>, kThreads, smem);
+  }
+}
+
+// One launch of the body over `rows` rows of K and V, [rows, nkv, hd] each
+// as tensor maps whose boxes are a chunk's ps rows of one head; the
+// caller has checked p.
+template <int Kind>
+int launch(const void* k, const void* v, uint64_t rows, int hd, int B, int n_split, const Params& p, int device,
+           void* stream) {
+  constexpr int kElem = Kind == kInt8 ? 1 : 2;
+  const uint32_t smem = smem_bytes(hd, p.ps, p.stages, Kind == kInt8);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.nkv, B, n_split);
+  cudaStream_t st = (cudaStream_t)stream;
+  std::lock_guard<std::mutex> lock(repro::tma_mutex());
+  CUtensorMap maps[2];
+  if (!repro::tensor_map(&maps[0], k, hd, p.nkv, rows, 1, p.ps, kElem) ||
+      !repro::tensor_map(&maps[1], v, hd, p.nkv, rows, 1, p.ps, kElem))
+    return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 64: return (int)launch_hd<Kind, 64>(device, maps, p, grid, smem, st);
+    case 128: return (int)launch_hd<Kind, 128>(device, maps, p, grid, smem, st);
+    case 256: return (int)launch_hd<Kind, 256>(device, maps, p, grid, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the checks every launch of the body shares
+inline bool plan_ok(int B, int G, int n_split, int pps, int stages, const float* part, const void* counters) {
+  return B >= 1 && G >= 1 && G <= kHeads && n_split >= 1 && pps >= 1 && stages >= 1 &&
+         !(stages > kWarps && stages % kWarps) && !(n_split > 1 && part == nullptr) && counters != nullptr;
 }
 
 }  // namespace tc
@@ -1075,11 +1357,10 @@ REPRO_EXPORT int paged_decode_attention(const void* q, const void* k_pages, cons
   return launch<kPaged>(dtype, B, hd, n_split, device, stream, a);
 }
 
-// K1's bf16 body (tc::paged_tc_kernel): q [B, nh, hd], page pools [P, ps,
-// nkv, hd] in bf16, block tables [B, nblk] and lengths [B] int32; n_split
-// ranges of pps pages, a ring of `stages` pages; `part` as
-// above (n_split > 1) and `counters`, B * nkv uint32 that are zero and left
-// zero.
+// K1's bf16 body (tc::tc_kernel): q [B, nh, hd], page pools [P, ps, nkv,
+// hd] in bf16, block tables [B, nblk] and lengths [B] int32; n_split ranges
+// of pps pages, a ring of `stages` pages; `part` as above (n_split > 1) and
+// `counters`, B * nkv uint32 that are zero and left zero.
 REPRO_EXPORT int paged_decode_attention_bf16(const void* q, const void* k_pages, const void* v_pages,
                                              const int* block_tables, const int* lengths, void* out,
                                              float* part, void* counters, int B, int nh, int nkv, int hd,
@@ -1087,28 +1368,47 @@ REPRO_EXPORT int paged_decode_attention_bf16(const void* q, const void* k_pages,
                                              float scale, float logit_cap, int device, void* stream) {
   REPRO_SET_DEVICE(device);
   const int G = nkv > 0 && nh % nkv == 0 ? nh / nkv : 0;
-  if (B < 1 || G < 1 || G > tc::kHeads || ps < 1 || ps > 256 || P < 1 || (uint64_t)P * ps > INT32_MAX ||
-      nblk < 1 || n_split < 1 || pps < 1 || stages < 1 ||
-      (stages > tc::kWarps && stages % tc::kWarps) || (n_split > 1 && part == nullptr) ||
-      counters == nullptr)
+  if (!tc::plan_ok(B, G, n_split, pps, stages, part, counters) || ps < 1 || ps > 256 || P < 1 ||
+      (uint64_t)P * ps > INT32_MAX || nblk < 1)
     return (int)cudaErrorInvalidValue;
-  const uint32_t smem = tc::smem_bytes(hd, ps, stages);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  const tc::Params p{(const __nv_bfloat16*)q, block_tables, lengths, (__nv_bfloat16*)out, part,
-                     (unsigned*)counters, nh, nkv, G, nblk, ps, pps, stages, scale, logit_cap};
-  const dim3 grid(nkv, B, n_split);
-  cudaStream_t st = (cudaStream_t)stream;
-  std::lock_guard<std::mutex> lock(repro::tma_mutex());
-  CUtensorMap maps[2];  // the pools as [P * ps, nkv, hd]: boxes of one page's rows of one head
-  if (!repro::tensor_map(&maps[0], k_pages, hd, nkv, (uint64_t)P * ps, 1, ps) ||
-      !repro::tensor_map(&maps[1], v_pages, hd, nkv, (uint64_t)P * ps, 1, ps))
+  const tc::Params p{(const __nv_bfloat16*)q, block_tables, nullptr, nullptr, lengths, (__nv_bfloat16*)out, part,
+                     (unsigned*)counters, nh, nkv, G, nblk, ps, 0, pps, stages, scale, logit_cap};
+  // the pools as [P * ps, nkv, hd]: boxes of one page's rows of one head
+  return tc::launch<kPaged>(k_pages, v_pages, (uint64_t)P * ps, hd, B, n_split, p, device, stream);
+}
+
+// The blocks of K4's (int8 = 0) or K5's body at head_dim hd, chunks of
+// `rows` rows and a ring of `stages` chunks that an SM holds at once, into
+// *blocks: their plan fills the card with one wave of them.
+REPRO_EXPORT int decode_attention_tc_blocks_per_sm(int hd, int rows, int stages, int int8, int device, int* blocks) {
+  REPRO_SET_DEVICE(device);
+  if (rows < 16 || rows > 256 || stages < 1 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+  const uint32_t smem = tc::smem_bytes(hd, rows, stages, int8);
+  return int8 ? tc::blocks_per_sm<kInt8>(hd, smem, device, blocks)
+              : tc::blocks_per_sm<kContiguous>(hd, smem, device, blocks);
+}
+
+// K4 (int8 = 0: caches [B, S, nkv, hd] in bf16) and K5 (int8 = 1: int8
+// caches, f32 scales [B, S, nkv]) on the same body: q [B, nh, hd] bf16,
+// lengths [B] int32; chunks of `rows` rows (a multiple of 16, at most 256),
+// n_split ranges of cps chunks, a ring of `stages` chunks; `part` and
+// `counters` as K1's.
+REPRO_EXPORT int decode_attention_tc(const void* q, const void* k_cache, const void* v_cache,
+                                     const float* k_scale, const float* v_scale, const int* lengths, void* out,
+                                     float* part, void* counters, int B, int nh, int nkv, int hd, int S,
+                                     int rows, int n_split, int cps, int stages, float scale, float logit_cap,
+                                     int int8, int device, void* stream) {
+  REPRO_SET_DEVICE(device);
+  const int G = nkv > 0 && nh % nkv == 0 ? nh / nkv : 0;
+  if (!tc::plan_ok(B, G, n_split, cps, stages, part, counters) || S < 1 || rows < 16 || rows > 256 ||
+      rows % 16 || (uint64_t)B * S + rows > INT32_MAX || (int8 && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 64: return (int)tc::launch_tc<64>(device, maps, p, grid, smem, st);
-    case 128: return (int)tc::launch_tc<128>(device, maps, p, grid, smem, st);
-    case 256: return (int)tc::launch_tc<256>(device, maps, p, grid, smem, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const tc::Params p{(const __nv_bfloat16*)q, nullptr, k_scale, v_scale, lengths, (__nv_bfloat16*)out, part,
+                     (unsigned*)counters, nh, nkv, G, (S + rows - 1) / rows, rows, S, cps, stages, scale,
+                     logit_cap};
+  // the caches as [B * S, nkv, hd]: boxes of one chunk's rows of one head
+  return int8 ? tc::launch<kInt8>(k_cache, v_cache, (uint64_t)B * S, hd, B, n_split, p, device, stream)
+              : tc::launch<kContiguous>(k_cache, v_cache, (uint64_t)B * S, hd, B, n_split, p, device, stream);
 }
 
 // K4: q [B, nh, hd], caches [B, S, nkv, hd] in q's dtype, lengths [B] int32.

@@ -1,5 +1,5 @@
-// Hopper's asynchronous copies, shared by K1 (decode_attention.cu) and K3
-// (expert_ffn.cu): mbarrier waits and arrivals, a TMA box load, and the
+// Hopper's asynchronous copies, shared by K1, K4, K5 (decode_attention.cu)
+// and K3 (expert_ffn.cu): mbarrier waits and arrivals, a TMA box load, and the
 // host's cache of tensor maps.
 //
 // A source that includes this header links with -lcuda
@@ -79,16 +79,16 @@ __device__ __forceinline__ uint64_t evict_first_policy() {
 struct MapKey {
   const void* ptr;
   uint64_t inner, mid, outer;
-  uint32_t box_mid, box_outer;
+  uint32_t box_mid, box_outer, elem;
   bool operator==(const MapKey& o) const {
     return ptr == o.ptr && inner == o.inner && mid == o.mid && outer == o.outer &&
-           box_mid == o.box_mid && box_outer == o.box_outer;
+           box_mid == o.box_mid && box_outer == o.box_outer && elem == o.elem;
   }
 };
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     size_t h = std::hash<const void*>()(k.ptr);
-    for (uint64_t v : {k.inner, k.mid, k.outer, (uint64_t)k.box_mid, (uint64_t)k.box_outer})
+    for (uint64_t v : {k.inner, k.mid, k.outer, (uint64_t)k.box_mid, (uint64_t)k.box_outer, (uint64_t)k.elem})
       h = h * 1000003u ^ std::hash<uint64_t>()(v);
     return h;
   }
@@ -99,27 +99,30 @@ inline std::mutex& tma_mutex() {
   return mu;
 }
 
-// A bf16 [outer, mid, inner] array, boxes of 64 (inner) x box_mid (mid) x
-// box_outer (outer): 128-byte rows of shared memory with the 128-byte
-// swizzle (16-byte piece j of row r lands at piece j ^ (r % 8) of a
-// 1024-byte-aligned destination).
+// A bf16 (elem 2) or uint8 (elem 1) [outer, mid, inner] array, boxes of 128
+// bytes (inner) x box_mid (mid) x box_outer (outer): 128-byte rows of
+// shared memory with the 128-byte swizzle (16-byte piece j of row r lands
+// at piece j ^ (r % 8) of a 1024-byte-aligned destination), or where a row
+// of the array holds 64 bytes, 64-byte rows with the 64-byte swizzle (piece
+// j of row r at j ^ ((r / 2) % 4)).
 inline bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t mid, uint64_t outer,
-                       uint32_t box_mid, uint32_t box_outer) {
+                       uint32_t box_mid, uint32_t box_outer, uint32_t elem = 2) {
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
-  const MapKey key{ptr, inner, mid, outer, box_mid, box_outer};
+  const MapKey key{ptr, inner, mid, outer, box_mid, box_outer, elem};
   auto hit = maps.find(key);
   if (hit != maps.end()) {
     *out = hit->second;
     return true;
   }
+  const bool wide = elem == 2 || inner * elem >= 128;
   cuuint64_t dims[3] = {inner, mid, outer};
-  cuuint64_t strides[2] = {inner * 2, inner * mid * 2};
-  cuuint32_t box[3] = {64, box_mid, box_outer};
-  cuuint32_t elem[3] = {1, 1, 1};
-  if (cuTensorMapEncodeTiled(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  cuuint64_t strides[2] = {inner * elem, inner * mid * elem};
+  cuuint32_t box[3] = {(wide ? 128u : 64u) / elem, box_mid, box_outer};
+  cuuint32_t elem_strides[3] = {1, 1, 1};
+  if (cuTensorMapEncodeTiled(out, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                             const_cast<void*>(ptr), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             wide ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
   if (maps.size() > 4096) maps.clear();
   maps.emplace(key, *out);

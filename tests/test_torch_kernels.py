@@ -32,12 +32,16 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention_int8_ref,
     decode_attention_ref,
     decode_attention_split_ref,
+    decode_body,
+    decode_plan,
     paged_decode_attention,
     paged_decode_attention_ref,
     k1_body,
     k1_plan,
     split_plan,
     split_rows,
+    tc_blocks_per_sm,
+    tc_rows,
 )
 from repro_torch.kernels.expert_ffn.ops import (
     MAX_STAGES,
@@ -743,6 +747,43 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                 want = decode_attention_int8_ref(*args, logit_cap=cap)
                 assert_close(got, want, tol_for(dtype))
 
+    # K4 and K5 on their Hopper body (bf16, G >= 2) at every (G, head_dim)
+    # instance, softcap on and off: lengths of one row, on a chunk's edge and
+    # one past it, on a range's edge and one past it (the plan at this card's
+    # SM count), and the whole cache, whose last chunk runs past S; NaN in
+    # every K4 row past each slot's length and NaN (K) and inf (V) in every
+    # K5 scale past it: the outputs are finite and within tolerance of the
+    # clean caches' plain versions
+    from repro_torch.models.attention import quantize_kv
+
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for G in [g for g in KERNEL_GROUPS if g >= 2]:
+        for hd in KERNEL_HEAD_DIMS:
+            B, nkv, S, cap = 6, 2, 2000, 30.0 if (G + hd) % 3 else 0.0
+            assert decode_body(torch.bfloat16, G, hd, B * nkv, S, n_sms) == "tc"
+            q = _t(rng.standard_normal((B, G * nkv, hd)).astype(np.float32), "bfloat16", dev)
+            k = torch.randn((B, S, nkv, hd), device=dev).to(torch.bfloat16)
+            v = torch.randn((B, S, nkv, hd), device=dev).to(torch.bfloat16)
+            (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            for int8 in (False, True):
+                R = tc_rows(hd, int8)
+                edge = decode_plan(B, nkv, S, hd, n_sms, int8, tc_blocks_per_sm(dev.index, hd, int8)).pages * R
+                lens = _t(np.array([1, R, R + 1, edge, edge + 1, S], np.int32), device=dev)
+                if int8:
+                    want = decode_attention_int8_ref(q, k8, v8, ks, vs, lens, logit_cap=cap)
+                    ksn, vsn = ks.clone(), vs.clone()
+                    for b, n in enumerate(lens.tolist()):
+                        ksn[b, n:], vsn[b, n:] = float("nan"), float("inf")
+                    got = decode_attention_int8(q, k8, v8, ksn, vsn, lens, logit_cap=cap)
+                else:
+                    want = decode_attention_ref(q, k, v, lens, logit_cap=cap)
+                    kn, vn = k.clone(), v.clone()
+                    for b, n in enumerate(lens.tolist()):
+                        kn[b, n:], vn[b, n:] = float("nan"), float("nan")
+                    got = decode_attention(q, kn, vn, lens, logit_cap=cap)
+                assert torch.isfinite(got.float()).all(), (G, hd, int8)
+                assert_close(got, want, TOL["bf16"])
+
     # K2, integers exact: the reference's sweep with padding; the Fig. 15
     # grid; all padding, one token, more instances than lanes (n_e 40, rows
     # of 40 replicas), E 512 (past 48 KB of shared memory), forced ties;
@@ -791,22 +832,27 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     # boundaries each wrapper chooses, every G and head_dim the kernels are
     # built for; outputs are ~0.01 here, so TOL["bf16"] would pass a dropped
     # chunk: each is held within one bf16 rounding of its f32 oracle
-    from repro_torch.models.attention import quantize_kv
-
     S, ps, B, nkv = 32768, 16, 4, 2
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for G in KERNEL_GROUPS:
         for hd in KERNEL_HEAD_DIMS:
             q = torch.from_numpy(rng.standard_normal((B, G * nkv, hd)).astype(np.float32))
             q = q.to(dev).to(torch.bfloat16)
             k = torch.randn((B, S, nkv, hd), device=dev).to(torch.bfloat16)
             v = torch.randn((B, S, nkv, hd), device=dev).to(torch.bfloat16)
+            # lengths on and beside the edges of both bodies' ranges (the
+            # Hopper body's decode_plan, the CUDA-core body's split_plan), so
+            # the body that runs at this G has lengths on its own edges
             _, rows = split_plan(B, nkv, S, n_sms)
-            lens = _t(np.array([rows, rows + 1, S, 17], np.int32), device=dev)
-            assert_one_rounding(decode_attention(q, k, v, lens), decode_attention_ref(q, k, v, lens))
+            for edge in (rows, decode_plan(B, nkv, S, hd, n_sms, False, tc_blocks_per_sm(dev.index, hd, False)).pages
+                         * tc_rows(hd)):
+                lens = _t(np.array([edge, edge + 1, S, 17], np.int32), device=dev)
+                assert_one_rounding(decode_attention(q, k, v, lens), decode_attention_ref(q, k, v, lens))
             (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
-            want = decode_attention_ref(q, k8.float() * ks[..., None], v8.float() * vs[..., None], lens)
-            assert_one_rounding(decode_attention_int8(q, k8, v8, ks, vs, lens), want)
+            for edge in (rows, decode_plan(B, nkv, S, hd, n_sms, True, tc_blocks_per_sm(dev.index, hd, True)).pages
+                         * tc_rows(hd, True)):
+                lens = _t(np.array([edge, edge + 1, S, 17], np.int32), device=dev)
+                want = decode_attention_ref(q, k8.float() * ks[..., None], v8.float() * vs[..., None], lens)
+                assert_one_rounding(decode_attention_int8(q, k8, v8, ks, vs, lens), want)
             del k8, ks, v8, vs, want
             # K1: the same rows as pages of a pool, in a random order, its
             # lengths on and beside the edges of both bodies' ranges (the
@@ -820,6 +866,25 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                 assert_one_rounding(paged_decode_attention(q, kp, vp, bt, lens),
                                     paged_decode_attention_ref(q, kp, vp, bt, lens))
             del kp, vp
+
+    # K4 and K5 on the CUDA-core body's bf16 split-KV and its merge kernel at
+    # 32k: decode_32k's 8 slots of 16 KV heads at G = 1, every head_dim,
+    # lengths on and beside split_plan's range edges, one rounding each
+    B, nkv = 8, 16
+    n_split, rows = split_plan(B, nkv, S, n_sms)
+    assert n_split > 1
+    lens = _t(np.array([rows, rows + 1, 2 * rows, 2 * rows + 1, S, S - 1, 17, 1], np.int32), device=dev)
+    for hd in KERNEL_HEAD_DIMS:
+        assert decode_body(torch.bfloat16, 1, hd, B * nkv, S, n_sms) == "attend"
+        q = _t(rng.standard_normal((B, nkv, hd)).astype(np.float32), "bfloat16", dev)
+        k = torch.randn((B, S, nkv, hd), device=dev).to(torch.bfloat16)
+        v = torch.randn((B, S, nkv, hd), device=dev).to(torch.bfloat16)
+        assert_one_rounding(decode_attention(q, k, v, lens), decode_attention_ref(q, k, v, lens))
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        del k, v
+        want = decode_attention_ref(q, k8.float() * ks[..., None], v8.float() * vs[..., None], lens)
+        assert_one_rounding(decode_attention_int8(q, k8, v8, ks, vs, lens), want)
+        del k8, ks, v8, vs, want
 
     # K3: stacked and slot-indirect maps, with empty and inactive slots; CAP
     # from one row to a prefill chunk, to the most the bf16 kernel holds in

@@ -18,20 +18,20 @@ import torch
 from _torch_parity import TOL, assert_close, assert_one_rounding, nan_past_lengths, rounding_excess
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.kernels.decode_attention.ops import (
-    K1_HEADS,
-    K1_RING_BYTES,
-    K1_SMEM_LIMIT,
-    K1_WARPS,
     KERNEL_GROUPS,
     KERNEL_HEAD_DIMS,
+    TC_HEADS,
+    TC_RING_BYTES,
+    TC_SMEM_LIMIT,
+    TC_WARPS,
     decode_attention_split_ref,
     k1_body,
     k1_plan,
-    k1_smem_bytes,
-    k1_stages,
     paged_decode_attention_ref,
     paged_decode_attention_tiled_ref,
     split_rows,
+    tc_smem_bytes,
+    tc_stages,
 )
 
 H100_SMS = 132
@@ -155,18 +155,18 @@ def test_k1_plan_covers_the_table_and_fits(B, nkv, nblk, ps, hd):
     """K1's plan: ranges of whole pages that cover the block table, the
     last range not empty; the serving rows split too, so the grid holds
     at least one block an SM wherever the table has pages enough; a ring
-    within K1_RING_BYTES (or one stage) and the block's shared memory,
+    within TC_RING_BYTES (or one stage) and the block's shared memory,
     fewer stages than consumer warps or a multiple of them; and
     its ranges are :func:`split_rows`'s, so ``decode_attention_split_ref``
     models them with ``chunk`` = the page size."""
     plan = k1_plan(B, nkv, nblk, ps, hd, H100_SMS)
     assert plan.n_split * plan.pages >= nblk > (plan.n_split - 1) * plan.pages
     assert B * nkv * plan.n_split >= min(H100_SMS, B * nkv * nblk)
-    assert plan.stages >= 1 and (plan.stages <= K1_WARPS or plan.stages % K1_WARPS == 0)
-    assert plan.stages >= min(plan.pages, K1_WARPS) or plan.stages == k1_stages(hd, ps, 1)
+    assert plan.stages >= 1 and (plan.stages <= TC_WARPS or plan.stages % TC_WARPS == 0)
+    assert plan.stages >= min(plan.pages, TC_WARPS) or plan.stages == tc_stages(hd, ps, 1)
     stage_bytes = 2 * (hd // 64) * 16 * -(-ps // 16) * 128  # a page's K and V rows of one head
-    assert plan.stages == 1 or plan.stages * stage_bytes <= K1_RING_BYTES
-    assert k1_smem_bytes(hd, ps, plan.stages) <= K1_SMEM_LIMIT
+    assert plan.stages == 1 or plan.stages * stage_bytes <= TC_RING_BYTES
+    assert tc_smem_bytes(hd, ps, plan.stages) <= TC_SMEM_LIMIT
     assert split_rows(nblk * ps, plan.n_split, ps) == plan.pages * ps
 
 
@@ -201,20 +201,20 @@ def test_k1_body_dispatch():
     assert k1_body(torch.bfloat16, 2, 256, 224) == "tc"
     assert k1_body(torch.bfloat16, 2, 256, 232) == "attend"
     assert k1_body(torch.bfloat16, 7, 64, 257) == "attend"
-    assert K1_HEADS >= max(KERNEL_GROUPS)
+    assert TC_HEADS >= max(KERNEL_GROUPS)
 
 
 @pytest.mark.parametrize("hd,ps", [(64, 4), (64, 16), (128, 8), (128, 16), (256, 16), (256, 32), (256, 224)])
 def test_k1_stages_keep_each_stage_one_warps(hd, ps):
-    """The consumer warps are min(K1_WARPS, stages) and warp w takes pages
+    """The consumer warps are min(TC_WARPS, stages) and warp w takes pages
     w, w + nw, ...; the page that used a stage before page i must be the
     same warp's earlier page (a parity wait on a stage whose earlier page
     has not landed would pass at once), which holds when stages is below
-    K1_WARPS or a multiple of it, for any range length."""
+    TC_WARPS or a multiple of it, for any range length."""
     for pages in range(1, 40):
-        stages = k1_stages(hd, ps, pages)
-        assert 1 <= stages and k1_smem_bytes(hd, ps, stages) <= K1_SMEM_LIMIT
-        nw = min(K1_WARPS, stages)
+        stages = tc_stages(hd, ps, pages)
+        assert 1 <= stages and tc_smem_bytes(hd, ps, stages) <= TC_SMEM_LIMIT
+        nw = min(TC_WARPS, stages)
         for i in range(stages, pages):
             assert (i - stages) % nw == i % nw
-        assert stages >= min(pages, k1_stages(hd, ps, 10**6))  # the whole range in flight where it fits
+        assert stages >= min(pages, tc_stages(hd, ps, 10**6))  # the whole range in flight where it fits
